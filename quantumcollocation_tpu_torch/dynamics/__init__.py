@@ -1,0 +1,35 @@
+from .expm import (
+    default_num_squarings,
+    expm_frechet_bank,
+    expm_pade,
+    expm_squaring,
+    frechet_pairs,
+    pade_coefficients,
+    pade_numerator_denominator,
+    pade_poly_frechet,
+)
+from .integrators import (
+    DerivativeIntegrator,
+    TimeStepEqualityIntegrator,
+    UnitaryExponentialIntegrator,
+    UnitaryPadeIntegrator,
+)
+from .rollouts import batched_rollout_fidelity, unitary_rollout, unitary_rollout_fidelity
+
+__all__ = [
+    "DerivativeIntegrator",
+    "TimeStepEqualityIntegrator",
+    "UnitaryExponentialIntegrator",
+    "UnitaryPadeIntegrator",
+    "batched_rollout_fidelity",
+    "default_num_squarings",
+    "expm_frechet_bank",
+    "expm_pade",
+    "expm_squaring",
+    "frechet_pairs",
+    "pade_coefficients",
+    "pade_numerator_denominator",
+    "pade_poly_frechet",
+    "unitary_rollout",
+    "unitary_rollout_fidelity",
+]

@@ -1,0 +1,100 @@
+"""Carry a problem's data from the JAX package into the port.
+
+This system has no weights: its parameters are the problem data.
+`problem_arrays` reads a JAX-package problem as plain numpy (the system's
+Hamiltonians and generators, the trajectory with its bounds and pins, the
+initial decision Z0, and the solver's variable, defect and objective
+scales).  It only reads attributes and calls numpy, so it imports nothing
+of JAX.  `unitary_smooth_pulse_from_arrays` builds the port's problem from
+those arrays and checks that the port derives the same NLP scaling.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .problems.unitary_smooth_pulse import UnitarySmoothPulseProblem
+from .quantum.systems import QuantumSystem
+from .trajectory.named_trajectory import NamedTrajectory
+
+__all__ = [
+    "problem_arrays",
+    "system_from_arrays",
+    "trajectory_from_arrays",
+    "unitary_smooth_pulse_from_arrays",
+]
+
+
+def problem_arrays(prob, batch: int = 1) -> dict:
+    """numpy snapshot of a JAX-package QuantumControlProblem."""
+    traj = prob.trajectory
+    solver = prob.solver
+    analytic = solver.nlp.analytic
+    return {
+        "H_drift": np.asarray(prob.system.H_drift),
+        "H_drives": np.asarray(prob.system.H_drives),
+        "G_drift": np.asarray(prob.system.G_drift),
+        "G_drives": np.asarray(prob.system.G_drives),
+        "data": np.asarray(traj.data, dtype=np.float64),
+        "components": dict(traj.components),
+        "controls": tuple(traj.controls),
+        "timestep": traj.timestep,
+        "bounds": {k: (np.asarray(lo), np.asarray(hi)) for k, (lo, hi) in traj.bounds.items()},
+        "initial": {k: np.asarray(v) for k, v in traj.initial.items()},
+        "final": {k: np.asarray(v) for k, v in traj.final.items()},
+        "goal": {k: np.asarray(v) for k, v in traj.goal.items()},
+        "Z0": np.asarray(prob.initial_decision(batch), dtype=np.float64),
+        "var_scale": np.asarray(solver.var_scale, dtype=np.float64),
+        "obj_scale": float(solver.obj_scale),
+        "defect_scale": (
+            np.asarray(analytic.defect_scale, dtype=np.float64)
+            if analytic is not None and analytic.defect_scale is not None
+            else None
+        ),
+    }
+
+
+def system_from_arrays(arrays) -> QuantumSystem:
+    """The port's QuantumSystem; its generators must equal the source's."""
+    system = QuantumSystem(arrays["H_drift"], list(arrays["H_drives"]))
+    if not (np.allclose(system.G_drift, arrays["G_drift"])
+            and np.allclose(system.G_drives, arrays["G_drives"])):
+        raise ValueError("iso generators differ from the source problem's")
+    return system
+
+
+def trajectory_from_arrays(arrays) -> NamedTrajectory:
+    data = arrays["data"]
+    comps = {name: data[:, a:b] for name, (a, b) in arrays["components"].items()}
+    return NamedTrajectory(
+        comps, controls=arrays["controls"], timestep=arrays["timestep"],
+        bounds=arrays["bounds"], initial=arrays["initial"], final=arrays["final"],
+        goal=arrays["goal"],
+    )
+
+
+def unitary_smooth_pulse_from_arrays(
+    arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    UnitarySmoothPulseProblem built with the same Q and R.  Raises if the
+    port's NLP scaling differs from the source's by more than rtol."""
+    traj = trajectory_from_arrays(arrays)
+    prob = UnitarySmoothPulseProblem(
+        system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
+        init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
+        piccolo_options=piccolo_options, device=device,
+    )
+    solver = prob.solver
+    checks = {
+        "var_scale": (solver.var_scale, arrays["var_scale"]),
+        "obj_scale": (solver.obj_scale, arrays["obj_scale"]),
+    }
+    if arrays["defect_scale"] is not None:
+        checks["defect_scale"] = (solver.defect_scale, arrays["defect_scale"])
+    for name, (mine, theirs) in checks.items():
+        if not np.allclose(mine, theirs, rtol=rtol, atol=0.0):
+            raise ValueError(f"{name} differs from the source problem's")
+    Z0 = torch.as_tensor(np.array(arrays["Z0"]), dtype=prob.dtype, device=prob.device)
+    return prob, Z0

@@ -1,0 +1,81 @@
+"""Where one IPM iteration of the main-path solve spends its time.
+
+    python -m quantumcollocation_tpu_torch.profile_step [--steps 3]
+
+Builds the batched Hadamard problem of chip_smoke.py (B=512, T=51,
+Q=1e4, R=1e-3, filter line search, float32 on CUDA), runs two warm-up
+iterations, then profiles `--steps` iterations with torch.profiler and
+prints one JSON line: host wall per iteration, device-busy time per
+iteration (the sum of kernel times), the idle share, the CUDA launch
+count, and the kernels with the most device time.  The profiler slows
+the host, so the wall and idle share read high; the kernel times do not.
+Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from . import GATES, PiccoloOptions, QuantumSystem, SolverOptions, UnitarySmoothPulseProblem
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=512)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA GPU")
+    B, T = args.batch, 51
+    sysq = QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]])
+    prob = UnitarySmoothPulseProblem(
+        sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3,
+        ipopt_options=SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter"),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+    )
+    solver = prob.solver
+    z0 = prob.initial_decision(1)[0]
+    a_sl = prob.trajectory.comp_slice("a")
+    rng = np.random.default_rng(42)
+    Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
+    Z0[:, 1:-1, a_sl] += 0.1 * rng.standard_normal((B, T - 2, 2))
+    st = solver.init_state(Z0)
+    for _ in range(2):
+        st = solver.step(st)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            st = solver.step(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device kernels only: an aten op's own device time repeats its kernels'
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    print(json.dumps({
+        "phase": "profile", "device": torch.cuda.get_device_name(0), "batch": B,
+        "steps": args.steps, "wall_ms_per_iter": 1e3 * wall / args.steps,
+        "device_ms_per_iter": 1e-3 * device_us / args.steps,
+        "idle_share": 1.0 - 1e-6 * device_us / wall,
+        "kernel_launches_per_iter": sum(e.count for e in events) / args.steps,
+        "top": [
+            {"name": e.key[:80], "device_ms_per_iter": 1e-3 * e.self_device_time_total / args.steps,
+             "count_per_iter": e.count / args.steps}
+            for e in top
+        ],
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

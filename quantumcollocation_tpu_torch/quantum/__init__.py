@@ -1,0 +1,27 @@
+from .fidelities import iso_vec_unitary_fidelity, unitary_fidelity
+from .isomorphisms import (
+    iso_G,
+    iso_operator_to_iso_vec,
+    iso_operator_to_operator,
+    iso_vec_to_iso_operator,
+    iso_vec_to_operator,
+    operator_to_iso_operator,
+    operator_to_iso_vec,
+)
+from .operators import GATES, PAULIS
+from .systems import QuantumSystem
+
+__all__ = [
+    "GATES",
+    "PAULIS",
+    "QuantumSystem",
+    "iso_G",
+    "iso_operator_to_iso_vec",
+    "iso_operator_to_operator",
+    "iso_vec_to_iso_operator",
+    "iso_vec_to_operator",
+    "iso_vec_unitary_fidelity",
+    "operator_to_iso_operator",
+    "operator_to_iso_vec",
+    "unitary_fidelity",
+]
