@@ -6,18 +6,36 @@ Phases, one JSON object per line on stdout:
   1. environment: torch/CUDA versions and the card (the nvidia-smi name and
      power-limit line is printed on its own line); TF32 off;
   2. build: every CUDA kernel of the port, compiled from csrc/ in parallel;
-  3. kernels: each kernel against its plain PyTorch version on the card, on
-     the inputs of the first IPM iteration of the phase-4 problem, with
-     times (CUDA events, median of 20 after warm-up) and bounds;
-  4. main path: the batched Hadamard smooth-pulse solve (B=512, T=51,
+  3. kernels, Hadamard shapes: each kernel of that path against its plain
+     PyTorch version on the card, on the inputs of the first IPM iteration
+     of the phase-4 problem, with times (CUDA events, median of 20 after
+     warm-up) and bounds; the bank kernel runs there only for the
+     multiplier initialisation's Jacobian;
+  4. main path, Hadamard: the batched smooth-pulse solve (B=512, T=51,
      Q=1e4, R=1e-3, 48 iterations, filter line search, kappa_mu 0.2,
      tol 1e-5, float32) through UnitarySmoothPulseProblem; one discarded
      warm-up solve, then a timed one with the kernels' launch counts;
      checked by a float64 rollout (converged_frac at infidelity <= 1e-4);
-  5. reference: the kernel path's KKT step on the first iteration's real
-     system against the float64 CPU solve, beside the plain float32 path;
-then the kernels line, and last {"ok": true, "device": {...}}.  Any failed
-check exits nonzero before the last line.  Without CUDA it exits 1.
+  5. reference, Hadamard: the kernel path's KKT step on the first
+     iteration's real system against the float64 CPU solve, beside the
+     plain float32 path; and the bounds, at these shapes, of the two TPU
+     kernels not ported yet (the lanes_scan per-knot steps);
+  6. kernels, CNOT shapes: the bank kernel (4,992 pairs, n=8, K=5), the
+     forward sweep with kept factors, the backward sweep and the rhs-only
+     forward sweep (B=128, T=40, d=47, s=42) against their plain versions;
+  7. main path, CNOT (BASELINE #3): the two-qubit smooth-pulse solve at
+     fixed time (B=128, T=40, Δt=0.3, Q=1e4, R=1e-3, 80 iterations,
+     kkt_backend "lanes", so the fused assembly is off and each KKT
+     attempt is refined once through its kept factors), seeds from
+     multistart_initial_decisions; one discarded warm-up solve of a few
+     iterations, then the timed one; checked by a float64 rollout (the
+     fractions at infidelity <= 1e-4, 1e-3, 1e-2; frac@1e-4 >= 0.9);
+  8. reference, CNOT: on the first iteration's real KKT system, the
+     float32 kernel path's error against the float64 CPU solve with 0 and
+     with 1 refinement pass, beside the plain float32 path's;
+then the kernels line, and last {"ok": true, "device": {...}}.  Each main
+path checks its own kernels' launch counts.  Any failed check exits
+nonzero before the last line.  Without CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -33,12 +51,25 @@ import numpy as np
 import torch
 
 B, T, ITERS = 512, 51, 48
+CX_B, CX_T, CX_DT, CX_ITERS, CX_WARM = 128, 40, 0.3, 80, 3
 # float32 tolerances, relative to the largest entry of the plain output:
 # the kernel and its plain version round in different orders (a Horner
 # chain per thread vs batched matmuls; scalar Cholesky loops vs batched
 # LAPACK-style factorizations), and the sweeps' error grows with the
 # conditioning of the regularized KKT blocks
-TOL = {"dyn_assembly": 1e-4, "kkt_fwd_sweep": 1e-4, "kkt_bwd_sweep": 1e-4}
+TOL = 1e-4
+SRC = "quantumcollocation_tpu_torch/csrc/"
+REPLACES = {
+    "dyn_assembly": "quantumcollocation_tpu/ops/pallas_dyn_assembly.py:188",
+    "prop_bank": "quantumcollocation_tpu/ops/pallas_prop_bank.py:68",
+    "kkt_fwd_sweep": "quantumcollocation_tpu/solver/kkt_lanes.py:484",
+    "kkt_bwd_sweep": "quantumcollocation_tpu/solver/kkt_lanes.py:565",
+    "kkt_rhs_fwd_sweep": "quantumcollocation_tpu/solver/kkt_lanes.py:540",
+}
+SOURCE = {"dyn_assembly": SRC + "dyn_assembly.cu", "prop_bank": SRC + "prop_bank.cu",
+          "kkt_fwd_sweep": SRC + "kkt_sweeps.cu", "kkt_bwd_sweep": SRC + "kkt_sweeps.cu",
+          "kkt_rhs_fwd_sweep": SRC + "kkt_sweeps.cu"}
+F4 = 4  # bytes per float32
 
 
 def emit(obj):
@@ -86,6 +117,102 @@ def rel_err(out, ref, keep=None):
     return err, err / scale
 
 
+def seeded_kkt(Bn, Tn, d, s, device):
+    """Seeded blocks of the given shapes, shaped like dynamics defects
+    (A ≈ -I, B ≈ I) and definite, so that float32 resolves them (their
+    float32 error against float64 is ~1e-6 relative at d=15).  At the
+    two-qubit size the noise shrinks with d, and B ≈ I/2 makes the chain
+    contract: with B ≈ I the eliminated blocks sum H along the 40 knots,
+    and the carried rhs reaches ~7e3, where float32 rounding alone is
+    ~8e-5 of it (a CPU float32-vs-float64 probe)."""
+    rng = np.random.default_rng(0)
+    small = d <= 16
+    w = 0.3 if small else 1.0 / np.sqrt(d)
+    Hs = np.eye(d) * 3 + w * rng.normal(size=(Bn, Tn, d, d))
+    E = np.eye(s, d)
+    out = [0.5 * (Hs + np.swapaxes(Hs, -1, -2)),
+           (0.2 if small else 0.7 * w) * rng.normal(size=(Bn, Tn - 1, d, d)),
+           -E + 0.1 * rng.normal(size=(Bn, Tn - 1, s, d)),
+           (1.0 if small else 0.5) * E + 0.1 * rng.normal(size=(Bn, Tn - 1, s, d)),
+           rng.normal(size=(Bn, Tn, d)), rng.normal(size=(Bn, Tn - 1, s)),
+           rng.normal(size=(Bn, Tn, d)), rng.normal(size=(Bn, Tn - 1, s))]
+    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in out]
+
+
+def sweep_counts(Bn, Tn, d, s, kernel, factors=False):
+    """(bytes, flops) of one sweep call: each input read once, each output
+    written once; flops of the elimination's products and triangular
+    solves."""
+    Tm1 = Tn - 1
+    if kernel == "kkt_fwd_sweep":
+        # chol(P); P^-1 [A^T | C | q]; A [X_A | X_C | x]; chol(S);
+        # S^-1 [G | r]; G^T (S^-1 [G | r]) and C^T [X_C | x], once each
+        per_knot = (d**3 / 3 + 2 * d * d * (s + d + 1) + 2 * s * d * (s + d + 1)
+                    + s**3 / 3 + 2 * s * s * (d + 1) + 2 * d * s * (d + 1)
+                    + 2 * d * d * (d + 1))
+        flops = Bn * (Tm1 * per_knot + d**3 / 3 + 2 * d * d)
+        reads = Tn * d * d + Tm1 * (d * d + 2 * s * d + s) + Tn * d
+        writes = Tm1 * (d * d + s * s + d * s + d) + d
+        if factors:
+            writes += Tm1 * s * d + d * d
+        return F4 * Bn * (reads + writes), flops
+    if kernel == "kkt_bwd_sweep":
+        per_knot = 2 * d * d + 4 * s * d + 2 * d * d + 2 * s * s + 2 * d * s
+        nbytes = F4 * Bn * (Tm1 * (d * d + s * s + d * s + d + d * d + 2 * s * d + s)
+                            + d + Tm1 * (d + s))
+        return nbytes, Bn * Tm1 * per_knot
+    # kkt_rhs_fwd_sweep: L_P, L_S, G, C, A, rz, rnu, L_Pf in; q, dz_{T-1} out
+    per_knot = 2 * d * d + 2 * s * d + 2 * s * s + 2 * s * d + 2 * d * d + 3 * d + s
+    reads = Tm1 * (d * d + s * s + s * d + d * d + s * d + s) + Tn * d + d * d
+    writes = Tm1 * d + d
+    return F4 * Bn * (reads + writes), Bn * (Tm1 * per_knot + 2 * d * d + d)
+
+
+def step_counts(Bn, Tn, d, s):
+    """(bytes, flops) of one solve through the per-knot kernels of the
+    lanes_scan backend (solver/kkt_lanes.py::_fwd_step_kernel and
+    ::_bwd_step_kernel, not ported), T-1 calls each: every call reads and
+    writes its blocks as listed in its pallas_call specs, the Riccati
+    carry included."""
+    fwd_io = 3 * d * d + 2 * d + 2 * s * d + s + (2 * d * d + 2 * d + s * s + d * s)
+    fwd_fl = (d**3 / 3 + 2 * d * d * s + 2 * d**3 + 2 * d * d + 2 * s * s * d + s**3 / 3
+              + 2 * s * d * d + 2 * s * d + 2 * s * s + 2 * s * s * d + 2 * d**3
+              + 2 * d * d * s + 2 * d * d + 2 * s * d)
+    bwd_io = 2 * d + 2 * d * d + s * s + d * s + 2 * s * d + s + (d + s)
+    bwd_fl = 2 * d * d + 2 * s * d + 2 * d * d + 2 * s * d + 2 * s * s + 2 * d * s
+    Tm1 = Tn - 1
+    return {"kkt_fwd_step": (F4 * Bn * Tm1 * fwd_io, Bn * Tm1 * fwd_fl),
+            "kkt_bwd_step": (F4 * Bn * Tm1 * bwd_io, Bn * Tm1 * bwd_fl)}
+
+
+def bank_counts(M, n, na, free_dt, order=4):
+    """(bytes, flops) of one bank call: a and dt in, the generators once,
+    N, D and their derivatives out; the products the Horner recursion
+    needs.  Its first step starts from acc = c I with zero derivatives, so
+    it only scales (n^2 per output matrix); after it, d2acc is nonzero only
+    for the (a_k, dt) pairs of a free dt until the third step."""
+    K = na + int(free_dt)
+    Kp = K * (K + 1) // 2
+    extra = na if free_dt else 0  # pairs (a_k, dt): d2X_p = G_k
+    products = 0
+    for step in range(2, order // 2 + 1):
+        # X acc, dX_k acc + X dacc_k, dX_k dacc_l + dX_l dacc_k, d2X_p acc,
+        # X d2acc_p where d2acc_p is nonzero
+        products += 1 + 2 * K + 2 * Kp + extra + (Kp if step > 2 else extra)
+    per_sign = (1 + K + Kp) * n * n + products * 2 * n**3
+    flops = M * (2 * na * n * n + 2 * per_sign)
+    nbytes = F4 * (M * (na + 1) + (na + 1) * n * n + 2 * M * (1 + K + Kp) * n * n)
+    return nbytes, flops
+
+
+def finish(results, bw, f32_peak):
+    for r in results.values():
+        r["bound_ms"] = 1e3 * max(r["bytes"] / bw, r["flops"] / f32_peak)
+        r["bound_by"] = "bytes" if r["bytes"] / bw >= r["flops"] / f32_peak else "operations"
+        r["tol"] = TOL
+        r["ok"] = bool(r["max_rel_err"] <= TOL)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
@@ -93,6 +220,7 @@ def main():
     sys.path.insert(0, here)
     import quantumcollocation_tpu_torch as q
     from quantumcollocation_tpu_torch.ops import build
+    from quantumcollocation_tpu_torch.ops import prop_bank as pb
     from quantumcollocation_tpu_torch.ops.dyn_assembly import (
         dyn_assembly_cuda,
         dyn_assembly_reference,
@@ -113,12 +241,106 @@ def main():
           "python": sys.version.split()[0], "device": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi, "tf32": False})
     bw, f32_peak = card_rates(kind)
+    t_start = time.perf_counter()
 
     # ---- 2. build ------------------------------------------------------ #
     build_s = build.build_all()
     emit({"phase": "build", "sources": sorted(build.SOURCES.values()), "build_s": build_s})
 
-    # ---- the main-path problem ------------------------------------------ #
+    def bank_entry(Z, analytic, v):
+        """The bank kernel against its plain version on the pairs of Z."""
+        (g,) = analytic.groups
+        Zp = Z * torch.as_tensor(v, dtype=Z.dtype, device=Z.device)
+        na = g.G_drives.shape[0]
+        a = Zp[:, :-1, g.a_slice[0]:g.a_slice[1]].reshape(-1, na).contiguous()
+        free = g.dt_col is not None
+        dt = (Zp[:, :-1, g.dt_col].reshape(-1).contiguous() if free
+              else torch.full((a.shape[0],), g.dt_static, dtype=Z.dtype, device=Z.device))
+        Gd = torch.as_tensor(g.G_drift, dtype=Z.dtype, device=Z.device)
+        Gs = torch.as_tensor(g.G_drives, dtype=Z.dtype, device=Z.device)
+        kw = dict(kind="pade", order=g.order, free_dt=free, second_order=True)
+        k_out = pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)
+        r_out = pb.prop_bank_reference(a, dt, Gd, Gs, **kw)
+        errs = [rel_err(x, y) for x, y in zip(k_out, r_out)]
+        nbytes, flops = bank_counts(a.shape[0], Gd.shape[0], na, free, g.order)
+        return dict(
+            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+            ms=time_ms(lambda: pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)),
+            plain_ms=time_ms(lambda: pb.prop_bank_reference(a, dt, Gd, Gs, **kw)),
+            bytes=nbytes, flops=flops,
+            shapes={"M": a.shape[0], "n": Gd.shape[0], "K": na + int(free), "free_dt": free},
+        )
+
+    def sweep_entries(real, Bn, Tn, delta_c, factors):
+        """Kernels 2, 3 (and 4 with factors) against their plain versions
+        on seeded blocks of the path's shapes; times on the path's real
+        first-iteration blocks (H with the accepted δ_w)."""
+        d, s = real[0].shape[-1], real[2].shape[-2]
+        dev = real[0].device
+        seeded = seeded_kkt(Bn, Tn, d, s, dev)
+        mats, rhs, rhs2 = seeded[:4], seeded[4:6], seeded[6:]
+        out = {}
+        k_f = list(kl.fwd_sweep_cuda(*mats, *rhs, delta_c, want_factors=factors))
+        k_f[4] = k_f[4][:, -1]
+        ref_f = kl.fwd_sweep_reference(*mats, *rhs, delta_c, want_factors=factors)
+        errs = [rel_err(a, b) for a, b in zip(k_f, ref_f[:5] + ref_f[6:])]
+        nbytes, flops = sweep_counts(Bn, Tn, d, s, "kkt_fwd_sweep", factors)
+        out["kkt_fwd_sweep"] = dict(
+            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+            ms=time_ms(lambda: kl.fwd_sweep_cuda(*real, delta_c, want_factors=factors)),
+            plain_ms=time_ms(lambda: kl.fwd_sweep_reference(*real, delta_c, factors)),
+            bytes=nbytes, flops=flops, kept_factors=factors,
+        )
+
+        def bwd_args(L_P, L_S, X_A, qs, dz_last, C_, A_, B_, rnu_):
+            dz0 = torch.empty(Bn, Tn, d, dtype=L_P.dtype, device=dev)
+            dz0[:, -1] = dz_last
+            return (L_P, L_S, X_A, qs, C_, A_, B_, rnu_, dz0)
+
+        L_P, L_S, X_A, qs, dz_last = ref_f[:5]
+        sC, sA, sB, srnu = mats[1], mats[2], mats[3], rhs[1]
+        dz_k, nu_k = kl.bwd_sweep_cuda(*bwd_args(L_P, L_S, X_A, qs, dz_last, sC, sA, sB, srnu))
+        dz_r, nu_r = kl.bwd_sweep_reference(L_P, L_S, X_A, qs, sC, sA, sB, srnu, dz_last)
+        errs = [rel_err(dz_k, dz_r), rel_err(nu_k, nu_r)]
+        rf = kl.fwd_sweep_reference(*real, delta_c, factors)
+        C, A, Bj, rnu = real[1], real[2], real[3], real[5]
+        real_bwd = bwd_args(*rf[:5], C, A, Bj, rnu)
+        nbytes, flops = sweep_counts(Bn, Tn, d, s, "kkt_bwd_sweep")
+        out["kkt_bwd_sweep"] = dict(
+            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+            ms=time_ms(lambda: kl.bwd_sweep_cuda(*real_bwd)),
+            plain_ms=time_ms(lambda: kl.bwd_sweep_reference(*rf[:4], C, A, Bj, rnu, rf[4])),
+            bytes=nbytes, flops=flops,
+        )
+        if factors:
+            G, L_Pf = ref_f[6].contiguous(), ref_f[7].contiguous()
+            q_k, dz_k = kl.rhs_fwd_sweep_cuda(L_P, L_S, G, sC, sA, *rhs2, L_Pf)
+            q_r, dzl_r = kl.rhs_fwd_sweep_reference(L_P, L_S, G, sC, sA, *rhs2, L_Pf)
+            errs = [rel_err(q_k, q_r), rel_err(dz_k[:, -1], dzl_r)]
+            rz, rG, rL_Pf = real[4], rf[6].contiguous(), rf[7].contiguous()
+            nbytes, flops = sweep_counts(Bn, Tn, d, s, "kkt_rhs_fwd_sweep")
+            out["kkt_rhs_fwd_sweep"] = dict(
+                max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+                ms=time_ms(lambda: kl.rhs_fwd_sweep_cuda(rf[0], rf[1], rG, C, A, rz, rnu,
+                                                         rL_Pf)),
+                plain_ms=time_ms(lambda: kl.rhs_fwd_sweep_reference(rf[0], rf[1], rG, C, A, rz,
+                                                                    rnu, rL_Pf)),
+                bytes=nbytes, flops=flops,
+            )
+        return out
+
+    def first_iteration(solver, Z0):
+        """The first IPM iteration's state, KKT blocks (H with the accepted
+        δ_w) and δ_w."""
+        st = solver.init_state(Z0)
+        kkt_in, _ = solver._iteration_pre(st)
+        out = solver._solve_kkt_batched(kkt_in, st.delta_w, st, False)
+        dw = out[3]
+        H, C, A, Bj, rz, rnu = [x.contiguous() for x in kkt_in]
+        Hreg = (H + dw[:, None, None, None] * torch.eye(H.shape[-1], device=H.device)).contiguous()
+        return st, (H, C, A, Bj, rz, rnu), (Hreg, C, A, Bj, rz, rnu), dw
+
+    # ---- the Hadamard problem -------------------------------------------- #
     sysq = q.QuantumSystem(q.GATES["Z"], [q.GATES["X"], q.GATES["Y"]])
     prob = q.UnitarySmoothPulseProblem(
         sysq, q.GATES["H"], T, 0.2, Q=1e4, R=1e-3,
@@ -139,20 +361,14 @@ def main():
         Z0[:, 1:-1, a_sl] += 0.1 * rng.standard_normal((B, T - 2, a_sl.stop - a_sl.start))
         return Z0
 
-    # ---- 3. kernels on the first iteration's inputs --------------------- #
+    # ---- 3. kernels on the first Hadamard iteration's inputs -------------- #
     with torch.no_grad():
-        st = solver.init_state(seeds(7))
-        kkt_in, _ = solver._iteration_pre(st)
-        out = solver._solve_kkt_batched(kkt_in, st.delta_w, st, False)
-        dw = out[3]
-        H, C, A, Bj, rz, rnu = [x.contiguous() for x in kkt_in]
-        H = (H + dw[:, None, None, None] * torch.eye(H.shape[-1], device=H.device)).contiguous()
+        st, _, real, _ = first_iteration(solver, seeds(7))
         analytic = solver.nlp.analytic
         Z, lam = st.Z.contiguous(), st.lam.contiguous()
         d, s = Z.shape[-1], lam.shape[-1]
         delta_c = solver.options.delta_c
         results = {}
-        f4 = 4
 
         # kernel 1: fused assembly
         k_out = dyn_assembly_cuda(analytic, Z, lam)
@@ -161,97 +377,38 @@ def main():
         n_pairs = B * (T - 1)
         n, K = 4, 3
         KP = K * (K + 1) // 2
-        mm = 2 * n**3
-        horner = 2 * 2 * (3 * KP + 2 + 2 * K + 1) * mm  # two signs, two steps (order 4)
         member = (2 * (1 + K) * n * n * 2 + 2 * KP * n * n + 4 * K * n * n * 2)
-        flops = n_pairs * (horner + member)
-        nbytes = f4 * (Z.numel() + lam.numel() + sum(x.numel() for x in k_out))
+        flops = bank_counts(n_pairs, n, K - 1, True)[1] + n_pairs * member
+        nbytes = F4 * (Z.numel() + lam.numel() + sum(x.numel() for x in k_out))
         results["dyn_assembly"] = dict(
-            source="quantumcollocation_tpu_torch/csrc/dyn_assembly.cu",
-            replaces="quantumcollocation_tpu/ops/pallas_dyn_assembly.py:188",
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
             ms=time_ms(lambda: dyn_assembly_cuda(analytic, Z, lam)),
             plain_ms=time_ms(lambda: dyn_assembly_reference(analytic, Z, lam)),
             bytes=nbytes, flops=flops,
         )
-
-        # kernels 2 and 3 are held against their plain versions on seeded
-        # blocks of the main path's shapes, shaped like dynamics defects
-        # (A ≈ -I, B ≈ I) so that float32 resolves them (their float32 error
-        # against float64 is ~3e-6 relative); the first iteration's real
-        # blocks are near-singular in float32, where both versions carry
-        # rounding error of order one, and phase 5 checks those against
-        # float64.  The times are taken on the real blocks.
-        rng = np.random.default_rng(0)
-        Hs = np.eye(d) * 3 + 0.3 * rng.normal(size=(B, T, d, d))
-        E = np.eye(s, d)
-        seeded = [0.5 * (Hs + np.swapaxes(Hs, -1, -2)),
-                  0.2 * rng.normal(size=(B, T - 1, d, d)),
-                  -E + 0.1 * rng.normal(size=(B, T - 1, s, d)),
-                  E + 0.1 * rng.normal(size=(B, T - 1, s, d)),
-                  rng.normal(size=(B, T, d)), rng.normal(size=(B, T - 1, s))]
-        seeded = [torch.as_tensor(x, dtype=torch.float32, device=Z.device) for x in seeded]
-        k_f = list(kl.fwd_sweep_cuda(*seeded, delta_c))
-        k_f[4] = k_f[4][:, -1]
-        ref_f = kl.fwd_sweep_reference(*seeded, delta_c)
-        errs = [rel_err(a, b) for a, b in zip(k_f, ref_f[:5])]
-        real = (H, C, A, Bj, rz, rnu)
-        per_knot = (d**3 / 3 + 2 * d * d * s + 2 * d**3 + 2 * d * d + 2 * s * s * d
-                    + s**3 / 3 + 2 * s * d * d + 2 * s * d + 2 * s * s + 2 * s * s * d
-                    + 4 * d * d * s + 4 * d**3 + 2 * d * s + 2 * d * d)
-        flops = B * ((T - 1) * per_knot + d**3 / 3 + 2 * d * d)
-        nbytes = f4 * (sum(x.numel() for x in real)
-                       + B * ((T - 1) * (d * d + s * s + d * s + d) + d))
-        results["kkt_fwd_sweep"] = dict(
-            source="quantumcollocation_tpu_torch/csrc/kkt_sweeps.cu",
-            replaces="quantumcollocation_tpu/solver/kkt_lanes.py:484",
-            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-            ms=time_ms(lambda: kl.fwd_sweep_cuda(*real, delta_c)),
-            plain_ms=time_ms(lambda: kl.fwd_sweep_reference(*real, delta_c)),
-            bytes=nbytes, flops=flops,
-        )
-
-        # kernel 3: backward sweep, fed the plain version's factors
-        def bwd_args(L_P, L_S, X_A, qs, dz_last, C_, A_, B_, rnu_):
-            dz0 = torch.empty(B, T, d, device=Z.device)
-            dz0[:, -1] = dz_last
-            return (L_P, L_S, X_A, qs, C_, A_, B_, rnu_, dz0)
-
-        L_P, L_S, X_A, qs, dz_last = ref_f[:5]
-        sC, sA, sB, srnu = seeded[1], seeded[2], seeded[3], seeded[5]
-        dz_k, nu_k = kl.bwd_sweep_cuda(*bwd_args(L_P, L_S, X_A, qs, dz_last, sC, sA, sB, srnu))
-        dz_r, nu_r = kl.bwd_sweep_reference(L_P, L_S, X_A, qs, sC, sA, sB, srnu, dz_last)
-        errs = [rel_err(dz_k, dz_r), rel_err(nu_k, nu_r)]
-        rL_P, rL_S, rX_A, rqs, rdz_last, _ = kl.fwd_sweep_reference(*real, delta_c)
-        real_bwd = bwd_args(rL_P, rL_S, rX_A, rqs, rdz_last, C, A, Bj, rnu)
-        per_knot = 2 * d * d + 4 * s * d + 2 * d * d + 2 * s * s + 2 * d * s
-        nbytes = f4 * B * ((T - 1) * (d * d + s * s + d * s + d + d * d + 2 * s * d + s)
-                           + d + (T - 1) * (d + s))
-        results["kkt_bwd_sweep"] = dict(
-            source="quantumcollocation_tpu_torch/csrc/kkt_sweeps.cu",
-            replaces="quantumcollocation_tpu/solver/kkt_lanes.py:565",
-            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-            ms=time_ms(lambda: kl.bwd_sweep_cuda(*real_bwd)),
-            plain_ms=time_ms(lambda: kl.bwd_sweep_reference(
-                rL_P, rL_S, rX_A, rqs, C, A, Bj, rnu, rdz_last)),
-            bytes=nbytes, flops=B * (T - 1) * per_knot,
-        )
+        # kernels 2 and 3: the first iteration's real blocks are
+        # near-singular in float32, where both versions carry rounding
+        # error of order one, so they are held against each other on
+        # seeded blocks and phase 5 checks the real ones against float64
+        results.update(sweep_entries(real, B, T, delta_c, factors=False))
+        # kernel 5 at these shapes: the path runs it only for the Jacobian
+        # of the multiplier initialisation (first order); its iterations
+        # run kernel 1
+        results["prop_bank"] = bank_entry(Z, analytic, solver.var_scale)
+    finish(results, bw, f32_peak)
+    shapes = {"B": B, "T": T, "d": d, "s": s, "dtype": "float32"}
     for name, r in results.items():
-        r["bound_ms"] = 1e3 * max(r["bytes"] / bw, r["flops"] / f32_peak)
-        r["bound_by"] = "bytes" if r["bytes"] / bw >= r["flops"] / f32_peak else "operations"
-        r["kernel_ms"], r["bound_us"] = r["ms"], 1e3 * r["bound_ms"]
-        r["tol"] = TOL[name]
-        r["ok"] = bool(r["max_rel_err"] <= TOL[name])
-        emit({"phase": "kernel", "name": name, "library_ms": None, "shapes":
-              {"B": B, "T": T, "d": d, "s": s, "dtype": "float32"}, **r})
+        emit({"phase": "kernel", "path": "hadamard", "name": name, "library_ms": None,
+              "shapes": r.pop("shapes", shapes), **r})
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
-        fail(f"kernels disagree with their plain versions: {bad}")
+        fail(f"kernels disagree with their plain versions at the Hadamard shapes: {bad}")
 
-    # ---- 4. main path ---------------------------------------------------- #
+    # ---- 4. Hadamard main path -------------------------------------------- #
     solver.solve(seeds(6), max_iter=ITERS)  # discarded warm-up
     torch.cuda.synchronize()
     build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = solver.solve(seeds(42), max_iter=ITERS)
     torch.cuda.synchronize()
@@ -268,19 +425,24 @@ def main():
     infid = 1.0 - fids
     frac = float(np.mean(infid <= 1e-4))
     retries = counts["kkt_fwd_sweep"] - iters
-    emit({"phase": "main_path", "batch": B, "T": T, "ipm_iters": iters, "wall_s": wall,
-          "solves_per_s": B * frac / wall, "ipm_ms_per_iter": 1e3 * wall / max(iters, 1),
+    emit({"phase": "main_path", "path": "hadamard", "batch": B, "T": T, "ipm_iters": iters,
+          "wall_s": wall, "solves_per_s": B * frac / wall,
+          "ipm_ms_per_iter": 1e3 * wall / max(iters, 1),
           "converged_frac": frac, "best_infid": float(infid.min()),
           "median_infid": float(np.median(infid)),
           "ipm_converged_frac": float(res.converged.float().mean()),
           "launches": counts, "kkt_retries": retries,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    if min(counts.values()) <= 0:
-        fail(f"a kernel was not launched on the main path: {counts}")
+    had_kernels = ("dyn_assembly", "prop_bank", "kkt_fwd_sweep", "kkt_bwd_sweep")
+    if min(counts[k] for k in had_kernels) <= 0:
+        fail(f"a kernel of the Hadamard path was not launched: {counts}")
+    if counts["kkt_rhs_fwd_sweep"] != 0:
+        fail(f"the Hadamard path re-solved through kept factors: {counts}")
     if frac < 0.9:
         fail(f"converged_frac {frac} < 0.9")
+    had_counts = counts
 
-    # ---- 5. reference: the first iteration's real KKT system ------------ #
+    # ---- 5. reference: the first Hadamard iteration's real KKT system ---- #
     # float32 error of the kernel path and of the plain path against the
     # float64 CPU solve of the same (float32) blocks; the kernel path must
     # be no worse than ten times the plain one (the blocks are
@@ -292,20 +454,131 @@ def main():
         keep = ok_r & ok_k.cpu() & ok_p.cpu()
         e_k = max(rel_err(dz_k.cpu(), dz_r, keep)[1], rel_err(nu_k.cpu(), nu_r, keep)[1])
         e_p = max(rel_err(dz_p.cpu(), dz_r, keep)[1], rel_err(nu_p.cpu(), nu_r, keep)[1])
-    emit({"phase": "reference", "batch": B, "kernel_rel_err_vs_f64": e_k,
+    emit({"phase": "reference", "path": "hadamard", "batch": B, "kernel_rel_err_vs_f64": e_k,
           "plain_rel_err_vs_f64": e_p, "compared": int(keep.sum()),
           "ok_kernel": int(ok_k.sum()), "ok_plain": int(ok_p.sum()), "ok_f64": int(ok_r.sum())})
     if not (e_k <= 10 * e_p + 1e-6 and int(keep.sum()) >= B - B // 100):
         fail("the kernel KKT solve is less accurate than the plain float32 solve")
+    emit({"phase": "launches_per_iter", "path": "hadamard",
+          **{k: v / max(iters, 1) for k, v in counts.items()}})
+    # the TPU kernels not ported yet (6 and 7), bounded at these shapes
+    for name, (nbytes, flops) in step_counts(B, T, d, s).items():
+        emit({"phase": "bound_unported", "name": name, "shapes": shapes, "bytes": nbytes,
+              "flops": flops, "bound_ms": 1e3 * max(nbytes / bw, flops / f32_peak),
+              "bound_by": "bytes" if nbytes / bw >= flops / f32_peak else "operations"})
 
-    launches_per_iter = {k: v / max(iters, 1) for k, v in counts.items()}
-    emit({"phase": "launches_per_iter", **launches_per_iter})
+    # ---- the CNOT problem (BASELINE #3) ----------------------------------- #
+    P, kron = q.PAULIS, np.kron
+    sys2 = q.QuantumSystem(0.1 * kron(P["Z"], P["Z"]),
+                           [kron(P["Z"], P["X"]), kron(P["X"], P["I"]), kron(P["Y"], P["I"]),
+                            kron(P["I"], P["X"]), kron(P["I"], P["Y"])])
+    prob2 = q.UnitarySmoothPulseProblem(
+        sys2, q.GATES["CX"], CX_T, CX_DT, Q=1e4, R=1e-3,
+        ipopt_options=q.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2,
+                                      line_search="filter", kkt_backend="lanes"),
+        piccolo_options=q.PiccoloOptions(verbose=False, free_time=False),
+        rng=np.random.default_rng(7),
+    )
+    solver2 = prob2.solver
+    if (solver2.fused_assembly_on, solver2.kkt_refine_n) != (False, 1):
+        fail(f"CNOT modes {(solver2.fused_assembly_on, solver2.kkt_refine_n)} != (False, 1)")
+    a2_sl = prob2.trajectory.comp_slice("a")
+
+    def seeds2(seed):
+        return prob2.multistart_initial_decisions(CX_B, sigma=0.3,
+                                                  rng=np.random.default_rng(seed))
+
+    # ---- 6. kernels on the first CNOT iteration's inputs ------------------ #
+    with torch.no_grad():
+        st2, raw2, real2, dw2 = first_iteration(solver2, seeds2(7))
+        Z2 = st2.Z.contiguous()
+        d2, s2 = Z2.shape[-1], st2.lam.shape[-1]
+        results2 = {"prop_bank": bank_entry(Z2, solver2.nlp.analytic, solver2.var_scale)}
+        results2.update(sweep_entries(real2, CX_B, CX_T, delta_c, factors=True))
+    finish(results2, bw, f32_peak)
+    shapes2 = {"B": CX_B, "T": CX_T, "d": d2, "s": s2, "dtype": "float32"}
+    for name, r in results2.items():
+        emit({"phase": "kernel", "path": "cnot", "name": name, "library_ms": None,
+              "shapes": r.pop("shapes", shapes2), **r})
+    bad = [n for n, r in results2.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the CNOT shapes: {bad}")
+
+    # ---- 7. CNOT main path --------------------------------------------- #
+    solver2.solve(seeds2(6), max_iter=CX_WARM)  # discarded warm-up
+    Z0 = seeds2(42)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res2 = solver2.solve(Z0, max_iter=CX_ITERS)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    counts2 = dict(build.launch_counts)
+    iters2 = solver2.last_steps
+    Zs2 = res2.Z.double().cpu().numpy()
+    if Zs2.shape != (CX_B, CX_T, d2) or not np.isfinite(Zs2).all():
+        fail(f"CNOT solution has shape {Zs2.shape} or non-finite values")
+    fids2 = q.batched_rollout_fidelity(
+        Zs2[:, :, a2_sl], np.full((CX_B, CX_T), CX_DT), sys2,
+        prob2.trajectory.goal["Ũ⃗"], prob2.trajectory.initial["Ũ⃗"], device="cuda",
+    )
+    infid2 = 1.0 - fids2
+    fr = {f"frac_infid_{t}": float(np.mean(infid2 <= float(t))) for t in ("1e-4", "1e-3", "1e-2")}
+    emit({"phase": "main_path", "path": "cnot", "batch": CX_B, "T": CX_T, "ipm_iters": iters2,
+          "wall_s": wall2, "ipm_ms_per_iter": 1e3 * wall2 / max(iters2, 1),
+          "solves_per_s_at_1e-4": CX_B * fr["frac_infid_1e-4"] / wall2, **fr,
+          "best_infid": float(infid2.min()), "median_infid": float(np.median(infid2)),
+          "ipm_converged_frac": float(res2.converged.float().mean()),
+          "launches": counts2, "kkt_attempts_per_iter": (counts2["kkt_fwd_sweep"] - 1)
+          / max(iters2, 1), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    cx_kernels = ("prop_bank", "kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+    if min(counts2[k] for k in cx_kernels) <= 0:
+        fail(f"a kernel of the CNOT path was not launched: {counts2}")
+    if counts2["dyn_assembly"] != 0:
+        fail(f"the fused assembly ran on the CNOT path: {counts2}")
+    if counts2["prop_bank"] < iters2:
+        fail(f"fewer bank launches than iterations: {counts2}, {iters2} iterations")
+    if counts2["kkt_rhs_fwd_sweep"] != counts2["kkt_fwd_sweep"] - 1:
+        fail(f"not one re-solve per KKT attempt: {counts2}")
+    if fr["frac_infid_1e-4"] < 0.9:
+        fail(f"CNOT frac@1e-4 {fr['frac_infid_1e-4']} < 0.9")
+
+    # ---- 8. reference: the first CNOT iteration's real KKT system -------- #
+    # float32 error of the kernel path, unrefined and with the solver's one
+    # refinement pass, against the float64 CPU solve of the same blocks,
+    # beside the plain float32 path; as in phase 5 the unrefined kernel
+    # path must be no worse than ten times the plain one
+    with torch.no_grad():
+        dz0, nu0, ok0, fac = kl.solve_kkt_lanes(*real2, delta_c, want_factors=True)
+        dz1, nu1 = solver2._refine(list(raw2), dw2, dz0, nu0, fac)
+        dz_p, nu_p, ok_p = solve_kkt(*real2, delta_c)
+        dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in real2], delta_c)
+        keep = ok_r & ok0.cpu() & ok_p.cpu()
+        e0 = max(rel_err(dz0.cpu(), dz_r, keep)[1], rel_err(nu0.cpu(), nu_r, keep)[1])
+        e1 = max(rel_err(dz1.cpu(), dz_r, keep)[1], rel_err(nu1.cpu(), nu_r, keep)[1])
+        e_p = max(rel_err(dz_p.cpu(), dz_r, keep)[1], rel_err(nu_p.cpu(), nu_r, keep)[1])
+    emit({"phase": "reference", "path": "cnot", "batch": CX_B,
+          "kernel_rel_err_vs_f64_refine0": e0, "kernel_rel_err_vs_f64_refine1": e1,
+          "plain_rel_err_vs_f64": e_p, "compared": int(keep.sum()),
+          "ok_kernel": int(ok0.sum()), "ok_plain": int(ok_p.sum()), "ok_f64": int(ok_r.sum()),
+          "dw_max": float(dw2.max())})
+    if int(keep.sum()) < CX_B - CX_B // 100 or not np.isfinite(e1):
+        fail("the CNOT KKT solve failed on the first iteration's system")
+    if not e0 <= 10 * e_p + 1e-6:
+        fail("the CNOT kernel KKT solve is less accurate than the plain float32 solve")
+    emit({"phase": "launches_per_iter", "path": "cnot",
+          **{k: v / max(iters2, 1) for k, v in counts2.items()}})
+    emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
+
+    entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
+    entries += [("cnot", n, r, counts2) for n, r in results2.items()]
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None, "ok": r["ok"]}
-        for name, r in results.items()
+        {"name": name, "path": path, "route": "cuda", "source": SOURCE[name],
+         "replaces": REPLACES[name], "launches": cnt[name], "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": None, "ok": r["ok"]}
+        for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 //
 // Replaces: quantumcollocation_tpu/solver/kkt_lanes.py::_fwd_sweep_kernel
 // (kernel 2, with the jnp terminal block that follows it, which is folded
-// into the end of kkt_fwd_sweep here) and ::_bwd_sweep_kernel (kernel 3),
-// for a single right-hand-side column.
+// into the end of kkt_fwd_sweep here), ::_bwd_sweep_kernel (kernel 3) and
+// ::_rhs_fwd_sweep_kernel (kernel 4, with the terminal solve of
+// _resolve_kkt_lanes_impl folded in), for a single right-hand-side column.
 //
 // Forward sweep, per instance, carrying Delta_t and qd_t (Delta_0 = 0):
 //   P = H_t + Delta;  L_P = chol(P);  [X_A | X_C | x] = P^-1 [A^T | C | q];
@@ -11,7 +12,11 @@
 //   L_S = chol(S);    [S^-1 G | y] = S^-1 [G | r];
 //   Delta' = sym(G^T S^-1 G - C^T X_C);  qd' = G^T y - C^T x
 // then the terminal block: P_f = sym(H_{T-1} + Delta), dz_{T-1} = P_f^-1
-// (rz_{T-1} + qd).  Backward sweep, t = T-2 .. 0:
+// (rz_{T-1} + qd).  With kept factors it also writes G_t = A X_C - B and
+// L_Pf = chol(P_f).  The rhs-only forward sweep re-runs the q recursion
+// against kept factors, no Cholesky: q = rz_t + qd; x = L_P^-T L_P^-1 q;
+// y = L_S^-T L_S^-1 (A x - rnu_t); qd' = G^T y - C^T x; then
+// dz_{T-1} = L_Pf^-T L_Pf^-1 (rz_{T-1} + qd).  Backward sweep, t = T-2 .. 0:
 //   u = q_t - C dz_{t+1};  v = rnu_t - B dz_{t+1};  x = P^-1 u;
 //   y = S^-1 (A x - v);    dz_t = x - X_A y;       nu_t = y.
 // A Cholesky pivot is never clamped: sqrtf of a negative pivot gives NaN,
@@ -35,7 +40,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // instances per block
+constexpr int kMaxWarps = 4;  // instances per block, at most
 
 __host__ __device__ __forceinline__ int odd(int n) { return n | 1; }  // bank-conflict-free stride
 
@@ -80,15 +85,35 @@ __device__ void warp_chol_solve(const float* L, int ldl, float* Y, int n, int nc
   __syncwarp();
 }
 
+// In place y <- (L L^T)^-1 y for one column y of length n; lanes own the
+// rows of each column update, so the chain is n steps, not n^2.
+__device__ void warp_chol_solve_vec(const float* L, int ldl, float* y, int n, int lane) {
+  for (int i = 0; i < n; ++i) {
+    const float xi = y[i] / L[i * ldl + i];
+    __syncwarp();
+    if (lane == (i & 31)) y[i] = xi;
+    for (int r = i + 1 + lane; r < n; r += 32) y[r] -= L[r * ldl + i] * xi;
+    __syncwarp();
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    const float xi = y[i] / L[i * ldl + i];
+    __syncwarp();
+    if (lane == (i & 31)) y[i] = xi;
+    for (int r = lane; r < i; r += 32) y[r] -= L[i * ldl + r] * xi;
+    __syncwarp();
+  }
+}
+
 __global__ void fwd_sweep(const float* __restrict__ H, const float* __restrict__ C,
                           const float* __restrict__ A, const float* __restrict__ Bm,
                           const float* __restrict__ rz, const float* __restrict__ rnu, int Bn,
                           int T, int d, int s, float delta_c, float* __restrict__ LP,
                           float* __restrict__ LS, float* __restrict__ XA,
-                          float* __restrict__ q, float* __restrict__ dz) {
+                          float* __restrict__ q, float* __restrict__ dz,
+                          float* __restrict__ Gk, float* __restrict__ LPf) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long b = (long)blockIdx.x * kWarps + warp;
+  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
   if (b >= Bn) return;
   const int ldd = odd(d), nc = s + d + 1;
   const int per_warp = 2 * d * ldd + d * nc + s * d + d * d + s * nc + s * (d + 1) + 2 * d;
@@ -181,6 +206,8 @@ __global__ void fwd_sweep(const float* __restrict__ H, const float* __restrict__
     for (int idx = lane; idx < d * d; idx += 32) LP[kt * dd + idx] = Lm[(idx / d) * ldd + idx % d];
     for (int idx = lane; idx < s * s; idx += 32) LS[kt * s * s + idx] = Mm[(idx / s) * nc + idx % s];
     for (int idx = lane; idx < d * s; idx += 32) XA[kt * sd + idx] = W[(idx / s) * nc + idx % s];
+    if (Gk)  // G = A X_C - B, still in Mm's columns s..s+d-1
+      for (int idx = lane; idx < s * d; idx += 32) Gk[kt * sd + idx] = Mm[(idx / d) * nc + s + idx % d];
     __syncwarp();
   }
   // terminal block
@@ -192,7 +219,9 @@ __global__ void fwd_sweep(const float* __restrict__ H, const float* __restrict__
   for (int i = lane; i < d; i += 32) qv[i] = rz[(b * T + T - 1) * d + i] + qd[i];
   __syncwarp();
   warp_chol(Lm, d, ldd, lane);
-  warp_chol_solve(Lm, ldd, qv, d, 1, 1, lane);
+  if (LPf)
+    for (int idx = lane; idx < d * d; idx += 32) LPf[b * dd + idx] = Lm[(idx / d) * ldd + idx % d];
+  warp_chol_solve_vec(Lm, ldd, qv, d, lane);
   for (int i = lane; i < d; i += 32) dz[(b * T + T - 1) * d + i] = qv[i];
 }
 
@@ -203,7 +232,7 @@ __global__ void bwd_sweep(const float* __restrict__ LP, const float* __restrict_
                           int T, int d, int s, float* __restrict__ dz, float* __restrict__ nu) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long b = (long)blockIdx.x * kWarps + warp;
+  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
   if (b >= Bn) return;
   const int per_warp = d * d + s * s + 2 * d + s;
   float* Lp = smem + warp * per_warp;  // L_P   d x d
@@ -227,14 +256,14 @@ __global__ void bwd_sweep(const float* __restrict__ LP, const float* __restrict_
       xv[i] = v;
     }
     __syncwarp();
-    warp_chol_solve(Lp, d, xv, d, 1, 1, lane);
+    warp_chol_solve_vec(Lp, d, xv, d, lane);
     for (int k = lane; k < s; k += 32) {
       float v = -rnu[kt * s + k];
       for (int j = 0; j < d; ++j) v += Bt[k * d + j] * dzn[j] + At[k * d + j] * xv[j];
       yv[k] = v;
     }
     __syncwarp();
-    warp_chol_solve(Ls, s, yv, s, 1, 1, lane);
+    warp_chol_solve_vec(Ls, s, yv, s, lane);
     for (int i = lane; i < d; i += 32) {
       float v = xv[i];
       for (int k = 0; k < s; ++k) v -= XA[kt * sd + i * s + k] * yv[k];
@@ -247,31 +276,129 @@ __global__ void bwd_sweep(const float* __restrict__ LP, const float* __restrict_
   }
 }
 
-int fwd_smem(int d, int s) {
-  const int ldd = odd(d), nc = s + d + 1;
-  return kWarps * (2 * d * ldd + d * nc + s * d + d * d + s * nc + s * (d + 1) + 2 * d) *
-         (int)sizeof(float);
+// rhs-only forward sweep (kernel 4): one warp per instance, carry qd.
+__global__ void rhs_fwd_sweep(const float* __restrict__ LP, const float* __restrict__ LS,
+                              const float* __restrict__ Gk, const float* __restrict__ C,
+                              const float* __restrict__ A, const float* __restrict__ rz,
+                              const float* __restrict__ rnu, const float* __restrict__ LPf,
+                              int Bn, int T, int d, int s, float* __restrict__ q,
+                              float* __restrict__ dz) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
+  if (b >= Bn) return;
+  const int per_warp = d * d + s * s + 2 * d + s;
+  float* Lp = smem + warp * per_warp;  // L_P, then L_Pf   d x d
+  float* Ls = Lp + d * d;              // L_S              s x s
+  float* qd = Ls + s * s;              // carry qd
+  float* xv = qd + d;                  // x
+  float* yv = xv + d;                  // y
+  const long dd = (long)d * d, sd = (long)s * d;
+  for (int i = lane; i < d; i += 32) qd[i] = 0.f;
+  __syncwarp();
+  for (int t = 0; t < T - 1; ++t) {
+    const long kt = b * (T - 1) + t;
+    for (int idx = lane; idx < d * d; idx += 32) Lp[idx] = LP[kt * dd + idx];
+    for (int idx = lane; idx < s * s; idx += 32) Ls[idx] = LS[kt * s * s + idx];
+    for (int i = lane; i < d; i += 32) {
+      const float v = rz[(b * T + t) * d + i] + qd[i];
+      q[kt * d + i] = v;
+      xv[i] = v;
+    }
+    __syncwarp();
+    warp_chol_solve_vec(Lp, d, xv, d, lane);
+    for (int k = lane; k < s; k += 32) {
+      float v = -rnu[kt * s + k];
+      for (int j = 0; j < d; ++j) v += A[kt * sd + k * d + j] * xv[j];
+      yv[k] = v;
+    }
+    __syncwarp();
+    warp_chol_solve_vec(Ls, s, yv, s, lane);
+    for (int i = lane; i < d; i += 32) {
+      float a = 0.f, c = 0.f;
+      for (int k = 0; k < s; ++k) a += Gk[kt * sd + k * d + i] * yv[k];
+      for (int k = 0; k < d; ++k) c += C[kt * dd + k * d + i] * xv[k];
+      qd[i] = a - c;
+    }
+    __syncwarp();
+  }
+  for (int idx = lane; idx < d * d; idx += 32) Lp[idx] = LPf[b * dd + idx];
+  for (int i = lane; i < d; i += 32) xv[i] = rz[(b * T + T - 1) * d + i] + qd[i];
+  __syncwarp();
+  warp_chol_solve_vec(Lp, d, xv, d, lane);
+  for (int i = lane; i < d; i += 32) dz[(b * T + T - 1) * d + i] = xv[i];
 }
 
-int bwd_smem(int d, int s) { return kWarps * (d * d + s * s + 2 * d + s) * (int)sizeof(float); }
+int fwd_warp_bytes(int d, int s) {
+  const int ldd = odd(d), nc = s + d + 1;
+  return (2 * d * ldd + d * nc + s * d + d * d + s * nc + s * (d + 1) + 2 * d) * (int)sizeof(float);
+}
+
+int rhs_warp_bytes(int d, int s) { return (d * d + s * s + 2 * d + s) * (int)sizeof(float); }
+
+// The device's opt-in shared memory per block and SM count, read once per
+// device: the launchers run several times per solver iteration.
+struct DevInfo {
+  int cap = 0, sms = 0;
+};
+
+DevInfo dev_info(int dev) {
+  static DevInfo info[16];
+  DevInfo& di = info[dev & 15];
+  if (di.sms == 0) {
+    cudaDeviceGetAttribute(&di.cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&di.sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return di;
+}
+
+// Warps per block for a kernel needing `warp_bytes` of shared memory per
+// warp: as many as fit, at most kMaxWarps, and no more than it takes to
+// give every SM one warp first.  Returns 0 when not even one fits.
+// `opted` is the kernel's largest dynamic shared memory set so far, per
+// device, so the attribute is set only when a launch needs more.
+template <typename Kernel>
+int configure(Kernel kernel, int warp_bytes, int Bn, int* smem, int* opted) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const DevInfo di = dev_info(dev);
+  const int fit = di.cap / warp_bytes;
+  if (fit < 1) return 0;
+  int w = (Bn + di.sms - 1) / di.sms;
+  w = w < 1 ? 1 : w;
+  w = w < fit ? w : fit;
+  w = w < kMaxWarps ? w : kMaxWarps;
+  *smem = w * warp_bytes;
+  int& set = opted[dev & 15];
+  if (*smem > 48 * 1024 && *smem > set) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem) !=
+        cudaSuccess)
+      return 0;
+    set = *smem;
+  }
+  return w;
+}
 
 }  // namespace
 
 // Batch-first buffers: H (B,T,d,d), C (B,T-1,d,d), A/B (B,T-1,s,d),
 // rz (B,T,d), rnu (B,T-1,s); LP (B,T-1,d,d), LS (B,T-1,s,s),
 // XA (B,T-1,d,s), q (B,T-1,d), dz (B,T,d): the forward sweep writes
-// dz[:, T-1], the backward sweep the rest and nu (B,T-1,s).
+// dz[:, T-1], the backward sweep the rest and nu (B,T-1,s).  With kept
+// factors (G and LPf not null) the forward sweep also writes G (B,T-1,s,d)
+// and LPf (B,d,d).  The launchers return a CUDA error code, and
+// cudaErrorInvalidConfiguration when one warp's blocks exceed the shared
+// memory a block may use.
 extern "C" int qct_kkt_fwd_sweep(const float* H, const float* C, const float* A, const float* Bm,
                                  const float* rz, const float* rnu, int Bn, int T, int d, int s,
                                  float delta_c, float* LP, float* LS, float* XA, float* q,
-                                 float* dz, void* stream) {
-  const int smem = fwd_smem(d, s);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(fwd_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fwd_sweep<<<(Bn + kWarps - 1) / kWarps, 32 * kWarps, smem, (cudaStream_t)stream>>>(
-      H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS, XA, q, dz);
+                                 float* dz, float* G, float* LPf, void* stream) {
+  static int opted[16] = {0};
+  int smem = 0;
+  const int w = configure(fwd_sweep, fwd_warp_bytes(d, s), Bn, &smem, opted);
+  if (w == 0) return (int)cudaErrorInvalidConfiguration;
+  fwd_sweep<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(
+      H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS, XA, q, dz, G, LPf);
   return (int)cudaGetLastError();
 }
 
@@ -279,12 +406,26 @@ extern "C" int qct_kkt_bwd_sweep(const float* LP, const float* LS, const float* 
                                  const float* q, const float* C, const float* A, const float* Bm,
                                  const float* rnu, int Bn, int T, int d, int s, float* dz,
                                  float* nu, void* stream) {
-  const int smem = bwd_smem(d, s);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(bwd_sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  bwd_sweep<<<(Bn + kWarps - 1) / kWarps, 32 * kWarps, smem, (cudaStream_t)stream>>>(
+  static int opted[16] = {0};
+  int smem = 0;
+  const int w = configure(bwd_sweep, rhs_warp_bytes(d, s), Bn, &smem, opted);
+  if (w == 0) return (int)cudaErrorInvalidConfiguration;
+  bwd_sweep<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(
       LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
+  return (int)cudaGetLastError();
+}
+
+// Kept factors LP, LS, G (B,T-1,s,d), LPf (B,d,d) with C and A; a new rhs
+// rz, rnu.  Writes q (B,T-1,d) and dz[:, T-1] for the backward sweep.
+extern "C" int qct_kkt_rhs_fwd_sweep(const float* LP, const float* LS, const float* G,
+                                     const float* C, const float* A, const float* rz,
+                                     const float* rnu, const float* LPf, int Bn, int T, int d,
+                                     int s, float* q, float* dz, void* stream) {
+  static int opted[16] = {0};
+  int smem = 0;
+  const int w = configure(rhs_fwd_sweep, rhs_warp_bytes(d, s), Bn, &smem, opted);
+  if (w == 0) return (int)cudaErrorInvalidConfiguration;
+  rhs_fwd_sweep<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(
+      LP, LS, G, C, A, rz, rnu, LPf, Bn, T, d, s, q, dz);
   return (int)cudaGetLastError();
 }

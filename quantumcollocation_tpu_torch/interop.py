@@ -16,6 +16,7 @@ import torch
 
 from .problems.unitary_smooth_pulse import UnitarySmoothPulseProblem
 from .quantum.systems import QuantumSystem
+from .solver.options import PiccoloOptions
 from .trajectory.named_trajectory import NamedTrajectory
 
 __all__ = [
@@ -39,7 +40,7 @@ def problem_arrays(prob, batch: int = 1) -> dict:
         "data": np.asarray(traj.data, dtype=np.float64),
         "components": dict(traj.components),
         "controls": tuple(traj.controls),
-        "timestep": traj.timestep,
+        "timestep": traj.timestep if isinstance(traj.timestep, str) else float(traj.timestep),
         "bounds": {k: (np.asarray(lo), np.asarray(hi)) for k, (lo, hi) in traj.bounds.items()},
         "initial": {k: np.asarray(v) for k, v in traj.initial.items()},
         "final": {k: np.asarray(v) for k, v in traj.final.items()},
@@ -78,9 +79,14 @@ def unitary_smooth_pulse_from_arrays(
     arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
 ):
     """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
-    UnitarySmoothPulseProblem built with the same Q and R.  Raises if the
-    port's NLP scaling differs from the source's by more than rtol."""
+    UnitarySmoothPulseProblem built with the same Q and R.  The trajectory
+    decides free or fixed time (a named or a float timestep), whatever
+    piccolo_options.free_time says.  Raises if the port's NLP scaling
+    differs from the source's by more than rtol."""
     traj = trajectory_from_arrays(arrays)
+    piccolo_options = (piccolo_options or PiccoloOptions()).replace(
+        free_time=isinstance(traj.timestep, str)
+    )
     prob = UnitarySmoothPulseProblem(
         system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,

@@ -27,6 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {
     "dyn_assembly": "dyn_assembly.cu",
     "kkt_sweeps": "kkt_sweeps.cu",
+    "prop_bank": "prop_bank.cu",
 }
 
 NVCC_FLAGS = [
@@ -36,7 +37,10 @@ NVCC_FLAGS = [
 
 # kernel name -> launches since the last reset; each wrapper adds one
 # right where it launches its kernel, and nowhere else
-launch_counts = {"dyn_assembly": 0, "kkt_fwd_sweep": 0, "kkt_bwd_sweep": 0}
+launch_counts = {
+    "dyn_assembly": 0, "prop_bank": 0, "kkt_fwd_sweep": 0, "kkt_bwd_sweep": 0,
+    "kkt_rhs_fwd_sweep": 0,
+}
 
 _libs: dict = {}
 
@@ -99,5 +103,7 @@ def library(name) -> ctypes.CDLL:
 
 def check(err: int, what: str):
     """Raise if a launch returned a CUDA error code."""
+    if err == 9:  # cudaErrorInvalidConfiguration: the launchers' size refusal
+        raise RuntimeError(f"{what}: the blocks do not fit the shared memory of a block")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

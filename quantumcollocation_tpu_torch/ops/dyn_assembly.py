@@ -12,9 +12,9 @@ as a small argument table, so a new problem needs no new build.  The table
 is packed once per (analytic dynamics, device) and kept on the device.
 
 `dyn_assembly_reference` is the plain PyTorch version (the batched
-dyn_eval + defect_curvature of solver/analytic.py).  `dyn_assembly` takes
-it only for a CPU tensor; for a CUDA tensor it launches the kernel or
-raises.
+dyn_eval on banks_reference + defect_curvature of solver/analytic.py).
+`dyn_assembly` takes it only for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ SUPPORTED_NK = {(2, 1), (2, 2), (2, 3), (4, 1), (4, 2), (4, 3)}
 def dyn_assembly_reference(analytic, Z, lam):
     """Plain version: (F (B,T-1,s), A, B (B,T-1,s,d), Hc (B,T,d,d) with a
     zero last knot, Cc (B,T-1,d,d)) in scaled units."""
-    F, A, Bj, aux = analytic.dyn_eval(Z, second_order=True)
+    F, A, Bj, aux = analytic.dyn_eval(Z, analytic.banks_reference(Z))
     Hc, Cc = analytic.defect_curvature(lam, aux)
     return F, A, Bj, Hc, Cc
 

@@ -22,6 +22,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..dynamics.integrators import (
+    DerivativeIntegrator,
+    UnitaryExponentialIntegrator,
+    UnitaryPadeIntegrator,
+)
+from ..dynamics.rollouts import unitary_rollout
 from ..objectives.constraints import AbstractConstraint, TimeStepsAllEqualConstraint
 from ..objectives.objectives import Objective
 from ..solver.analytic import build_analytic_dynamics
@@ -166,6 +172,45 @@ class QuantumControlProblem:
     def solve_batched(self, Z0, *, max_iter: int | None = None):
         """Solve a batch of initial decisions (B, T, d); returns IPMResult."""
         return self.solver.solve(Z0, max_iter=max_iter)
+
+    def multistart_initial_decisions(self, n_seeds: int, *, sigma: float = 0.1, rng=None):
+        """(n_seeds, T, d) numpy initial decisions with diverse,
+        dynamics-consistent seeds: per seed (seed 0 stays clean) the
+        interior controls are perturbed by sigma·N(0, 1) and clipped to
+        their bounds, the derivative chain is recomputed, and every unitary
+        state is rolled out (float64) under the perturbed controls, so each
+        seed starts with zero defects.  The draws are the JAX package's, in
+        its order, so both give the same rows from one numpy Generator."""
+        rng = rng or np.random.default_rng(0)
+        traj = self.trajectory
+        T = traj.T
+        z0 = self.initial_decision(1)[0]
+        dts = np.asarray(traj.get_timesteps(), dtype=np.float64)
+        a_sl = traj.comp_slice(self.control_name)
+
+        rows = np.broadcast_to(z0, (n_seeds, *z0.shape)).copy()
+        a_all = np.array(rows[:, :, a_sl], dtype=np.float64)
+        a_all[1:, 1:-1] += sigma * rng.standard_normal(a_all[1:, 1:-1].shape)
+        if self.control_name in traj.bounds:
+            lo, hi = traj.bounds[self.control_name]
+            a_all = np.clip(a_all, lo[None, None, :], hi[None, None, :])
+        rows[:, :, a_sl] = a_all
+
+        for ig in self.integrators:
+            if isinstance(ig, DerivativeIntegrator):
+                x = rows[:, :, traj.comp_slice(ig.x_name)]
+                diff = (x[:, 1:] - x[:, :-1]) / dts[None, : T - 1, None]
+                rows[:, :, traj.comp_slice(ig.dx_name)] = np.concatenate(
+                    [diff, diff[:, -1:]], axis=1
+                )
+        for ig in self.integrators:
+            if isinstance(ig, (UnitaryExponentialIntegrator, UnitaryPadeIntegrator)):
+                s_sl = traj.comp_slice(ig.state_name)
+                rows[:, :, s_sl] = unitary_rollout(
+                    rows[0, 0, s_sl], a_all, np.broadcast_to(dts, (n_seeds, T)), ig.system,
+                    device=self.device,
+                ).cpu().numpy()
+        return rows
 
     solve_batch = solve_batched
 

@@ -1,15 +1,18 @@
-"""Where one IPM iteration of the main-path solve spends its time.
+"""Where one IPM iteration of a main-path solve spends its time.
 
-    python -m quantumcollocation_tpu_torch.profile_step [--steps 3]
+    python -m quantumcollocation_tpu_torch.profile_step [--config hadamard|cnot]
+        [--steps 3] [--batch B]
 
-Builds the batched Hadamard problem of chip_smoke.py (B=512, T=51,
-Q=1e4, R=1e-3, filter line search, float32 on CUDA), runs two warm-up
-iterations, then profiles `--steps` iterations with torch.profiler and
-prints one JSON line: host wall per iteration, device-busy time per
-iteration (the sum of kernel times), the idle share, the CUDA launch
-count, and the kernels with the most device time.  The profiler slows
-the host, so the wall and idle share read high; the kernel times do not.
-Needs a CUDA GPU.
+Builds the problem of chip_smoke.py's main path: "hadamard" (B=512, T=51,
+Q=1e4, R=1e-3, filter line search, seeds = the initial guess plus 0.1-σ
+control noise) or "cnot" (BASELINE #3: two qubits, fixed Δt=0.3, B=128,
+T=40, kkt_backend "lanes", seeds from multistart_initial_decisions),
+float32 on CUDA.  Runs two warm-up iterations, then profiles `--steps`
+iterations with torch.profiler and prints one JSON line: host wall per
+iteration, device-busy time per iteration (the sum of kernel times), the
+idle share, the CUDA launch count, and the kernels with the most device
+time.  The profiler slows the host, so the wall and idle share read high;
+the kernel times do not.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -23,29 +26,55 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from . import GATES, PiccoloOptions, QuantumSystem, SolverOptions, UnitarySmoothPulseProblem
+from . import (
+    GATES,
+    PAULIS,
+    PiccoloOptions,
+    QuantumSystem,
+    SolverOptions,
+    UnitarySmoothPulseProblem,
+)
+
+
+def build(config, batch):
+    """(solver, Z0) of a main-path configuration; batch None = its own."""
+    opts = dict(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter")
+    rng = np.random.default_rng(42)
+    if config == "cnot":
+        P, k = PAULIS, np.kron
+        sysq = QuantumSystem(0.1 * k(P["Z"], P["Z"]), [k(P["Z"], P["X"]), k(P["X"], P["I"]),
+                                                      k(P["Y"], P["I"]), k(P["I"], P["X"]),
+                                                      k(P["I"], P["Y"])])
+        prob = UnitarySmoothPulseProblem(
+            sysq, GATES["CX"], 40, 0.3, Q=1e4, R=1e-3,
+            ipopt_options=SolverOptions(kkt_backend="lanes", **opts),
+            piccolo_options=PiccoloOptions(verbose=False, free_time=False),
+            rng=np.random.default_rng(7),
+        )
+        return prob.solver, prob.multistart_initial_decisions(batch or 128, sigma=0.3, rng=rng)
+    B, T = batch or 512, 51
+    sysq = QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]])
+    prob = UnitarySmoothPulseProblem(
+        sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3, ipopt_options=SolverOptions(**opts),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+    )
+    z0 = prob.initial_decision(1)[0]
+    a_sl = prob.trajectory.comp_slice("a")
+    Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
+    Z0[:, 1:-1, a_sl] += 0.1 * rng.standard_normal((B, T - 2, 2))
+    return prob.solver, Z0
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=("hadamard", "cnot"), default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
-    B, T = args.batch, 51
-    sysq = QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]])
-    prob = UnitarySmoothPulseProblem(
-        sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3,
-        ipopt_options=SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter"),
-        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
-    )
-    solver = prob.solver
-    z0 = prob.initial_decision(1)[0]
-    a_sl = prob.trajectory.comp_slice("a")
-    rng = np.random.default_rng(42)
-    Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
-    Z0[:, 1:-1, a_sl] += 0.1 * rng.standard_normal((B, T - 2, 2))
+    solver, Z0 = build(args.config, args.batch)
+    B = Z0.shape[0]
     st = solver.init_state(Z0)
     for _ in range(2):
         st = solver.step(st)
@@ -64,7 +93,8 @@ def main():
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
     print(json.dumps({
-        "phase": "profile", "device": torch.cuda.get_device_name(0), "batch": B,
+        "phase": "profile", "config": args.config, "device": torch.cuda.get_device_name(0),
+        "batch": B,
         "steps": args.steps, "wall_ms_per_iter": 1e3 * wall / args.steps,
         "device_ms_per_iter": 1e-3 * device_us / args.steps,
         "idle_share": 1.0 - 1e-6 * device_us / wall,

@@ -11,9 +11,13 @@ kinds and their blocks:
     Δt-equality defect   F = Δt_{t+1} - Δt_t                    (linear)
 
 Every function takes a (B, T, d) decision tensor in the solver's SCALED
-coordinates.  `dyn_eval` + `defect_curvature` are the plain version of the
-fused assembly kernel (ops/dyn_assembly.py), which `assembly_batched`
-launches.
+coordinates.  Two routes to the blocks, chosen by the solver
+(solver/options.py::resolve_modes): `assembly_batched` launches the fused
+assembly kernel (ops/dyn_assembly.py), whose plain version is `dyn_eval`
+on `banks_reference` + `defect_curvature`; or `banks_batched` launches the
+propagator-bank kernel (ops/prop_bank.py) and `dyn_eval(Z, banks)` +
+`defect_curvature` assemble the blocks from its banks in PyTorch.
+`dyn_eval` without banks (the Jacobian blocks alone) runs banks_batched.
 """
 
 from __future__ import annotations
@@ -25,13 +29,8 @@ import numpy as np
 import torch
 
 from ..dynamics import integrators as igs
-from ..dynamics.expm import (
-    expm_frechet_bank,
-    expm_squaring,
-    frechet_pairs,
-    pade_numerator_denominator,
-    pade_poly_frechet,
-)
+from ..dynamics.expm import expm_squaring, frechet_pairs, pade_numerator_denominator
+from ..ops.prop_bank import prop_bank, prop_bank_reference
 
 __all__ = ["AnalyticStageDynamics", "build_analytic_dynamics"]
 
@@ -123,30 +122,36 @@ class AnalyticStageDynamics:
         G = Gd + torch.tensordot(a, Gs, dims=1)  # (B, T-1, n, n)
         return G, Gs, dts
 
-    def _bank(self, Zp, gi, g, *, second_order):
-        """exp: (P, dP, d2P); pade: (N, dN, d2N, D, dD, d2D); leading axes
-        (B, T-1), derivative axis K = na [+ Δt] or the Kp pairs."""
-        G, Gs, dts = self._X(Zp, gi, g)
-        X = G * dts[..., None, None]
-        na = Gs.shape[0]
-        free = g.dt_col is not None
-        dX = Gs * dts[..., None, None, None]
-        if free:
-            dX = torch.cat([dX, G.unsqueeze(-3)], dim=-3)
-        d2X = None
-        if second_order and free:
-            pairs = frechet_pairs(na + 1)
-            rows = [
-                g.G_drives[k] if (k < na and l == na) else np.zeros_like(g.G_drift)
-                for (k, l) in pairs
-            ]
-            d2X = self._c(("d2X", gi), np.stack(rows), Zp)
-        if g.kind == "exp":
-            return expm_frechet_bank(
-                X, dX, d2X, order=g.order, num_squarings=g.num_squarings,
-                second_order=second_order,
+    def _banks(self, Z, bank_fn, second_order):
+        """exp: (P, dP, d2P); pade: (N, dN, d2N, D, dD, d2D) per group, from
+        bank_fn over all B*(T-1) (instance, knot) pairs at once; leading
+        axes (B, T-1), derivative axis K = na [+ Δt] or the Kp pairs."""
+        Zp = self._phys(Z)
+        Bt, Tm1 = Zp.shape[0], self.T - 1
+        out = []
+        for gi, g in enumerate(self.groups):
+            na = g.G_drives.shape[0]
+            bank = bank_fn(
+                Zp[:, :-1, g.a_slice[0]:g.a_slice[1]].reshape(-1, na),
+                self._dts(Zp, g.dt_col, g.dt_static).reshape(-1),
+                self._c(("Gd", gi), g.G_drift, Zp), self._c(("Gs", gi), g.G_drives, Zp),
+                kind=g.kind, order=g.order, num_squarings=g.num_squarings,
+                free_dt=g.dt_col is not None, second_order=second_order,
             )
-        return pade_poly_frechet(X, dX, d2X, order=g.order, second_order=second_order)
+            out.append(tuple(None if x is None else x.reshape(Bt, Tm1, *x.shape[1:])
+                             for x in bank))
+        return tuple(out)
+
+    def banks_batched(self, Z, *, second_order: bool = True):
+        """The banks of every group for scaled (B, T, d) Z: the CUDA kernel
+        (ops/prop_bank.py) for a CUDA tensor, the plain version for a CPU
+        one.  Feeds dyn_eval(Z, banks)."""
+        return self._banks(Z, prop_bank, second_order)
+
+    def banks_reference(self, Z, *, second_order: bool = True):
+        """banks_batched through the plain version on any device: the bank
+        inside the plain version of the fused assembly kernel."""
+        return self._banks(Z, prop_bank_reference, second_order)
 
     @staticmethod
     def _umats(Zp, u0, u1, nrows):
@@ -197,15 +202,15 @@ class AnalyticStageDynamics:
         r = self._r(F)
         return F if r is None else F * r
 
-    def dyn_eval(self, Z, *, second_order: bool = True):
+    def dyn_eval(self, Z, banks=None, *, second_order: bool = True):
         """(F, A, B, aux): scaled defects and Jacobian blocks
-        (B, T-1, s, d); aux feeds defect_curvature."""
+        (B, T-1, s, d); aux feeds defect_curvature.  banks: those of
+        banks_batched(Z) or banks_reference(Z), else banks_batched runs
+        here."""
         Zp = self._phys(Z)
         Bt, Tm1, d, s = Z.shape[0], self.T - 1, self.d, self.s
-        banks = [
-            self._bank(Zp, gi, g, second_order=second_order)
-            for gi, g in enumerate(self.groups)
-        ]
+        if banks is None:
+            banks = self.banks_batched(Z, second_order=second_order)
         F = self._defect_rows(Zp, banks)
         A = Zp.new_zeros(Bt, Tm1, s, d)
         Bj = Zp.new_zeros(Bt, Tm1, s, d)

@@ -5,13 +5,20 @@ every tensor carries a leading batch axis (B, ...), and instances advance
 in lockstep with per-instance convergence masks (a converged instance
 freezes).  One iteration (`_step`):
 
-  1. the fused dynamics assembly (ops/dyn_assembly.py) gives F, A, B and
-     the defect curvature; torch.func gives the cost blocks;
+  1. the dynamics blocks: with the fused assembly on (small stage sizes,
+     solver/options.py::resolve_modes) one kernel (ops/dyn_assembly.py)
+     gives F, A, B and the defect curvature; off, the propagator-bank
+     kernel (ops/prop_bank.py) gives the banks and solver/analytic.py
+     assembles the blocks from them.  torch.func gives the cost blocks;
   2. residuals, the KKT error, the monotone barrier update and the
      feasibility-restoration state machine (Ipopt A-9 analog);
-  3. the condensed block-tridiagonal KKT system goes through the two
-     Riccati sweep kernels (solver/kkt_lanes.py), with per-instance δ_w
-     regularization retries while an instance's factorization fails;
+  3. the condensed block-tridiagonal KKT system goes through the Riccati
+     sweep kernels (solver/kkt_lanes.py), with per-instance δ_w
+     regularization retries while an instance's factorization fails.
+     With kkt_refine passes, each attempt keeps its factors and corrects
+     its step by iterative refinement: the residual of the regularized
+     system at (dz, ν) re-solved against the same factors (the rhs-only
+     forward sweep, then the backward sweep);
   4. fraction-to-boundary, a filter or merit line search, and the update
      with Ipopt's κ_Σ bound-dual safeguard.
 
@@ -25,9 +32,8 @@ trial.
 
 Not ported yet (the solver raises NotImplementedError): stage inequality
 rows (m > 0) and with them the ρJᵀJ lift and retry warm start, second-order
-correction, iterative refinement, recalc_y, L-BFGS / Gauss-Newton
-Hessians, the watchdog, adaptive μ, and the cyclic-reduction and per-knot
-KKT backends.
+correction, recalc_y, L-BFGS / Gauss-Newton Hessians, the watchdog,
+adaptive μ, and the cyclic-reduction and per-knot KKT backends.
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .kkt_lanes import solve_kkt_lanes
-from .options import SolverOptions
+from .kkt_lanes import resolve_kkt_lanes, solve_kkt_lanes
+from .options import SolverOptions, resolve_modes
 from .stage_nlp import StageNLP, make_nlp_functions, scale_stage_nlp
 
 __all__ = ["IPMState", "IPMResult", "InteriorPointSolver"]
@@ -147,7 +153,6 @@ class InteriorPointSolver:
             "watchdog_trials > 0": o.watchdog_trials > 0,
             "recalc_y=True": bool(o.recalc_y),
             f"kkt_backend={o.kkt_backend!r}": o.kkt_backend in ("cr", "lanes_scan"),
-            f"kkt_refine={o.kkt_refine!r}": o.kkt_refine not in ("auto", 0),
             "kkt_aug=True": o.kkt_aug is True,
             "kkt_retry_warm=True": o.kkt_retry_warm is True,
         }
@@ -155,6 +160,11 @@ class InteriorPointSolver:
         if bad:
             raise NotImplementedError("not ported yet: " + ", ".join(bad))
         self.resto_on = bool(o.restoration)
+        self.fused_assembly_on, self.kkt_refine_n = resolve_modes(
+            o, nlp.d, nlp.s,
+            has_groups=nlp.analytic is not None and len(nlp.analytic.groups) > 0,
+            exact_hessian=exact_hessian,
+        )
         self.device, self.dtype = nlp.device, nlp.dtype
         self.var_scale = np.ones(nlp.d)
         self.defect_scale = np.ones(nlp.s)
@@ -288,7 +298,12 @@ class InteriorPointSolver:
         sl = torch.where(has_lb > 0, torch.clamp_min(Z - self._lb, self._tiny), one)
         su = torch.where(has_ub > 0, torch.clamp_min(self._ub - Z, self._tiny), one)
 
-        F, A, Bj, Hc, Cc = self.nlp.analytic.assembly_batched(Z, lam)
+        an = self.nlp.analytic
+        if self.fused_assembly_on:
+            F, A, Bj, Hc, Cc = an.assembly_batched(Z, lam)
+        else:
+            F, A, Bj, dyn_aux = an.dyn_eval(Z, an.banks_batched(Z, second_order=True))
+            Hc, Cc = an.defect_curvature(lam, dyn_aux)
         gcost = self.funcs.grad_cost(Z)
         E_pr = _bmax(F.abs())
 
@@ -391,12 +406,34 @@ class InteriorPointSolver:
         return kkt_in, aux
 
     # ------------------------------------------------------------------ #
+    def _refine(self, kkt_in, dw, dz, nu, fac):
+        """kkt_refine passes: the residual of the ORIGINAL (δ_w- and
+        δ_c-regularized) system at (dz, ν), re-solved against the kept
+        factors; a correction applies where the re-solve is finite."""
+        H, C, A, Bj, rz, rnu = kkt_in
+        for _ in range(self.kkt_refine_n):
+            Hdz = torch.einsum("btij,btj->bti", H, dz) + _col(dw, 3) * dz
+            Hdz[:, :-1] += torch.einsum("btij,btj->bti", C, dz[:, 1:])
+            Hdz[:, 1:] += torch.einsum("btji,btj->bti", C, dz[:, :-1])
+            r1 = Hdz + self._jt(A, Bj, nu) - rz
+            Jdz = torch.einsum("btsd,btd->bts", A, dz[:, :-1]) + torch.einsum(
+                "btsd,btd->bts", Bj, dz[:, 1:]
+            )
+            r2 = Jdz - self.options.delta_c * nu - rnu
+            ez, enu, okr = resolve_kkt_lanes(fac, -r1, -r2)
+            dz = dz + torch.where(_col(okr, 3), ez, torch.zeros_like(ez))
+            nu = nu + torch.where(_col(okr, 3), enu, torch.zeros_like(enu))
+        return dz, nu
+
     def _solve_kkt_batched(self, kkt_in, delta_w0, st: IPMState, stop_if_converged):
         """KKT solve with per-instance δ_w escalation on factorization
-        failure (Ipopt: try 0, then δ_last/3, then x8 per retry).  Returns
-        None when every instance had already converged on entry."""
+        failure (Ipopt: try 0, then δ_last/3, then x8 per retry), each
+        attempt refined kkt_refine_n times through its kept factors.
+        Returns None when every instance had already converged on entry."""
         o = self.options
-        H, C, A, Bj, rz, rnu = [x.contiguous() for x in kkt_in]
+        kkt_in = [x.contiguous() for x in kkt_in]
+        H, C, A, Bj, rz, rnu = kkt_in
+        refine = self.kkt_refine_n > 0
         Bt = H.shape[0]
         ok = torch.zeros(Bt, dtype=torch.bool, device=self.device)
         dz = torch.zeros_like(rz)
@@ -416,7 +453,11 @@ class InteriorPointSolver:
                     dw_try == 0.0, first, torch.clamp_max(dw_try * 8.0, o.delta_w_max)
                 )
                 Hreg = H + _col(dw_next, 4) * self._eye
-            dz2, nu2, ok2 = solve_kkt_lanes(Hreg, C, A, Bj, rz, rnu, o.delta_c)
+            dz2, nu2, ok2, *fac = solve_kkt_lanes(
+                Hreg, C, A, Bj, rz, rnu, o.delta_c, want_factors=refine
+            )
+            if refine:
+                dz2, nu2 = self._refine(kkt_in, dw_next, dz2, nu2, fac[0])
             dz = torch.where(_col(ok, 3), dz, dz2)
             nu = torch.where(_col(ok, 3), nu, nu2)
             dw_used = torch.where(ok, dw_used, dw_next)

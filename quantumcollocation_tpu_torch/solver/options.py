@@ -1,12 +1,28 @@
 """Solver and framework option structs.
 
 Counterpart of quantumcollocation_tpu/solver/options.py, field for field,
-so a configuration carries over unchanged.  Fields that tuned the TPU
-build (matmul_precision, eval_precision, lanes_max_dim, lanes_vec_max_dim)
-and the fused-assembly switch (fused_assembly) are kept for surface parity
-and ignored: the port's precision is its dtype (float32 on the GPU with
-TF32 off, float64 on the CPU), its kernels take any stage size, and the
-dynamics always go through the fused assembly.  The solver raises
+so a configuration carries over unchanged.  `resolve_modes` turns the
+"auto" switches into the solver's modes exactly as the JAX solver does:
+
+  fused_assembly  "auto": on iff the NLP has analytic propagator groups,
+                  the Hessian is exact, recalc_y is off and
+                  max(d, s) <= lanes_max_dim.  Off, the solver evaluates
+                  the propagator bank (ops/prop_bank.py) and assembles the
+                  blocks from it.  The ceiling is not only a TPU compile
+                  limit: the fused kernel keeps a whole (instance, knot)
+                  bank in one thread's registers, which does not fit at
+                  the two-qubit sizes (n=8, K=5: 10,752 bytes of bank).
+  kkt_refine      "auto": one refinement pass through the kept factors iff
+                  kkt_backend == "lanes" and max(d, s) > lanes_max_dim.
+                  An int is taken as given.  (The JAX solver also sends
+                  max(d, s) > lanes_vec_max_dim to its XLA backend, without
+                  refinement: a TPU compile ceiling the port does not have,
+                  so lanes_vec_max_dim is not read here.)
+
+matmul_precision and eval_precision are kept for surface parity and
+ignored: the port's precision is its dtype (float32 on the GPU with TF32
+off, float64 on the CPU).  kkt_backend names one route here (the sweep
+kernels), and only feeds the kkt_refine rule.  The solver raises
 NotImplementedError for options whose code paths are not ported yet (see
 InteriorPointSolver).
 """
@@ -16,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-__all__ = ["SolverOptions", "IpoptOptions", "PiccoloOptions"]
+__all__ = ["SolverOptions", "IpoptOptions", "PiccoloOptions", "resolve_modes"]
 
 
 @dataclasses.dataclass
@@ -105,6 +121,23 @@ class SolverOptions:
 
 
 IpoptOptions = SolverOptions
+
+
+def resolve_modes(o: SolverOptions, d: int, s: int, *, has_groups: bool,
+                  exact_hessian: bool) -> tuple[bool, int]:
+    """(fused_assembly_on, kkt_refine_n) for stage sizes d, s; see the
+    module docstring."""
+    big = max(d, s)
+    if o.kkt_refine == "auto":
+        refine = int(o.kkt_backend == "lanes" and big > o.lanes_max_dim)
+    else:
+        refine = int(o.kkt_refine)
+    fa = o.fused_assembly
+    fused = (
+        has_groups and exact_hessian and not o.recalc_y
+        and (big <= o.lanes_max_dim if fa == "auto" else bool(fa))
+    )
+    return bool(fused), refine
 
 
 @dataclasses.dataclass

@@ -14,6 +14,7 @@ import torch
 import quantumcollocation_tpu_torch as qt
 from quantumcollocation_tpu_torch.ops import build
 from quantumcollocation_tpu_torch.ops import dyn_assembly as da
+from quantumcollocation_tpu_torch.ops import prop_bank as pb
 from quantumcollocation_tpu_torch.solver import kkt_lanes as kl
 from quantumcollocation_tpu_torch.solver.kkt import solve_kkt
 
@@ -92,7 +93,77 @@ def test_wrappers_refuse_float64(cuda):
         kl.solve_kkt_lanes(*args, 1e-8)
 
 
+def _close_rel(out, ref, tol=1e-4):
+    """float32 kernel against its plain version: max error relative to the
+    largest entry (the two round in different orders)."""
+    assert (out.double() - ref.double()).abs().max() <= tol * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("n, na, free_dt", [(8, 5, False), (4, 2, True)])
+def test_bank_kernel_matches_plain_version(cuda, n, na, free_dt):
+    rng = np.random.default_rng(n)
+    M = 300
+    args = [rng.uniform(-1, 1, size=(M, na)), rng.uniform(0.1, 0.4, size=(M,)),
+            0.5 * rng.normal(size=(n, n)), 0.5 * rng.normal(size=(na, n, n))]
+    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in args]
+    kw = dict(kind="pade", order=4, free_dt=free_dt, second_order=True)
+    before = build.launch_counts["prop_bank"]
+    out = pb.prop_bank(*args, **kw)
+    assert build.launch_counts["prop_bank"] == before + 1
+    for o, r in zip(out, pb.prop_bank_reference(*args, **kw)):
+        assert o.shape == r.shape
+        _close_rel(o, r)
+    first = pb.prop_bank(*args, **{**kw, "second_order": False})
+    assert first[2] is None and first[5] is None
+    _close_rel(first[4], out[4])
+
+
+def test_bank_kernel_refuses_the_exp_kind(cuda):
+    a = torch.zeros(4, 2, device=cuda)
+    with pytest.raises(NotImplementedError):
+        pb.prop_bank(a, torch.ones(4, device=cuda), torch.zeros(4, 4, device=cuda),
+                     torch.zeros(2, 4, 4, device=cuda), kind="exp", order=4, num_squarings=2,
+                     free_dt=False, second_order=True)
+
+
+def test_sweeps_with_kept_factors_at_two_qubit_size(cuda):
+    rng = np.random.default_rng(4)
+    Bt, T, d, s = 8, 6, 47, 42
+    w = 1.0 / np.sqrt(d)
+    H = np.eye(d) * 3 + w * rng.normal(size=(Bt, T, d, d))
+    E = np.eye(s, d)
+    args = [0.5 * (H + np.swapaxes(H, -1, -2)), 0.7 * w * rng.normal(size=(Bt, T - 1, d, d)),
+            -E + 0.1 * rng.normal(size=(Bt, T - 1, s, d)),
+            E + 0.1 * rng.normal(size=(Bt, T - 1, s, d)),
+            rng.normal(size=(Bt, T, d)), rng.normal(size=(Bt, T - 1, s))]
+    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in args]
+    rhs2 = [torch.as_tensor(rng.normal(size=x.shape), dtype=torch.float32, device=cuda)
+            for x in args[4:]]
+    k = kl.fwd_sweep_cuda(*args, 1e-8, want_factors=True)
+    r = kl.fwd_sweep_reference(*args, 1e-8, want_factors=True)
+    for name, o, ref in zip(("L_P", "L_S", "X_A", "q", "dz", "G", "L_Pf"), k, r[:5] + r[6:]):
+        _close_rel(o[:, -1] if name == "dz" else o, ref)
+    dz, nu, ok, fac = kl.solve_kkt_lanes(*args, 1e-8, want_factors=True)
+    dz_r, nu_r, ok_r = solve_kkt(*args, 1e-8)
+    assert bool(ok.all()) and bool(ok_r.all())
+    _close_rel(dz, dz_r)
+    _close_rel(nu, nu_r)
+    before = build.launch_counts["kkt_rhs_fwd_sweep"]
+    ez, enu, okr = kl.resolve_kkt_lanes(fac, *rhs2)
+    assert build.launch_counts["kkt_rhs_fwd_sweep"] == before + 1 and bool(okr.all())
+    q_r, dzl_r = kl.rhs_fwd_sweep_reference(fac.L_P, fac.L_S, fac.G, fac.C, fac.A, *rhs2,
+                                            fac.L_Pf)
+    q_k, dz_k = kl.rhs_fwd_sweep_cuda(fac.L_P, fac.L_S, fac.G, fac.C, fac.A, *rhs2, fac.L_Pf)
+    _close_rel(q_k, q_r)
+    _close_rel(dz_k[:, -1], dzl_r)
+    ez_r, enu_r, _ = solve_kkt(*args[:4], *rhs2, 1e-8)
+    _close_rel(ez, ez_r)
+    _close_rel(enu, enu_r)
+
+
 def test_main_path_launches_every_kernel(cuda):
+    # the Hadamard path: fused assembly and the two sweeps in the iterations,
+    # the bank only for the multiplier initialisation's Jacobian, no re-solve
     sysq = qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"], qt.GATES["Y"]])
     prob = qt.UnitarySmoothPulseProblem(
         sysq, qt.GATES["H"], 21, 0.2, piccolo_options=qt.PiccoloOptions(verbose=False),
@@ -102,5 +173,29 @@ def test_main_path_launches_every_kernel(cuda):
     build.reset_launch_counts()
     f0 = qt.unitary_rollout_fidelity(prob.trajectory, sysq)
     prob.solve(max_iter=20)
-    assert min(build.launch_counts.values()) > 0
+    c = build.launch_counts
+    assert min(c["dyn_assembly"], c["kkt_fwd_sweep"], c["kkt_bwd_sweep"]) > 0, c
+    assert c["prop_bank"] == 1 and c["kkt_rhs_fwd_sweep"] == 0, c
     assert qt.unitary_rollout_fidelity(prob.trajectory, sysq) > f0
+
+
+def test_cnot_path_launches_its_kernels(cuda):
+    P, k = qt.PAULIS, np.kron
+    sysq = qt.QuantumSystem(0.1 * k(P["Z"], P["Z"]), [k(P["Z"], P["X"]), k(P["X"], P["I"]),
+                                                      k(P["Y"], P["I"]), k(P["I"], P["X"]),
+                                                      k(P["I"], P["Y"])])
+    prob = qt.UnitarySmoothPulseProblem(
+        sysq, qt.GATES["CX"], 11, 0.3, Q=1e4, R=1e-3,
+        ipopt_options=qt.SolverOptions(kkt_backend="lanes", line_search="filter"),
+        piccolo_options=qt.PiccoloOptions(verbose=False, free_time=False),
+        rng=np.random.default_rng(7),
+    )
+    Z0 = prob.multistart_initial_decisions(4, sigma=0.3, rng=np.random.default_rng(0))
+    build.reset_launch_counts()
+    res = prob.solve_batched(Z0, max_iter=5)
+    c = build.launch_counts
+    assert torch.isfinite(res.Z).all()
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] >= prob.solver.last_steps > 0, c
+    # every IPM attempt re-solves once; the multiplier solve at start does not
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+    assert c["kkt_bwd_sweep"] == c["kkt_fwd_sweep"] + c["kkt_rhs_fwd_sweep"], c
