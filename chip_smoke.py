@@ -33,7 +33,28 @@ Phases, one JSON object per line on stdout:
   8. reference, CNOT: on the first iteration's real KKT system, the
      float32 kernel path's error against the float64 CPU solve with 0 and
      with 1 refinement pass, beside the plain float32 path's;
-then the kernels line, and last {"ok": true, "device": {...}}.  Each main
+  9. kernels, ket_exp shapes: the exponential branches of the fused
+     assembly (B=512, T=50, d=15, s=13, one squaring) and of the bank (first
+     order, 25,088 pairs, n=4, K=3, as the path runs it), the forward and
+     the backward sweep, against their plain versions, on the first
+     iteration's inputs of the phase-10 problem; and that iteration's real
+     KKT system as in phase 5;
+ 10. main path, ket_exp: the two-ket state transfer |0>->|1>, |1>->|0> with
+     one shared pulse (0.1 Z drift, X and Y drives, T=50, Δt=0.2 free,
+     Q=1e4, R=1e-3, the exponential integrator, 48 iterations, filter line
+     search, kappa_mu 0.2, tol 1e-5, B=512, seeds as phase 4's) through
+     QuantumStateSmoothPulseProblem; an instance counts when both kets
+     reach infidelity <= 1e-4 by the float64 rollout (fraction >= 0.9);
+ 11. kernels, cnot_exp shapes: the bank's exponential branch (second
+     order, 4,992 pairs, n=8, K=5, two squarings) and the three sweeps, as
+     phase 6;
+ 12. main path, cnot_exp: phase 7's problem with the exponential
+     integrator (fixed time, so the fused assembly is off and the bank's
+     exponential branch runs in every iteration); frac@1e-4 >= 0.9;
+ 13. reference, cnot_exp: phase 8 on this problem's first iteration;
+The exponential bank's rows also time its library counterpart
+(exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices).
+Then the kernels line, and last {"ok": true, "device": {...}}.  Each main
 path checks its own kernels' launch counts.  Any failed check exits
 nonzero before the last line.  Without CUDA it exits 1.
 """
@@ -52,6 +73,7 @@ import torch
 
 B, T, ITERS = 512, 51, 48
 CX_B, CX_T, CX_DT, CX_ITERS, CX_WARM = 128, 40, 0.3, 80, 3
+KET_T = 50  # ket_exp: B and ITERS as the Hadamard path
 # float32 tolerances, relative to the largest entry of the plain output:
 # the kernel and its plain version round in different orders (a Horner
 # chain per thread vs batched matmuls; scalar Cholesky loops vs batched
@@ -185,15 +207,15 @@ def step_counts(Bn, Tn, d, s):
             "kkt_bwd_step": (F4 * Bn * Tm1 * bwd_io, Bn * Tm1 * bwd_fl)}
 
 
-def bank_counts(M, n, na, free_dt, order=4):
+def bank_counts(M, n, na, free_dt, order=4, second_order=True):
     """(bytes, flops) of one bank call: a and dt in, the generators once,
     N, D and their derivatives out; the products the Horner recursion
     needs.  Its first step starts from acc = c I with zero derivatives, so
     it only scales (n^2 per output matrix); after it, d2acc is nonzero only
     for the (a_k, dt) pairs of a free dt until the third step."""
     K = na + int(free_dt)
-    Kp = K * (K + 1) // 2
-    extra = na if free_dt else 0  # pairs (a_k, dt): d2X_p = G_k
+    Kp = K * (K + 1) // 2 if second_order else 0
+    extra = na if free_dt and second_order else 0  # pairs (a_k, dt): d2X_p = G_k
     products = 0
     for step in range(2, order // 2 + 1):
         # X acc, dX_k acc + X dacc_k, dX_k dacc_l + dX_l dacc_k, d2X_p acc,
@@ -205,12 +227,75 @@ def bank_counts(M, n, na, free_dt, order=4):
     return nbytes, flops
 
 
+def exp_bank_counts(M, n, na, free_dt, nsq, second_order=True):
+    """(bytes, flops) of one exponential bank call: a and dt in, the
+    generators once, P and its derivatives out (one family); the order-8
+    Horner products of both signs (bank_counts), then per pair the
+    Gauss-Jordan inverse of D (4 n^2 (n-1)), P = D^-1 N, the K numerators
+    and solves of dP, the Kp of d2P (three products and a solve each), and
+    per squaring 4 products for each d2P, 2 for each dP and 1 for P."""
+    K = na + int(free_dt)
+    Kp = K * (K + 1) // 2 if second_order else 0
+    mm = 2 * n**3
+    per_pair = (4 * n * n * (n - 1) + mm + K * (2 * mm + n * n) + Kp * (4 * mm + 3 * n * n)
+                + nsq * (Kp * (4 * mm + 3 * n * n) + K * (2 * mm + n * n) + mm))
+    flops = bank_counts(M, n, na, free_dt, order=8, second_order=second_order)[1] + M * per_pair
+    nbytes = F4 * (M * (na + 1) + (na + 1) * n * n + M * (1 + K + Kp) * n * n)
+    return nbytes, flops
+
+
+def exp_bank_library(a, dt, Gd, Gs, free_dt, second_order):
+    """The exponential bank through one torch.linalg.matrix_exp call on
+    block upper-triangular matrices (Van Loan; Mathias): exp([[X, E], [0,
+    X]]) holds P and L(X, E) in its top row; exp([[X, E_k, 0], [0, X,
+    E_l], [0, 0, X]]) holds in its corner the ordered term whose sum over
+    (k, l) and (l, k) is d2P_kl when X is linear in θ.  So first order
+    takes (M, K) blocks of 2n, second order (M, K, K) blocks of 3n and
+    fixed Δt (a free Δt's (a_k, Δt) cross term needs L(X, G_k) as well).
+    Returns (P, dP, d2P or None) as prop_bank_reference."""
+    M, na = a.shape
+    n = Gd.shape[0]
+    G = Gd + torch.tensordot(a, Gs, dims=1)
+    X = G * dt[:, None, None]
+    E = Gs[None] * dt[:, None, None, None]
+    if free_dt:
+        E = torch.cat([E, G[:, None]], dim=1)
+    K = E.shape[1]
+    if not second_order:
+        W = X.new_zeros(M, K, 2 * n, 2 * n)
+        W[..., :n, :n] = W[..., n:, n:] = X[:, None]
+        W[..., :n, n:] = E
+        Q = torch.linalg.matrix_exp(W)
+        return Q[:, 0, :n, :n], Q[..., :n, n:], None
+    if free_dt:
+        raise ValueError("second order with a free Δt has no block form here")
+    W = X.new_zeros(M, K, K, 3 * n, 3 * n)
+    for i in range(3):
+        W[..., i * n:(i + 1) * n, i * n:(i + 1) * n] = X[:, None, None]
+    W[..., :n, n:2 * n] = E[:, :, None]
+    W[..., n:2 * n, 2 * n:] = E[:, None, :]
+    Q = torch.linalg.matrix_exp(W)
+    ks, ls = zip(*[(k, l) for k in range(K) for l in range(k, K)])
+    C = Q[..., :n, 2 * n:]
+    return Q[:, 0, 0, :n, :n], Q[:, :, 0, :n, n:2 * n], C[:, ks, ls] + C[:, ls, ks]
+
+
+def member_flops(n, K, ncols, exp):
+    """flops of one member's writes in the fused assembly per pair: the
+    defect, the K θ-columns, λU^T, the Kp curvature sums and the K (u, θ)
+    curvature columns (Padé: both N and D terms; exponential: P only)."""
+    Kp = K * (K + 1) // 2
+    f = 1 if exp else 2
+    return f * (2 * n * n * ncols * (2 + 2 * K) + 2 * Kp * n * n)
+
+
 def finish(results, bw, f32_peak):
     for r in results.values():
         r["bound_ms"] = 1e3 * max(r["bytes"] / bw, r["flops"] / f32_peak)
         r["bound_by"] = "bytes" if r["bytes"] / bw >= r["flops"] / f32_peak else "operations"
         r["tol"] = TOL
         r["ok"] = bool(r["max_rel_err"] <= TOL)
+        r.setdefault("library_ms", None)
 
 
 def main():
@@ -247,8 +332,9 @@ def main():
     build_s = build.build_all()
     emit({"phase": "build", "sources": sorted(build.SOURCES.values()), "build_s": build_s})
 
-    def bank_entry(Z, analytic, v):
-        """The bank kernel against its plain version on the pairs of Z."""
+    def bank_entry(Z, analytic, v, second_order=True):
+        """The bank kernel against its plain version on the pairs of Z, in
+        the kind (Padé or exponential) of the problem's group."""
         (g,) = analytic.groups
         Zp = Z * torch.as_tensor(v, dtype=Z.dtype, device=Z.device)
         na = g.G_drives.shape[0]
@@ -258,17 +344,32 @@ def main():
               else torch.full((a.shape[0],), g.dt_static, dtype=Z.dtype, device=Z.device))
         Gd = torch.as_tensor(g.G_drift, dtype=Z.dtype, device=Z.device)
         Gs = torch.as_tensor(g.G_drives, dtype=Z.dtype, device=Z.device)
-        kw = dict(kind="pade", order=g.order, free_dt=free, second_order=True)
+        kw = dict(kind=g.kind, order=g.order, num_squarings=g.num_squarings, free_dt=free,
+                  second_order=second_order)
         k_out = pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)
         r_out = pb.prop_bank_reference(a, dt, Gd, Gs, **kw)
-        errs = [rel_err(x, y) for x, y in zip(k_out, r_out)]
-        nbytes, flops = bank_counts(a.shape[0], Gd.shape[0], na, free, g.order)
+        errs = [rel_err(x, y) for x, y in zip(k_out, r_out) if y is not None]
+        lib = {}
+        if g.kind == "exp":
+            nbytes, flops = exp_bank_counts(a.shape[0], Gd.shape[0], na, free, g.num_squarings,
+                                            second_order)
+            # the library counterpart, block set-up included, and its
+            # agreement with the plain version (printed, not a check)
+            l_out = exp_bank_library(a, dt, Gd, Gs, free, second_order)
+            lib = dict(
+                library_ms=time_ms(lambda: exp_bank_library(a, dt, Gd, Gs, free, second_order)),
+                library_max_rel_err=max(rel_err(x, y)[1] for x, y in zip(l_out, r_out)
+                                        if y is not None))
+        else:
+            nbytes, flops = bank_counts(a.shape[0], Gd.shape[0], na, free, g.order)
         return dict(
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
             ms=time_ms(lambda: pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)),
             plain_ms=time_ms(lambda: pb.prop_bank_reference(a, dt, Gd, Gs, **kw)),
-            bytes=nbytes, flops=flops,
-            shapes={"M": a.shape[0], "n": Gd.shape[0], "K": na + int(free), "free_dt": free},
+            bytes=nbytes, flops=flops, **lib,
+            shapes={"M": a.shape[0], "n": Gd.shape[0], "K": na + int(free), "free_dt": free,
+                    "kind": g.kind, "num_squarings": g.num_squarings,
+                    "second_order": second_order},
         )
 
     def sweep_entries(real, Bn, Tn, delta_c, factors):
@@ -340,6 +441,28 @@ def main():
         Hreg = (H + dw[:, None, None, None] * torch.eye(H.shape[-1], device=H.device)).contiguous()
         return st, (H, C, A, Bj, rz, rnu), (Hreg, C, A, Bj, rz, rnu), dw
 
+    def kkt_reference(path, real):
+        """The kernel path's KKT solve (kernels 2 and 3) on a first
+        iteration's real system: float32 error of it and of the plain path
+        against the float64 CPU solve of the same (float32) blocks; the
+        kernel path must be no worse than ten times the plain one (the
+        blocks are near-singular at this iteration, so both carry visible
+        rounding)."""
+        Bn = real[0].shape[0]
+        with torch.no_grad():
+            dz_k, nu_k, ok_k = kl.solve_kkt_lanes(*real, delta_c)
+            dz_p, nu_p, ok_p = solve_kkt(*real, delta_c)
+            dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in real], delta_c)
+            keep = ok_r & ok_k.cpu() & ok_p.cpu()
+            e_k = max(rel_err(dz_k.cpu(), dz_r, keep)[1], rel_err(nu_k.cpu(), nu_r, keep)[1])
+            e_p = max(rel_err(dz_p.cpu(), dz_r, keep)[1], rel_err(nu_p.cpu(), nu_r, keep)[1])
+        emit({"phase": "reference", "path": path, "batch": Bn, "kernel_rel_err_vs_f64": e_k,
+              "plain_rel_err_vs_f64": e_p, "compared": int(keep.sum()),
+              "ok_kernel": int(ok_k.sum()), "ok_plain": int(ok_p.sum()),
+              "ok_f64": int(ok_r.sum())})
+        if not (e_k <= 10 * e_p + 1e-6 and int(keep.sum()) >= Bn - Bn // 100):
+            fail(f"the {path} kernel KKT solve is less accurate than the plain float32 solve")
+
     # ---- the Hadamard problem -------------------------------------------- #
     sysq = q.QuantumSystem(q.GATES["Z"], [q.GATES["X"], q.GATES["Y"]])
     prob = q.UnitarySmoothPulseProblem(
@@ -398,7 +521,7 @@ def main():
     finish(results, bw, f32_peak)
     shapes = {"B": B, "T": T, "d": d, "s": s, "dtype": "float32"}
     for name, r in results.items():
-        emit({"phase": "kernel", "path": "hadamard", "name": name, "library_ms": None,
+        emit({"phase": "kernel", "path": "hadamard", "name": name,
               "shapes": r.pop("shapes", shapes), **r})
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
@@ -443,22 +566,7 @@ def main():
     had_counts = counts
 
     # ---- 5. reference: the first Hadamard iteration's real KKT system ---- #
-    # float32 error of the kernel path and of the plain path against the
-    # float64 CPU solve of the same (float32) blocks; the kernel path must
-    # be no worse than ten times the plain one (the blocks are
-    # near-singular at this iteration, so both carry visible rounding)
-    with torch.no_grad():
-        dz_k, nu_k, ok_k = kl.solve_kkt_lanes(*real, delta_c)
-        dz_p, nu_p, ok_p = solve_kkt(*real, delta_c)
-        dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in real], delta_c)
-        keep = ok_r & ok_k.cpu() & ok_p.cpu()
-        e_k = max(rel_err(dz_k.cpu(), dz_r, keep)[1], rel_err(nu_k.cpu(), nu_r, keep)[1])
-        e_p = max(rel_err(dz_p.cpu(), dz_r, keep)[1], rel_err(nu_p.cpu(), nu_r, keep)[1])
-    emit({"phase": "reference", "path": "hadamard", "batch": B, "kernel_rel_err_vs_f64": e_k,
-          "plain_rel_err_vs_f64": e_p, "compared": int(keep.sum()),
-          "ok_kernel": int(ok_k.sum()), "ok_plain": int(ok_p.sum()), "ok_f64": int(ok_r.sum())})
-    if not (e_k <= 10 * e_p + 1e-6 and int(keep.sum()) >= B - B // 100):
-        fail("the kernel KKT solve is less accurate than the plain float32 solve")
+    kkt_reference("hadamard", real)
     emit({"phase": "launches_per_iter", "path": "hadamard",
           **{k: v / max(iters, 1) for k, v in counts.items()}})
     # the TPU kernels not ported yet (6 and 7), bounded at these shapes
@@ -467,117 +575,230 @@ def main():
               "flops": flops, "bound_ms": 1e3 * max(nbytes / bw, flops / f32_peak),
               "bound_by": "bytes" if nbytes / bw >= flops / f32_peak else "operations"})
 
-    # ---- the CNOT problem (BASELINE #3) ----------------------------------- #
+    # ---- the CNOT problem (BASELINE #3), Padé and exponential ------------- #
     P, kron = q.PAULIS, np.kron
     sys2 = q.QuantumSystem(0.1 * kron(P["Z"], P["Z"]),
                            [kron(P["Z"], P["X"]), kron(P["X"], P["I"]), kron(P["Y"], P["I"]),
                             kron(P["I"], P["X"]), kron(P["I"], P["Y"])])
-    prob2 = q.UnitarySmoothPulseProblem(
-        sys2, q.GATES["CX"], CX_T, CX_DT, Q=1e4, R=1e-3,
+
+    def cnot_phases(path, integrator):
+        """Phases 6-8 (integrator "pade") or 11-13 ("exponential"): the
+        kernels at this path's shapes, the timed B=128 solve with its
+        checks, and the first iteration's KKT system against float64.
+        Returns (kernel results, launch counts of the timed solve)."""
+        prob2 = q.UnitarySmoothPulseProblem(
+            sys2, q.GATES["CX"], CX_T, CX_DT, Q=1e4, R=1e-3,
+            ipopt_options=q.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2,
+                                          line_search="filter", kkt_backend="lanes"),
+            piccolo_options=q.PiccoloOptions(verbose=False, free_time=False,
+                                             integrator=integrator),
+            rng=np.random.default_rng(7),
+        )
+        solver2 = prob2.solver
+        if (solver2.fused_assembly_on, solver2.kkt_refine_n) != (False, 1):
+            fail(f"{path} modes {(solver2.fused_assembly_on, solver2.kkt_refine_n)} != (False, 1)")
+        a2_sl = prob2.trajectory.comp_slice("a")
+
+        def seeds2(seed):
+            return prob2.multistart_initial_decisions(CX_B, sigma=0.3,
+                                                      rng=np.random.default_rng(seed))
+
+        # ---- kernels on the first iteration's inputs --------------------- #
+        with torch.no_grad():
+            st2, raw2, real2, dw2 = first_iteration(solver2, seeds2(7))
+            Z2 = st2.Z.contiguous()
+            d2, s2 = Z2.shape[-1], st2.lam.shape[-1]
+            results2 = {"prop_bank": bank_entry(Z2, solver2.nlp.analytic, solver2.var_scale)}
+            results2.update(sweep_entries(real2, CX_B, CX_T, delta_c, factors=True))
+        finish(results2, bw, f32_peak)
+        shapes2 = {"B": CX_B, "T": CX_T, "d": d2, "s": s2, "dtype": "float32"}
+        for name, r in results2.items():
+            emit({"phase": "kernel", "path": path, "name": name,
+                  "shapes": r.pop("shapes", shapes2), **r})
+        bad = [n for n, r in results2.items() if not r["ok"]]
+        if bad:
+            fail(f"kernels disagree with their plain versions at the {path} shapes: {bad}")
+
+        # ---- main path ---------------------------------------------------- #
+        solver2.solve(seeds2(6), max_iter=CX_WARM)  # discarded warm-up
+        Z0 = seeds2(42)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res2 = solver2.solve(Z0, max_iter=CX_ITERS)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        counts2 = dict(build.launch_counts)
+        iters2 = solver2.last_steps
+        Zs2 = res2.Z.double().cpu().numpy()
+        if Zs2.shape != (CX_B, CX_T, d2) or not np.isfinite(Zs2).all():
+            fail(f"{path} solution has shape {Zs2.shape} or non-finite values")
+        fids2 = q.batched_rollout_fidelity(
+            Zs2[:, :, a2_sl], np.full((CX_B, CX_T), CX_DT), sys2,
+            prob2.trajectory.goal["Ũ⃗"], prob2.trajectory.initial["Ũ⃗"], device="cuda",
+        )
+        infid2 = 1.0 - fids2
+        fr = {f"frac_infid_{t}": float(np.mean(infid2 <= float(t)))
+              for t in ("1e-4", "1e-3", "1e-2")}
+        emit({"phase": "main_path", "path": path, "batch": CX_B, "T": CX_T, "ipm_iters": iters2,
+              "wall_s": wall2, "ipm_ms_per_iter": 1e3 * wall2 / max(iters2, 1),
+              "solves_per_s_at_1e-4": CX_B * fr["frac_infid_1e-4"] / wall2, **fr,
+              "best_infid": float(infid2.min()), "median_infid": float(np.median(infid2)),
+              "ipm_converged_frac": float(res2.converged.float().mean()),
+              "launches": counts2, "kkt_attempts_per_iter": (counts2["kkt_fwd_sweep"] - 1)
+              / max(iters2, 1), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        cx_kernels = ("prop_bank", "kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+        if min(counts2[k] for k in cx_kernels) <= 0:
+            fail(f"a kernel of the {path} path was not launched: {counts2}")
+        if counts2["dyn_assembly"] != 0:
+            fail(f"the fused assembly ran on the {path} path: {counts2}")
+        if counts2["prop_bank"] < iters2:
+            fail(f"fewer bank launches than iterations: {counts2}, {iters2} iterations")
+        if counts2["kkt_rhs_fwd_sweep"] != counts2["kkt_fwd_sweep"] - 1:
+            fail(f"not one re-solve per KKT attempt: {counts2}")
+        if fr["frac_infid_1e-4"] < 0.9:
+            fail(f"{path} frac@1e-4 {fr['frac_infid_1e-4']} < 0.9")
+
+        # ---- reference: the first iteration's real KKT system ------------- #
+        # float32 error of the kernel path, unrefined and with the solver's
+        # one refinement pass, against the float64 CPU solve of the same
+        # blocks, beside the plain float32 path; as in phase 5 the
+        # unrefined kernel path must be no worse than ten times the plain one
+        with torch.no_grad():
+            dz0, nu0, ok0, fac = kl.solve_kkt_lanes(*real2, delta_c, want_factors=True)
+            dz1, nu1 = solver2._refine(list(raw2), dw2, dz0, nu0, fac)
+            dz_p, nu_p, ok_p = solve_kkt(*real2, delta_c)
+            dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in real2], delta_c)
+            keep = ok_r & ok0.cpu() & ok_p.cpu()
+            e0 = max(rel_err(dz0.cpu(), dz_r, keep)[1], rel_err(nu0.cpu(), nu_r, keep)[1])
+            e1 = max(rel_err(dz1.cpu(), dz_r, keep)[1], rel_err(nu1.cpu(), nu_r, keep)[1])
+            e_p = max(rel_err(dz_p.cpu(), dz_r, keep)[1], rel_err(nu_p.cpu(), nu_r, keep)[1])
+        emit({"phase": "reference", "path": path, "batch": CX_B,
+              "kernel_rel_err_vs_f64_refine0": e0, "kernel_rel_err_vs_f64_refine1": e1,
+              "plain_rel_err_vs_f64": e_p, "compared": int(keep.sum()),
+              "ok_kernel": int(ok0.sum()), "ok_plain": int(ok_p.sum()),
+              "ok_f64": int(ok_r.sum()), "dw_max": float(dw2.max())})
+        if int(keep.sum()) < CX_B - CX_B // 100 or not np.isfinite(e1):
+            fail(f"the {path} KKT solve failed on the first iteration's system")
+        if not e0 <= 10 * e_p + 1e-6:
+            fail(f"the {path} kernel KKT solve is less accurate than the plain float32 solve")
+        emit({"phase": "launches_per_iter", "path": path,
+              **{k: v / max(iters2, 1) for k, v in counts2.items()}})
+        return results2, counts2
+
+    results2, counts2 = cnot_phases("cnot", "pade")
+
+    # ---- the two-ket exponential problem (ket_exp) ------------------------ #
+    sysk = q.QuantumSystem(0.1 * q.PAULIS["Z"], [q.PAULIS["X"], q.PAULIS["Y"]])
+    probk = q.QuantumStateSmoothPulseProblem(
+        sysk, [[1, 0], [0, 1]], [[0, 1], [1, 0]], KET_T, 0.2, Q=1e4, R=1e-3,
         ipopt_options=q.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2,
-                                      line_search="filter", kkt_backend="lanes"),
-        piccolo_options=q.PiccoloOptions(verbose=False, free_time=False),
-        rng=np.random.default_rng(7),
+                                      line_search="filter"),
+        piccolo_options=q.PiccoloOptions(verbose=False, integrator="exponential"),
+        rng=np.random.default_rng(1),
     )
-    solver2 = prob2.solver
-    if (solver2.fused_assembly_on, solver2.kkt_refine_n) != (False, 1):
-        fail(f"CNOT modes {(solver2.fused_assembly_on, solver2.kkt_refine_n)} != (False, 1)")
-    a2_sl = prob2.trajectory.comp_slice("a")
+    solverk = probk.solver
+    (gk,) = solverk.nlp.analytic.groups
+    if (solverk.fused_assembly_on, gk.kind, gk.num_squarings) != (True, "exp", 1):
+        fail(f"ket_exp modes {(solverk.fused_assembly_on, gk.kind, gk.num_squarings)}")
+    zk = probk.initial_decision(1)[0]
+    ak_sl = probk.trajectory.comp_slice("a")
+    dtk_sl = probk.trajectory.comp_slice("Δt")
 
-    def seeds2(seed):
-        return prob2.multistart_initial_decisions(CX_B, sigma=0.3,
-                                                  rng=np.random.default_rng(seed))
+    def seedsk(seed):
+        rng = np.random.default_rng(seed)
+        Z0 = np.broadcast_to(zk, (B, *zk.shape)).copy()
+        Z0[:, 1:-1, ak_sl] += 0.1 * rng.standard_normal((B, KET_T - 2, ak_sl.stop - ak_sl.start))
+        return Z0
 
-    # ---- 6. kernels on the first CNOT iteration's inputs ------------------ #
+    # ---- 9. kernels on the first ket_exp iteration's inputs --------------- #
     with torch.no_grad():
-        st2, raw2, real2, dw2 = first_iteration(solver2, seeds2(7))
-        Z2 = st2.Z.contiguous()
-        d2, s2 = Z2.shape[-1], st2.lam.shape[-1]
-        results2 = {"prop_bank": bank_entry(Z2, solver2.nlp.analytic, solver2.var_scale)}
-        results2.update(sweep_entries(real2, CX_B, CX_T, delta_c, factors=True))
-    finish(results2, bw, f32_peak)
-    shapes2 = {"B": CX_B, "T": CX_T, "d": d2, "s": s2, "dtype": "float32"}
-    for name, r in results2.items():
-        emit({"phase": "kernel", "path": "cnot", "name": name, "library_ms": None,
-              "shapes": r.pop("shapes", shapes2), **r})
-    bad = [n for n, r in results2.items() if not r["ok"]]
-    if bad:
-        fail(f"kernels disagree with their plain versions at the CNOT shapes: {bad}")
+        stk, _, realk, _ = first_iteration(solverk, seedsk(7))
+        ank = solverk.nlp.analytic
+        Zk, lamk = stk.Z.contiguous(), stk.lam.contiguous()
+        dk, sk = Zk.shape[-1], lamk.shape[-1]
+        k_out = dyn_assembly_cuda(ank, Zk, lamk)
+        r_out = dyn_assembly_reference(ank, Zk, lamk)
+        errs = [rel_err(a, b) for a, b in zip(k_out, r_out)]
+        n_pairs = B * (KET_T - 1)
+        nk, Kk = gk.G_drift.shape[0], gk.G_drives.shape[0] + 1
+        flops = (exp_bank_counts(n_pairs, nk, Kk - 1, True, gk.num_squarings)[1]
+                 + n_pairs * sum(member_flops(nk, Kk, m[4], True) for m in gk.members))
+        resultsk = {"dyn_assembly": dict(
+            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+            ms=time_ms(lambda: dyn_assembly_cuda(ank, Zk, lamk)),
+            plain_ms=time_ms(lambda: dyn_assembly_reference(ank, Zk, lamk)),
+            bytes=F4 * (Zk.numel() + lamk.numel() + sum(x.numel() for x in k_out)),
+            flops=flops, cc_max_abs=float(k_out[4].abs().max()),
+        )}
+        # the path runs the bank once per solve, first order (the multiplier
+        # initialisation's Jacobian)
+        resultsk["prop_bank"] = bank_entry(Zk, ank, solverk.var_scale, second_order=False)
+        # kernels 2 and 3 on this path's own blocks (exponential dynamics,
+        # B = I), as phase 3
+        resultsk.update(sweep_entries(realk, B, KET_T, delta_c, factors=False))
+    finish(resultsk, bw, f32_peak)
+    shapesk = {"B": B, "T": KET_T, "d": dk, "s": sk, "dtype": "float32"}
+    for name, r in resultsk.items():
+        emit({"phase": "kernel", "path": "ket_exp", "name": name,
+              "shapes": r.pop("shapes", shapesk), **r})
+    bad = [n for n, r in resultsk.items() if not r["ok"]]
+    if bad or resultsk["dyn_assembly"]["cc_max_abs"] != 0.0:
+        fail(f"kernels disagree with their plain versions at the ket_exp shapes: {bad}")
+    kkt_reference("ket_exp", realk)
 
-    # ---- 7. CNOT main path --------------------------------------------- #
-    solver2.solve(seeds2(6), max_iter=CX_WARM)  # discarded warm-up
-    Z0 = seeds2(42)
+    # ---- 10. ket_exp main path ------------------------------------------- #
+    solverk.solve(seedsk(6), max_iter=ITERS)  # discarded warm-up
     torch.cuda.synchronize()
     build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res2 = solver2.solve(Z0, max_iter=CX_ITERS)
+    resk = solverk.solve(seedsk(42), max_iter=ITERS)
     torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    counts2 = dict(build.launch_counts)
-    iters2 = solver2.last_steps
-    Zs2 = res2.Z.double().cpu().numpy()
-    if Zs2.shape != (CX_B, CX_T, d2) or not np.isfinite(Zs2).all():
-        fail(f"CNOT solution has shape {Zs2.shape} or non-finite values")
-    fids2 = q.batched_rollout_fidelity(
-        Zs2[:, :, a2_sl], np.full((CX_B, CX_T), CX_DT), sys2,
-        prob2.trajectory.goal["Ũ⃗"], prob2.trajectory.initial["Ũ⃗"], device="cuda",
-    )
-    infid2 = 1.0 - fids2
-    fr = {f"frac_infid_{t}": float(np.mean(infid2 <= float(t))) for t in ("1e-4", "1e-3", "1e-2")}
-    emit({"phase": "main_path", "path": "cnot", "batch": CX_B, "T": CX_T, "ipm_iters": iters2,
-          "wall_s": wall2, "ipm_ms_per_iter": 1e3 * wall2 / max(iters2, 1),
-          "solves_per_s_at_1e-4": CX_B * fr["frac_infid_1e-4"] / wall2, **fr,
-          "best_infid": float(infid2.min()), "median_infid": float(np.median(infid2)),
-          "ipm_converged_frac": float(res2.converged.float().mean()),
-          "launches": counts2, "kkt_attempts_per_iter": (counts2["kkt_fwd_sweep"] - 1)
-          / max(iters2, 1), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    cx_kernels = ("prop_bank", "kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
-    if min(counts2[k] for k in cx_kernels) <= 0:
-        fail(f"a kernel of the CNOT path was not launched: {counts2}")
-    if counts2["dyn_assembly"] != 0:
-        fail(f"the fused assembly ran on the CNOT path: {counts2}")
-    if counts2["prop_bank"] < iters2:
-        fail(f"fewer bank launches than iterations: {counts2}, {iters2} iterations")
-    if counts2["kkt_rhs_fwd_sweep"] != counts2["kkt_fwd_sweep"] - 1:
-        fail(f"not one re-solve per KKT attempt: {counts2}")
-    if fr["frac_infid_1e-4"] < 0.9:
-        fail(f"CNOT frac@1e-4 {fr['frac_infid_1e-4']} < 0.9")
+    wallk = time.perf_counter() - t0
+    countsk = dict(build.launch_counts)
+    itersk = solverk.last_steps
+    Zsk = resk.Z.double().cpu().numpy()
+    if Zsk.shape != (B, KET_T, dk) or not np.isfinite(Zsk).all():
+        fail(f"ket_exp solution has shape {Zsk.shape} or non-finite values")
+    # an instance counts when both kets reach the threshold
+    infidk = np.max([1.0 - q.batched_ket_rollout_fidelity(
+        Zsk[:, :, ak_sl], Zsk[:, :, dtk_sl][:, :, 0], sysk, probk.trajectory.goal[name],
+        probk.trajectory.initial[name], device="cuda") for name in ("ψ̃1", "ψ̃2")], axis=0)
+    frk = {f"frac_infid_{t}": float(np.mean(infidk <= float(t))) for t in ("1e-4", "1e-3", "1e-2")}
+    emit({"phase": "main_path", "path": "ket_exp", "batch": B, "T": KET_T, "ipm_iters": itersk,
+          "wall_s": wallk, "ipm_ms_per_iter": 1e3 * wallk / max(itersk, 1),
+          "solves_per_s_at_1e-4": B * frk["frac_infid_1e-4"] / wallk, **frk,
+          "best_infid": float(infidk.min()), "median_infid": float(np.median(infidk)),
+          "ipm_converged_frac": float(resk.converged.float().mean()),
+          "launches": countsk, "kkt_attempts_per_iter": (countsk["kkt_fwd_sweep"] - 1)
+          / max(itersk, 1), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if countsk["dyn_assembly"] < itersk or min(countsk["kkt_fwd_sweep"],
+                                               countsk["kkt_bwd_sweep"]) <= 0:
+        fail(f"a kernel of the ket_exp path was not launched: {countsk}")
+    if countsk["prop_bank"] != 1 or countsk["kkt_rhs_fwd_sweep"] != 0:
+        fail(f"ket_exp: not one bank launch per solve, or a re-solve: {countsk}")
+    if frk["frac_infid_1e-4"] < 0.9:
+        fail(f"ket_exp frac@1e-4 {frk['frac_infid_1e-4']} < 0.9")
+    emit({"phase": "launches_per_iter", "path": "ket_exp",
+          **{k: v / max(itersk, 1) for k, v in countsk.items()}})
 
-    # ---- 8. reference: the first CNOT iteration's real KKT system -------- #
-    # float32 error of the kernel path, unrefined and with the solver's one
-    # refinement pass, against the float64 CPU solve of the same blocks,
-    # beside the plain float32 path; as in phase 5 the unrefined kernel
-    # path must be no worse than ten times the plain one
-    with torch.no_grad():
-        dz0, nu0, ok0, fac = kl.solve_kkt_lanes(*real2, delta_c, want_factors=True)
-        dz1, nu1 = solver2._refine(list(raw2), dw2, dz0, nu0, fac)
-        dz_p, nu_p, ok_p = solve_kkt(*real2, delta_c)
-        dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in real2], delta_c)
-        keep = ok_r & ok0.cpu() & ok_p.cpu()
-        e0 = max(rel_err(dz0.cpu(), dz_r, keep)[1], rel_err(nu0.cpu(), nu_r, keep)[1])
-        e1 = max(rel_err(dz1.cpu(), dz_r, keep)[1], rel_err(nu1.cpu(), nu_r, keep)[1])
-        e_p = max(rel_err(dz_p.cpu(), dz_r, keep)[1], rel_err(nu_p.cpu(), nu_r, keep)[1])
-    emit({"phase": "reference", "path": "cnot", "batch": CX_B,
-          "kernel_rel_err_vs_f64_refine0": e0, "kernel_rel_err_vs_f64_refine1": e1,
-          "plain_rel_err_vs_f64": e_p, "compared": int(keep.sum()),
-          "ok_kernel": int(ok0.sum()), "ok_plain": int(ok_p.sum()), "ok_f64": int(ok_r.sum()),
-          "dw_max": float(dw2.max())})
-    if int(keep.sum()) < CX_B - CX_B // 100 or not np.isfinite(e1):
-        fail("the CNOT KKT solve failed on the first iteration's system")
-    if not e0 <= 10 * e_p + 1e-6:
-        fail("the CNOT kernel KKT solve is less accurate than the plain float32 solve")
-    emit({"phase": "launches_per_iter", "path": "cnot",
-          **{k: v / max(iters2, 1) for k, v in counts2.items()}})
+    # ---- 11-13. the CNOT problem with the exponential integrator ---------- #
+    resultsx, countsx = cnot_phases("cnot_exp", "exponential")
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
     entries += [("cnot", n, r, counts2) for n, r in results2.items()]
+    entries += [("ket_exp", n, r, countsk) for n, r in resultsk.items()]
+    entries += [("cnot_exp", n, r, countsx) for n, r in resultsx.items()]
     emit({"kernels": [
-        {"name": name, "path": path, "route": "cuda", "source": SOURCE[name],
+        {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
+         "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": cnt[name], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None, "ok": r["ok"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"]}
         for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

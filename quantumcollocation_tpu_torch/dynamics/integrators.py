@@ -1,7 +1,7 @@
 """Collocation integrators: defect rows F_t(z_t, z_{t+1}) = 0.
 
-Counterpart of quantumcollocation_tpu/dynamics/integrators.py (the four
-integrators of the smooth-pulse template).  `defect` takes knot rows with
+Counterpart of quantumcollocation_tpu/dynamics/integrators.py (the
+integrators of the unitary and ket smooth-pulse templates).  `defect` takes knot rows with
 any leading batch axes, (..., dim), and returns (..., defect_dim).  The
 solver assembles these rows analytically (solver/analytic.py); `defect` is
 the direct definition the analytic assembly is held against.
@@ -21,6 +21,8 @@ from .expm import default_num_squarings, expm_squaring, pade_numerator_denominat
 __all__ = [
     "UnitaryExponentialIntegrator",
     "UnitaryPadeIntegrator",
+    "QuantumStateExponentialIntegrator",
+    "QuantumStatePadeIntegrator",
     "DerivativeIntegrator",
     "TimeStepEqualityIntegrator",
 ]
@@ -112,6 +114,62 @@ class UnitaryPadeIntegrator:
         U_t = _iso_mats(traj, zt, self.state_name)
         U_tp1 = _iso_mats(traj, ztp1, self.state_name)
         return _iso_vec(D @ U_tp1 - N @ U_t)
+
+
+def _apply(M, v):
+    """(..., n, n) @ (..., n) -> (..., n)."""
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+@dataclasses.dataclass
+class QuantumStateExponentialIntegrator:
+    """Ket defect psi_{t+1} - exp(G(a_t) dt_t) psi_t on iso kets."""
+
+    state_name: str
+    control_name: str
+    system: QuantumSystem = None
+    order: int = 8
+    num_squarings: int | None = None
+    drive_bounds: Any = None
+    dt_max: float = 1.0
+    timestep_name: Any = None
+
+    def __post_init__(self):
+        if self.num_squarings is None:
+            self.num_squarings = default_num_squarings(
+                _norm_bound(self.system, self.drive_bounds, self.dt_max),
+                self.order,
+            )
+
+    def defect_dim(self, traj) -> int:
+        return traj.comp_size(self.state_name)
+
+    def defect(self, zt, ztp1, traj):
+        G = self.system.generator(_get(traj, zt, self.control_name))
+        X = G * _dt(traj, zt, self.timestep_name)[..., None, None]
+        P = expm_squaring(X, order=self.order, num_squarings=self.num_squarings)
+        return _get(traj, ztp1, self.state_name) - _apply(P, _get(traj, zt, self.state_name))
+
+
+@dataclasses.dataclass
+class QuantumStatePadeIntegrator:
+    """Ket implicit Padé defect q(-X) psi_{t+1} - q(X) psi_t."""
+
+    state_name: str
+    control_name: str
+    system: QuantumSystem = None
+    order: int = 4
+    timestep_name: Any = None
+
+    def defect_dim(self, traj) -> int:
+        return traj.comp_size(self.state_name)
+
+    def defect(self, zt, ztp1, traj):
+        G = self.system.generator(_get(traj, zt, self.control_name))
+        X = G * _dt(traj, zt, self.timestep_name)[..., None, None]
+        N, D = pade_numerator_denominator(X, self.order)
+        return (_apply(D, _get(traj, ztp1, self.state_name))
+                - _apply(N, _get(traj, zt, self.state_name)))
 
 
 @dataclasses.dataclass

@@ -3,6 +3,7 @@ from .objectives import (
     Objective,
     ObjectiveTerm,
     QuadraticRegularizer,
+    QuantumStateObjective,
     UnitaryInfidelityObjective,
 )
 
@@ -12,6 +13,7 @@ __all__ = [
     "Objective",
     "ObjectiveTerm",
     "QuadraticRegularizer",
+    "QuantumStateObjective",
     "TimeStepsAllEqualConstraint",
     "UnitaryInfidelityObjective",
 ]

@@ -1,7 +1,7 @@
 """Objective terms and their algebra.
 
 Counterpart of quantumcollocation_tpu/objectives/objectives.py
-(UnitaryInfidelityObjective, QuadraticRegularizer).  A term is classified
+(UnitaryInfidelityObjective, QuantumStateObjective, QuadraticRegularizer).  A term is classified
 by its stage structure so the problem compiler keeps the KKT system
 block-tridiagonal:
   - "stage":    fn(z_t, t) -> scalar, summed over all knots
@@ -21,12 +21,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..quantum.fidelities import iso_vec_unitary_fidelity
+from ..quantum.fidelities import iso_fidelity, iso_vec_unitary_fidelity
 
 __all__ = [
     "Objective",
     "ObjectiveTerm",
     "UnitaryInfidelityObjective",
+    "QuantumStateObjective",
     "QuadraticRegularizer",
 ]
 
@@ -77,6 +78,25 @@ def UnitaryInfidelityObjective(name, traj, Q=100.0):
 
     return Objective(
         (ObjectiveTerm("terminal", make, float(Q), f"unitary_infidelity[{name}]"),)
+    )
+
+
+def QuantumStateObjective(name, traj, Q=100.0):
+    """Q (1 - |<goal|psi_T>|^2).  No |x| here: the ket fidelity is smooth,
+    so its derivative at the goal needs no convention."""
+    start, stop = traj.components[name]
+    goal = np.asarray(traj.goal[name])
+
+    def make(dtype, device):
+        g = torch.as_tensor(goal, dtype=dtype, device=device)
+
+        def fn(zT):
+            return 1.0 - iso_fidelity(zT[start:stop], g)
+
+        return fn
+
+    return Objective(
+        (ObjectiveTerm("terminal", make, float(Q), f"state_infidelity[{name}]"),)
     )
 
 

@@ -2,16 +2,18 @@
 
 Replaces the Pallas kernel quantumcollocation_tpu/ops/pallas_prop_bank.py
 ::_bank_kernel (entry prop_bank_lanes) by a hand-written CUDA kernel,
-csrc/prop_bank.cu, for the Padé kind: N = q(X), D = q(-X) with first and
-second θ-derivatives, X = G(a)Δt, for every pair at once.  The solver runs
-it once per iteration when the fused assembly is off (the two-qubit
-sizes, where the bank does not fit one thread's registers).
+csrc/prop_bank.cu, for every pair at once, X = G(a)Δt: for the Padé kind
+N = q(X), D = q(-X) with first and second θ-derivatives; for the
+exponential kind P = exp(X) with its derivatives, by the same Padé step on
+X/2^s, a Gauss-Jordan inverse of D and s squarings.  The solver runs it
+once per iteration when the fused assembly is off (the two-qubit sizes,
+where the bank does not fit one thread's registers), and once per solve
+for the multiplier initialisation's Jacobian.
 
 `prop_bank_reference` is the plain PyTorch version (the batched
 pade_poly_frechet / expm_frechet_bank of dynamics/expm.py).  `prop_bank`
 takes it only for CPU tensors; for a CUDA tensor it launches the kernel or
-raises (the exponential kind has no kernel yet and raises
-NotImplementedError there).
+raises.
 """
 
 from __future__ import annotations
@@ -72,12 +74,9 @@ def _coeffs(order, device):
 def prop_bank_cuda(a, dt, G_drift, G_drives, *, kind, order, num_squarings=0,
                    free_dt, second_order):
     """Launch csrc/prop_bank.cu on float32 CUDA tensors a (M, na), dt (M,);
-    outputs as prop_bank_reference (Padé kind only)."""
-    if kind != "pade":
-        raise NotImplementedError(
-            "the CUDA bank kernel covers the Padé kind; the exponential branch "
-            "(Gauss-Jordan inverse and squarings) is not ported yet"
-        )
+    outputs as prop_bank_reference."""
+    if kind not in ("pade", "exp"):
+        raise ValueError(f"kind {kind!r} is not 'pade' or 'exp'")
     if not (a.is_cuda and dt.is_cuda):
         raise ValueError("prop_bank_cuda needs CUDA tensors")
     if a.dtype != torch.float32 or dt.dtype != torch.float32:
@@ -97,14 +96,17 @@ def prop_bank_cuda(a, dt, G_drift, G_drives, *, kind, order, num_squarings=0,
     new = dict(dtype=torch.float32, device=a.device)
     outs = [torch.empty(M, n, n, **new), torch.empty(M, K, n, n, **new),
             torch.empty(M, Kp, n, n, **new) if second_order else None]
-    outs += [torch.empty_like(x) if x is not None else None for x in outs]
+    if kind == "pade":
+        outs += [torch.empty_like(x) if x is not None else None for x in outs]
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     fn = build.library("prop_bank").qct_prop_bank
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 7
     err = fn(
         a.data_ptr(), dt.data_ptr(), Gd.data_ptr(), Gs.data_ptr(), coeffs.data_ptr(),
-        coeffs.numel(), M, n, na, K, Kp, int(free_dt), *[ptr(x) for x in outs],
+        coeffs.numel(), M, n, na, K, Kp, int(free_dt), int(kind == "exp"),
+        int(num_squarings) if kind == "exp" else 0,
+        *[ptr(x) for x in outs + [None] * (6 - len(outs))],
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     build.check(err, "prop_bank")

@@ -24,10 +24,12 @@ import torch
 
 from ..dynamics.integrators import (
     DerivativeIntegrator,
+    QuantumStateExponentialIntegrator,
+    QuantumStatePadeIntegrator,
     UnitaryExponentialIntegrator,
     UnitaryPadeIntegrator,
 )
-from ..dynamics.rollouts import unitary_rollout
+from ..dynamics.rollouts import rollout, unitary_rollout
 from ..objectives.constraints import AbstractConstraint, TimeStepsAllEqualConstraint
 from ..objectives.objectives import Objective
 from ..solver.analytic import build_analytic_dynamics
@@ -178,7 +180,7 @@ class QuantumControlProblem:
         dynamics-consistent seeds: per seed (seed 0 stays clean) the
         interior controls are perturbed by sigma·N(0, 1) and clipped to
         their bounds, the derivative chain is recomputed, and every unitary
-        state is rolled out (float64) under the perturbed controls, so each
+        and ket state is rolled out (float64) under the perturbed controls, so each
         seed starts with zero defects.  The draws are the JAX package's, in
         its order, so both give the same rows from one numpy Generator."""
         rng = rng or np.random.default_rng(0)
@@ -205,11 +207,16 @@ class QuantumControlProblem:
                 )
         for ig in self.integrators:
             if isinstance(ig, (UnitaryExponentialIntegrator, UnitaryPadeIntegrator)):
-                s_sl = traj.comp_slice(ig.state_name)
-                rows[:, :, s_sl] = unitary_rollout(
-                    rows[0, 0, s_sl], a_all, np.broadcast_to(dts, (n_seeds, T)), ig.system,
-                    device=self.device,
-                ).cpu().numpy()
+                roll = unitary_rollout
+            elif isinstance(ig, (QuantumStateExponentialIntegrator, QuantumStatePadeIntegrator)):
+                roll = rollout
+            else:
+                continue
+            s_sl = traj.comp_slice(ig.state_name)
+            rows[:, :, s_sl] = roll(
+                rows[0, 0, s_sl], a_all, np.broadcast_to(dts, (n_seeds, T)), ig.system,
+                device=self.device,
+            ).cpu().numpy()
         return rows
 
     solve_batch = solve_batched

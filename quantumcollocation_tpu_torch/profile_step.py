@@ -1,13 +1,15 @@
 """Where one IPM iteration of a main-path solve spends its time.
 
-    python -m quantumcollocation_tpu_torch.profile_step [--config hadamard|cnot]
-        [--steps 3] [--batch B]
+    python -m quantumcollocation_tpu_torch.profile_step
+        [--config hadamard|cnot|ket_exp|cnot_exp] [--steps 3] [--batch B]
 
-Builds the problem of chip_smoke.py's main path: "hadamard" (B=512, T=51,
-Q=1e4, R=1e-3, filter line search, seeds = the initial guess plus 0.1-σ
-control noise) or "cnot" (BASELINE #3: two qubits, fixed Δt=0.3, B=128,
-T=40, kkt_backend "lanes", seeds from multistart_initial_decisions),
-float32 on CUDA.  Runs two warm-up iterations, then profiles `--steps`
+Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
+T=51, Q=1e4, R=1e-3, filter line search, seeds = the initial guess plus
+0.1-σ control noise), "ket_exp" (the two-ket transfer |0>->|1>, |1>->|0>
+with the exponential integrator, T=50, seeds as hadamard's), "cnot"
+(BASELINE #3: two qubits, fixed Δt=0.3, B=128, T=40, kkt_backend "lanes",
+seeds from multistart_initial_decisions) or "cnot_exp" (cnot with the
+exponential integrator), float32 on CUDA.  Runs two warm-up iterations, then profiles `--steps`
 iterations with torch.profiler and prints one JSON line: host wall per
 iteration, device-busy time per iteration (the sum of kernel times), the
 idle share, the CUDA launch count, and the kernels with the most device
@@ -30,6 +32,7 @@ from . import (
     GATES,
     PAULIS,
     PiccoloOptions,
+    QuantumStateSmoothPulseProblem,
     QuantumSystem,
     SolverOptions,
     UnitarySmoothPulseProblem,
@@ -40,7 +43,8 @@ def build(config, batch):
     """(solver, Z0) of a main-path configuration; batch None = its own."""
     opts = dict(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter")
     rng = np.random.default_rng(42)
-    if config == "cnot":
+    integrator = "exponential" if config.endswith("_exp") else "pade"
+    if config.startswith("cnot"):
         P, k = PAULIS, np.kron
         sysq = QuantumSystem(0.1 * k(P["Z"], P["Z"]), [k(P["Z"], P["X"]), k(P["X"], P["I"]),
                                                       k(P["Y"], P["I"]), k(P["I"], P["X"]),
@@ -48,16 +52,28 @@ def build(config, batch):
         prob = UnitarySmoothPulseProblem(
             sysq, GATES["CX"], 40, 0.3, Q=1e4, R=1e-3,
             ipopt_options=SolverOptions(kkt_backend="lanes", **opts),
-            piccolo_options=PiccoloOptions(verbose=False, free_time=False),
+            piccolo_options=PiccoloOptions(verbose=False, free_time=False,
+                                           integrator=integrator),
             rng=np.random.default_rng(7),
         )
         return prob.solver, prob.multistart_initial_decisions(batch or 128, sigma=0.3, rng=rng)
-    B, T = batch or 512, 51
-    sysq = QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]])
-    prob = UnitarySmoothPulseProblem(
-        sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3, ipopt_options=SolverOptions(**opts),
-        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
-    )
+    B = batch or 512
+    if config == "ket_exp":
+        T = 50
+        sysq = QuantumSystem(0.1 * PAULIS["Z"], [PAULIS["X"], PAULIS["Y"]])
+        prob = QuantumStateSmoothPulseProblem(
+            sysq, [[1, 0], [0, 1]], [[0, 1], [1, 0]], T, 0.2, Q=1e4, R=1e-3,
+            ipopt_options=SolverOptions(**opts),
+            piccolo_options=PiccoloOptions(verbose=False, integrator=integrator),
+            rng=np.random.default_rng(1),
+        )
+    else:
+        T = 51
+        sysq = QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]])
+        prob = UnitarySmoothPulseProblem(
+            sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3, ipopt_options=SolverOptions(**opts),
+            piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+        )
     z0 = prob.initial_decision(1)[0]
     a_sl = prob.trajectory.comp_slice("a")
     Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
@@ -67,7 +83,8 @@ def build(config, batch):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("hadamard", "cnot"), default="hadamard")
+    ap.add_argument("--config", choices=("hadamard", "cnot", "ket_exp", "cnot_exp"),
+                    default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)
     args = ap.parse_args()

@@ -1,8 +1,9 @@
-"""Unitary fidelity in iso coordinates, in real arithmetic.
+"""Ket and unitary fidelities in iso coordinates, in real arithmetic.
 
-Counterpart of quantumcollocation_tpu/quantum/fidelities.py::
-iso_vec_unitary_fidelity.  Works on torch tensors (the objective path,
-differentiable under torch.func) and on numpy arrays.
+Counterpart of quantumcollocation_tpu/quantum/fidelities.py::fidelity,
+iso_fidelity and iso_vec_unitary_fidelity.  The iso functions work on
+torch tensors (the objective path, differentiable under torch.func) and on
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from .isomorphisms import iso_vec_to_iso_operator
 
-__all__ = ["unitary_fidelity", "iso_vec_unitary_fidelity"]
+__all__ = ["fidelity", "iso_fidelity", "unitary_fidelity", "iso_vec_unitary_fidelity"]
 
 
 def _safe_abs(re, im):
@@ -25,6 +26,22 @@ def _safe_abs(re, im):
         r = torch.sqrt(torch.where(pos, sq, torch.ones_like(sq)))
         return torch.where(pos, r, torch.zeros_like(r))
     return np.sqrt(sq)
+
+
+def fidelity(psi, psi_goal):
+    """|<psi_goal|psi>|^2 for complex numpy kets."""
+    return np.abs(np.vdot(np.asarray(psi_goal), np.asarray(psi))) ** 2
+
+
+def iso_fidelity(psi_iso, psi_goal_iso):
+    """|<goal|psi>|^2 on iso kets (..., 2N): <goal|psi> = (gre - i gim) ·
+    (pre + i pim)."""
+    n = psi_iso.shape[-1] // 2
+    pre, pim = psi_iso[..., :n], psi_iso[..., n:]
+    gre, gim = psi_goal_iso[..., :n], psi_goal_iso[..., n:]
+    re = (gre * pre + gim * pim).sum(-1)
+    im = (gre * pim - gim * pre).sum(-1)
+    return re**2 + im**2
 
 
 def unitary_fidelity(U, U_goal):

@@ -1,8 +1,9 @@
 """Real isomorphisms of complex quantum objects.
 
-Counterpart of quantumcollocation_tpu/quantum/isomorphisms.py (unitary and
-generator parts).  Layouts:
+Counterpart of quantumcollocation_tpu/quantum/isomorphisms.py (ket,
+unitary and generator parts).  Layouts:
 
+- ket psi (N,) -> [Re psi; Im psi] (2N,)
 - unitary U (N, N) -> iso operator [Re U; Im U] (2N, N) -> iso vec of its
   columns, iso_vec[c*2N + r] = [Re U; Im U][r, c]
 - G(H) = [[Im H, Re H], [-Re H, Im H]], the real generator of -i H
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 __all__ = [
+    "ket_to_iso",
+    "iso_to_ket",
     "operator_to_iso_operator",
     "iso_operator_to_operator",
     "iso_operator_to_iso_vec",
@@ -37,6 +40,19 @@ def _swap(x):
     if isinstance(x, torch.Tensor):
         return x.transpose(-1, -2)
     return np.swapaxes(x, -1, -2)
+
+
+def ket_to_iso(psi):
+    """Complex ket (..., N) -> real iso vector (..., 2N) = [Re; Im]."""
+    if not isinstance(psi, torch.Tensor):
+        psi = np.asarray(psi)
+    return _cat([psi.real, psi.imag], -1)
+
+
+def iso_to_ket(psi_iso):
+    """Real iso vector (..., 2N) -> complex ket (..., N)."""
+    n = psi_iso.shape[-1] // 2
+    return psi_iso[..., :n] + 1j * psi_iso[..., n:]
 
 
 def operator_to_iso_operator(U):

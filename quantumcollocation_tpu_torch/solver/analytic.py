@@ -7,6 +7,7 @@ kinds and their blocks:
     exponential defect   F = u_{t+1} - (I ⊗ P(θ_t)) u_t,       θ = (a, Δt)
     implicit Padé defect F = (I ⊗ D(θ_t)) u_{t+1} - (I ⊗ N(θ_t)) u_t
                              with N = q(X), D = q(-X), X = G(a)Δt
+    (u is a unitary's iso vec, ncols = N columns, or an iso ket, ncols = 1)
     derivative defect    F = x_{t+1} - x_t - dx_t Δt_t          (bilinear)
     Δt-equality defect   F = Δt_{t+1} - Δt_t                    (linear)
 
@@ -356,8 +357,10 @@ def build_analytic_dynamics(traj, integrators, d_aug: int):
     for ig in integrators:
         r1 = r0 + ig.defect_dim(traj)
         kind = (
-            "exp" if isinstance(ig, igs.UnitaryExponentialIntegrator)
-            else "pade" if isinstance(ig, igs.UnitaryPadeIntegrator)
+            "exp" if isinstance(ig, (igs.UnitaryExponentialIntegrator,
+                                     igs.QuantumStateExponentialIntegrator))
+            else "pade" if isinstance(ig, (igs.UnitaryPadeIntegrator,
+                                           igs.QuantumStatePadeIntegrator))
             else None
         )
         if kind is not None:

@@ -1,6 +1,7 @@
 from .indexing import comp_slice_at, index, slice_at
 from .initialization import (
     initialize_control_trajectory,
+    initialize_state_trajectory,
     initialize_trajectory,
     initialize_unitary_trajectory,
     linear_interpolation,
@@ -14,6 +15,7 @@ __all__ = [
     "derivative",
     "index",
     "initialize_control_trajectory",
+    "initialize_state_trajectory",
     "initialize_trajectory",
     "initialize_unitary_trajectory",
     "linear_interpolation",

@@ -1,9 +1,12 @@
-"""Initial guesses for unitary trajectories (host numpy, build time only).
+"""Initial guesses for unitary and ket trajectories (host numpy, build
+time only).
 
 Counterpart of quantumcollocation_tpu/trajectory/initialization.py:
-unitary geodesic (or linear) state guess plus random bounded controls.
-Randomness comes from a numpy Generator, drawn in the same order as the
-JAX package, so both packages build the same trajectory from one seed.
+unitary geodesic (or linear) state guess, ket linear interpolation (or a
+rollout under a given control guess), plus random bounded controls or the
+derivative chain of a given guess.  Randomness comes from a numpy
+Generator, drawn in the same order as the JAX package, so both packages
+build the same trajectory from one seed.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ from typing import Sequence
 import numpy as np
 import scipy.linalg as sla
 
-from ..quantum.isomorphisms import operator_to_iso_vec
-from .named_trajectory import NamedTrajectory
+from ..dynamics.rollouts import rollout
+from ..quantum.isomorphisms import ket_to_iso, operator_to_iso_vec
+from .named_trajectory import NamedTrajectory, derivative
 
 __all__ = [
     "unitary_geodesic",
@@ -22,6 +26,7 @@ __all__ = [
     "initialize_control_trajectory",
     "initialize_trajectory",
     "initialize_unitary_trajectory",
+    "initialize_state_trajectory",
 ]
 
 
@@ -69,6 +74,18 @@ def initialize_control_trajectory(
     return controls
 
 
+def _control_chain(a_guess, dts, n_derivatives: int):
+    """[a, da, ...] from a guess a (T, n_drives): forward differences, each
+    but the last with its end row fixed so the last derivative-chain
+    defect holds at the start."""
+    controls = [np.array(a_guess, dtype=float)]
+    for n in range(1, n_derivatives + 1):
+        controls.append(derivative(controls[-1], dts))
+        if n > 1:
+            controls[-2][-1] = controls[-2][-2] + dts[-2] * controls[-1][-2]
+    return controls
+
+
 def initialize_trajectory(
     state_data: Sequence[np.ndarray],
     state_inits: Sequence[np.ndarray],
@@ -86,10 +103,12 @@ def initialize_trajectory(
     timestep_name: str = "Δt",
     dt_bounds=None,
     drive_derivative_sigma: float = 0.1,
+    a_guess=None,
     rng=None,
 ) -> NamedTrajectory:
-    """States first, then the control chain, then the timestep (free
-    time); pins a = 0 at both ends and the states at t = 0."""
+    """States first, then the control chain (random, or that of a_guess),
+    then the timestep (free time); pins a = 0 at both ends and the states
+    at t = 0."""
     n_der = len(control_bounds) - 1
     control_names = [control_name] + [
         "d" * i + control_name for i in range(1, n_der + 1)
@@ -100,9 +119,12 @@ def initialize_trajectory(
     )
     if dt_bounds is None:
         dt_bounds = (0.5 * float(np.mean(dts)), 1.5 * float(np.mean(dts)))
-    a_values = initialize_control_trajectory(
-        n_drives, n_der, T, control_bounds[0], drive_derivative_sigma, rng=rng
-    )
+    if a_guess is None:
+        a_values = initialize_control_trajectory(
+            n_drives, n_der, T, control_bounds[0], drive_derivative_sigma, rng=rng
+        )
+    else:
+        a_values = _control_chain(a_guess, dts, n_der)
     components = dict(zip(state_names, state_data))
     components.update(zip(control_names, a_values))
     bounds = dict(zip(control_names, control_bounds))
@@ -147,4 +169,36 @@ def initialize_unitary_trajectory(
     return initialize_trajectory(
         [U_traj], [v_init], [v_goal], [state_name], T, dt, n_drives,
         control_bounds, rng=rng, **kwargs,
+    )
+
+
+def initialize_state_trajectory(
+    psi_goals, psi_inits, T: int, dt, n_drives: int, control_bounds, *,
+    state_name: str = "ψ̃", state_names=None, a_guess=None, system=None,
+    rollout_integrator: str = "expm", rng=None, **kwargs,
+) -> NamedTrajectory:
+    """Ket trajectory: one state per (init, goal) pair, named state_name
+    alone or auto-numbered ψ̃1, ψ̃2, ... for several; the linear
+    interpolation of each pair, or its rollout under a_guess."""
+    if state_names is None:
+        state_names = (
+            [state_name] if len(psi_goals) == 1
+            else [f"{state_name}{i + 1}" for i in range(len(psi_goals))]
+        )
+    iso_inits = [ket_to_iso(np.asarray(p, dtype=complex)) for p in psi_inits]
+    iso_goals = [ket_to_iso(np.asarray(p, dtype=complex)) for p in psi_goals]
+    dts = np.full((T,), float(dt)) if np.isscalar(dt) else np.asarray(dt).reshape(-1)
+    if a_guess is not None:
+        if system is None:
+            raise ValueError("a system is needed to roll out a_guess")
+        if rollout_integrator != "expm":
+            raise NotImplementedError(
+                f"rollout integrator {rollout_integrator!r}: the port rolls out with expm"
+            )
+        states = [rollout(i0, np.asarray(a_guess), dts, system).numpy() for i0 in iso_inits]
+    else:
+        states = [linear_interpolation(i0, g0, T) for i0, g0 in zip(iso_inits, iso_goals)]
+    return initialize_trajectory(
+        states, iso_inits, iso_goals, state_names, T, dt, n_drives, control_bounds,
+        a_guess=a_guess, rng=rng, **kwargs,
     )

@@ -80,13 +80,24 @@ def test_analytic_defects_match_integrator_definitions():
 
 def test_spec_table_and_exp_branch():
     _, pt = _pair("pade_free_time")
-    ispec, fspec, nk = da.pack_spec(pt.solver.nlp.analytic)
-    assert nk == (4, 3) and nk in da.SUPPORTED_NK
+    ispec, fspec, nk, kind = da.pack_spec(pt.solver.nlp.analytic)
+    assert nk == (4, 3) and nk in da.SUPPORTED_NK and kind == "pade"
     assert ispec[:3].tolist() == [1, 2, 1]  # one group, two derivative rows, one Δt row
+    assert ispec[7] == 0  # no squarings
     assert fspec.shape[0] == 15 + 13 + 2 + 3 + 16 + 32 + 2
+    # the exponential branch: its squaring count, the five order-8
+    # coefficients and the generators scaled by 2^-s
     _, pe = _pair("exp_free_time")
-    with pytest.raises(NotImplementedError):
-        da.pack_spec(pe.solver.nlp.analytic)
+    an = pe.solver.nlp.analytic
+    (g,) = an.groups
+    ispec, fspec, nk, kind = da.pack_spec(an)
+    assert nk == (4, 3) and kind == "exp" and g.num_squarings >= 1
+    assert ispec[3:9].tolist()[-2] == g.num_squarings
+    assert fspec.shape[0] == 15 + 13 + 2 + 5 + 16 + 32 + 2
+    g0 = 15 + 13
+    assert fspec[g0 + 1] == 5
+    np.testing.assert_allclose(fspec[g0 + 2:g0 + 7], qt.pade_coefficients(8))
+    np.testing.assert_allclose(fspec[g0 + 7:g0 + 23], 2.0 ** -g.num_squarings * g.G_drift.ravel())
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

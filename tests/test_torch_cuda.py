@@ -118,12 +118,57 @@ def test_bank_kernel_matches_plain_version(cuda, n, na, free_dt):
     _close_rel(first[4], out[4])
 
 
-def test_bank_kernel_refuses_the_exp_kind(cuda):
-    a = torch.zeros(4, 2, device=cuda)
-    with pytest.raises(NotImplementedError):
-        pb.prop_bank(a, torch.ones(4, device=cuda), torch.zeros(4, 4, device=cuda),
-                     torch.zeros(2, 4, 4, device=cuda), kind="exp", order=4, num_squarings=2,
-                     free_dt=False, second_order=True)
+@pytest.mark.parametrize("n, na, free_dt, second_order, nsq", [
+    (8, 5, False, True, 2),  # the CNOT path's iterations
+    (4, 2, True, False, 1),  # the ket path's multiplier initialisation
+    (4, 2, True, True, 3),
+])
+def test_bank_kernel_exp_branch_matches_plain_version(cuda, n, na, free_dt, second_order, nsq):
+    rng = np.random.default_rng(n + nsq)
+    M = 300
+    args = [rng.uniform(-1, 1, size=(M, na)), rng.uniform(0.1, 0.4, size=(M,)),
+            0.5 * rng.normal(size=(n, n)), 0.5 * rng.normal(size=(na, n, n))]
+    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in args]
+    kw = dict(kind="exp", order=8, num_squarings=nsq, free_dt=free_dt, second_order=second_order)
+    before = build.launch_counts["prop_bank"]
+    out = pb.prop_bank(*args, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts["prop_bank"] == before + 1 and len(out) == 3
+    for o, r in zip(out, pb.prop_bank_reference(*args, **kw)):
+        if r is None:
+            assert o is None
+            continue
+        assert o.shape == r.shape
+        _close_rel(o, r)
+
+
+def _ket_problem(T=11, **kw):
+    sysq = qt.QuantumSystem(0.1 * qt.PAULIS["Z"], [qt.PAULIS["X"], qt.PAULIS["Y"]])
+    return qt.QuantumStateSmoothPulseProblem(
+        sysq, [[1, 0], [0, 1]], [[0, 1], [1, 0]], T, 0.2, Q=1e4, R=1e-3,
+        ipopt_options=qt.SolverOptions(line_search="filter", kappa_mu=0.2, tol=1e-5),
+        piccolo_options=qt.PiccoloOptions(verbose=False, integrator="exponential"),
+        rng=np.random.default_rng(0), **kw,
+    )
+
+
+def test_assembly_kernel_exp_branch_matches_plain_version(cuda):
+    prob = _ket_problem(device="cpu")
+    an = prob.solver.nlp.analytic
+    assert an.groups[0].kind == "exp" and an.groups[0].num_squarings == 1
+    rng = np.random.default_rng(5)
+    z0 = np.asarray(prob.solver.nlp.z0)
+    Z = torch.as_tensor(z0 + 0.05 * rng.standard_normal((64, *z0.shape)),
+                        dtype=torch.float32, device=cuda)
+    lam = torch.as_tensor(rng.standard_normal((64, an.T - 1, an.s)),
+                          dtype=torch.float32, device=cuda)
+    before = build.launch_counts["dyn_assembly"]
+    out = da.dyn_assembly(an, Z, lam)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dyn_assembly"] == before + 1
+    for o, r in zip(out, da.dyn_assembly_reference(an, Z, lam)):
+        _close_rel(o, r)
+    assert float(out[4].abs().max()) == 0.0  # no Cc term
 
 
 def test_sweeps_with_kept_factors_at_two_qubit_size(cuda):
@@ -199,3 +244,40 @@ def test_cnot_path_launches_its_kernels(cuda):
     # every IPM attempt re-solves once; the multiplier solve at start does not
     assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
     assert c["kkt_bwd_sweep"] == c["kkt_fwd_sweep"] + c["kkt_rhs_fwd_sweep"], c
+
+
+def test_ket_exp_path_launches_its_kernels(cuda):
+    # the exponential ket path: fused assembly (exponential branch) and the
+    # two sweeps in the iterations, the exponential bank once per solve
+    prob = _ket_problem()
+    Z0 = prob.multistart_initial_decisions(8, sigma=0.1, rng=np.random.default_rng(0))
+    build.reset_launch_counts()
+    res = prob.solve_batched(Z0, max_iter=10)
+    c = build.launch_counts
+    assert torch.isfinite(res.Z).all()
+    assert c["dyn_assembly"] == prob.solver.last_steps > 0, c
+    assert c["prop_bank"] == 1 and c["kkt_rhs_fwd_sweep"] == 0, c
+    assert c["kkt_fwd_sweep"] == c["kkt_bwd_sweep"] > 0, c
+
+
+def test_cnot_exp_path_launches_its_kernels(cuda):
+    P, k = qt.PAULIS, np.kron
+    sysq = qt.QuantumSystem(0.1 * k(P["Z"], P["Z"]), [k(P["Z"], P["X"]), k(P["X"], P["I"]),
+                                                      k(P["Y"], P["I"]), k(P["I"], P["X"]),
+                                                      k(P["I"], P["Y"])])
+    prob = qt.UnitarySmoothPulseProblem(
+        sysq, qt.GATES["CX"], 11, 0.3, Q=1e4, R=1e-3,
+        ipopt_options=qt.SolverOptions(kkt_backend="lanes", line_search="filter"),
+        piccolo_options=qt.PiccoloOptions(verbose=False, free_time=False,
+                                          integrator="exponential"),
+        rng=np.random.default_rng(7),
+    )
+    (g,) = prob.solver.nlp.analytic.groups
+    assert (g.kind, g.num_squarings) == ("exp", 2)
+    Z0 = prob.multistart_initial_decisions(4, sigma=0.3, rng=np.random.default_rng(0))
+    build.reset_launch_counts()
+    res = prob.solve_batched(Z0, max_iter=5)
+    c = build.launch_counts
+    assert torch.isfinite(res.Z).all()
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] >= prob.solver.last_steps > 0, c
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
