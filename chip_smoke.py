@@ -18,8 +18,7 @@ Phases, one JSON object per line on stdout:
      checked by a float64 rollout (converged_frac at infidelity <= 1e-4);
   5. reference, Hadamard: the kernel path's KKT step on the first
      iteration's real system against the float64 CPU solve, beside the
-     plain float32 path; and the bounds, at these shapes, of the two TPU
-     kernels not ported yet (the lanes_scan per-knot steps);
+     plain float32 path;
   6. kernels, CNOT shapes: the bank kernel (4,992 pairs, n=8, K=5), the
      forward sweep with kept factors, the backward sweep and the rhs-only
      forward sweep (B=128, T=40, d=47, s=42) against their plain versions;
@@ -52,6 +51,26 @@ Phases, one JSON object per line on stdout:
      integrator (fixed time, so the fused assembly is off and the bank's
      exponential branch runs in every iteration); frac@1e-4 >= 0.9;
  13. reference, cnot_exp: phase 8 on this problem's first iteration;
+ 14. kernels, L-BFGS shapes: phase 4's problem with
+     PiccoloOptions(eval_hessian=False) (lbfgs_memory 6); on the real KKT
+     system of its iteration 8, once the memory holds 6 pairs (H = σI +
+     barrier, C = 0, right-hand side [rz | U], r = 13 columns), the forward
+     and backward sweeps and the first-order bank against their plain
+     versions, with the system's float32 error against float64 as in
+     phase 5; and a seeded d=47, s=42, r=13, B=128 case of the two sweeps;
+ 15. main path, hadamard_lbfgs: that problem, B=512, 300 iterations, the
+     seeds of phase 4; one discarded warm-up solve of a few iterations, then
+     the timed one; the fractions at infidelity <= 1e-2, 1e-3, 1e-4 by the
+     float64 rollout (frac@1e-3 >= 0.9), and the launch checks: no
+     assembly, no rhs-only sweep, forward = backward sweeps = KKT attempts
+     + 1 (the multiplier initialisation), a bank launch per iteration;
+ 16. kernels, scan shapes: the per-knot steps (kernels 6 and 7) against
+     fwd_step_reference / bwd_step_reference, one knot and a whole
+     solve_kkt_lanes_scan solve, on seeded blocks of the Hadamard shapes;
+     times (per launch and per solve) on the first iteration's real blocks;
+ 17. main path, hadamard_scan: phase 4's problem with kkt_backend
+     "lanes_scan", 48 iterations (frac@1e-4 >= 0.9); each step kernel
+     launches (T-1) x (KKT attempts + 1) times and the fused sweeps never.
 The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices).
 Then the kernels line, and last {"ok": true, "device": {...}}.  Each main
@@ -74,6 +93,7 @@ import torch
 B, T, ITERS = 512, 51, 48
 CX_B, CX_T, CX_DT, CX_ITERS, CX_WARM = 128, 40, 0.3, 80, 3
 KET_T = 50  # ket_exp: B and ITERS as the Hadamard path
+QN_ITERS, QN_AT, NEW_WARM = 300, 8, 3  # hadamard_lbfgs; warm-up of the new paths
 # float32 tolerances, relative to the largest entry of the plain output:
 # the kernel and its plain version round in different orders (a Horner
 # chain per thread vs batched matmuls; scalar Cholesky loops vs batched
@@ -87,10 +107,13 @@ REPLACES = {
     "kkt_fwd_sweep": "quantumcollocation_tpu/solver/kkt_lanes.py:484",
     "kkt_bwd_sweep": "quantumcollocation_tpu/solver/kkt_lanes.py:565",
     "kkt_rhs_fwd_sweep": "quantumcollocation_tpu/solver/kkt_lanes.py:540",
+    "kkt_fwd_step": "quantumcollocation_tpu/solver/kkt_lanes.py:311",
+    "kkt_bwd_step": "quantumcollocation_tpu/solver/kkt_lanes.py:346",
 }
 SOURCE = {"dyn_assembly": SRC + "dyn_assembly.cu", "prop_bank": SRC + "prop_bank.cu",
-          "kkt_fwd_sweep": SRC + "kkt_sweeps.cu", "kkt_bwd_sweep": SRC + "kkt_sweeps.cu",
-          "kkt_rhs_fwd_sweep": SRC + "kkt_sweeps.cu"}
+          **{k: SRC + "kkt_sweeps.cu" for k in ("kkt_fwd_sweep", "kkt_bwd_sweep",
+                                                "kkt_rhs_fwd_sweep", "kkt_fwd_step",
+                                                "kkt_bwd_step")}}
 F4 = 4  # bytes per float32
 
 
@@ -139,15 +162,17 @@ def rel_err(out, ref, keep=None):
     return err, err / scale
 
 
-def seeded_kkt(Bn, Tn, d, s, device):
+def seeded_kkt(Bn, Tn, d, s, device, r=None):
     """Seeded blocks of the given shapes, shaped like dynamics defects
     (A ≈ -I, B ≈ I) and definite, so that float32 resolves them (their
     float32 error against float64 is ~1e-6 relative at d=15).  At the
     two-qubit size the noise shrinks with d, and B ≈ I/2 makes the chain
     contract: with B ≈ I the eliminated blocks sum H along the 40 knots,
     and the carried rhs reaches ~7e3, where float32 rounding alone is
-    ~8e-5 of it (a CPU float32-vs-float64 probe)."""
+    ~8e-5 of it (a CPU float32-vs-float64 probe).  With r, the two
+    right-hand sides have r columns."""
     rng = np.random.default_rng(0)
+    cols = () if r is None else (r,)
     small = d <= 16
     w = 0.3 if small else 1.0 / np.sqrt(d)
     Hs = np.eye(d) * 3 + w * rng.normal(size=(Bn, Tn, d, d))
@@ -156,32 +181,32 @@ def seeded_kkt(Bn, Tn, d, s, device):
            (0.2 if small else 0.7 * w) * rng.normal(size=(Bn, Tn - 1, d, d)),
            -E + 0.1 * rng.normal(size=(Bn, Tn - 1, s, d)),
            (1.0 if small else 0.5) * E + 0.1 * rng.normal(size=(Bn, Tn - 1, s, d)),
-           rng.normal(size=(Bn, Tn, d)), rng.normal(size=(Bn, Tn - 1, s)),
-           rng.normal(size=(Bn, Tn, d)), rng.normal(size=(Bn, Tn - 1, s))]
+           rng.normal(size=(Bn, Tn, d, *cols)), rng.normal(size=(Bn, Tn - 1, s, *cols)),
+           rng.normal(size=(Bn, Tn, d, *cols)), rng.normal(size=(Bn, Tn - 1, s, *cols))]
     return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in out]
 
 
-def sweep_counts(Bn, Tn, d, s, kernel, factors=False):
-    """(bytes, flops) of one sweep call: each input read once, each output
-    written once; flops of the elimination's products and triangular
-    solves."""
+def sweep_counts(Bn, Tn, d, s, kernel, factors=False, r=1):
+    """(bytes, flops) of one sweep call with r right-hand-side columns:
+    each input read once, each output written once; flops of the
+    elimination's products and triangular solves."""
     Tm1 = Tn - 1
     if kernel == "kkt_fwd_sweep":
         # chol(P); P^-1 [A^T | C | q]; A [X_A | X_C | x]; chol(S);
         # S^-1 [G | r]; G^T (S^-1 [G | r]) and C^T [X_C | x], once each
-        per_knot = (d**3 / 3 + 2 * d * d * (s + d + 1) + 2 * s * d * (s + d + 1)
-                    + s**3 / 3 + 2 * s * s * (d + 1) + 2 * d * s * (d + 1)
-                    + 2 * d * d * (d + 1))
-        flops = Bn * (Tm1 * per_knot + d**3 / 3 + 2 * d * d)
-        reads = Tn * d * d + Tm1 * (d * d + 2 * s * d + s) + Tn * d
-        writes = Tm1 * (d * d + s * s + d * s + d) + d
+        per_knot = (d**3 / 3 + 2 * d * d * (s + d + r) + 2 * s * d * (s + d + r)
+                    + s**3 / 3 + 2 * s * s * (d + r) + 2 * d * s * (d + r)
+                    + 2 * d * d * (d + r))
+        flops = Bn * (Tm1 * per_knot + d**3 / 3 + 2 * d * d * r)
+        reads = Tn * d * d + Tm1 * (d * d + 2 * s * d + s * r) + Tn * d * r
+        writes = Tm1 * (d * d + s * s + d * s + d * r) + d * r
         if factors:
             writes += Tm1 * s * d + d * d
         return F4 * Bn * (reads + writes), flops
     if kernel == "kkt_bwd_sweep":
-        per_knot = 2 * d * d + 4 * s * d + 2 * d * d + 2 * s * s + 2 * d * s
-        nbytes = F4 * Bn * (Tm1 * (d * d + s * s + d * s + d + d * d + 2 * s * d + s)
-                            + d + Tm1 * (d + s))
+        per_knot = r * (2 * d * d + 4 * s * d + 2 * d * d + 2 * s * s + 2 * d * s)
+        nbytes = F4 * Bn * (Tm1 * (d * d + s * s + d * s + d * r + d * d + 2 * s * d + s * r)
+                            + d * r + Tm1 * (d + s) * r)
         return nbytes, Bn * Tm1 * per_knot
     # kkt_rhs_fwd_sweep: L_P, L_S, G, C, A, rz, rnu, L_Pf in; q, dz_{T-1} out
     per_knot = 2 * d * d + 2 * s * d + 2 * s * s + 2 * s * d + 2 * d * d + 3 * d + s
@@ -192,10 +217,9 @@ def sweep_counts(Bn, Tn, d, s, kernel, factors=False):
 
 def step_counts(Bn, Tn, d, s):
     """(bytes, flops) of one solve through the per-knot kernels of the
-    lanes_scan backend (solver/kkt_lanes.py::_fwd_step_kernel and
-    ::_bwd_step_kernel, not ported), T-1 calls each: every call reads and
-    writes its blocks as listed in its pallas_call specs, the Riccati
-    carry included."""
+    lanes_scan backend (kernels 6 and 7), T-1 calls each: every call reads
+    and writes its blocks as listed in the JAX pallas_call specs, the
+    Riccati carry included."""
     fwd_io = 3 * d * d + 2 * d + 2 * s * d + s + (2 * d * d + 2 * d + s * s + d * s)
     fwd_fl = (d**3 / 3 + 2 * d * d * s + 2 * d**3 + 2 * d * d + 2 * s * s * d + s**3 / 3
               + 2 * s * d * d + 2 * s * d + 2 * s * s + 2 * s * s * d + 2 * d**3
@@ -312,6 +336,7 @@ def main():
     )
     from quantumcollocation_tpu_torch.solver import kkt_lanes as kl
     from quantumcollocation_tpu_torch.solver.kkt import solve_kkt
+    from quantumcollocation_tpu_torch.solver.lbfgs import lbfgs_rhs
 
     # ---- 1. environment ---------------------------------------------- #
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -372,29 +397,30 @@ def main():
                     "second_order": second_order},
         )
 
-    def sweep_entries(real, Bn, Tn, delta_c, factors):
+    def sweep_entries(real, Bn, Tn, delta_c, factors, r=None):
         """Kernels 2, 3 (and 4 with factors) against their plain versions
-        on seeded blocks of the path's shapes; times on the path's real
-        first-iteration blocks (H with the accepted δ_w)."""
+        on seeded blocks of the path's shapes (r right-hand-side columns
+        where r is given); times on the path's real blocks (H with the
+        accepted δ_w)."""
         d, s = real[0].shape[-1], real[2].shape[-2]
         dev = real[0].device
-        seeded = seeded_kkt(Bn, Tn, d, s, dev)
+        seeded = seeded_kkt(Bn, Tn, d, s, dev, r)
         mats, rhs, rhs2 = seeded[:4], seeded[4:6], seeded[6:]
         out = {}
         k_f = list(kl.fwd_sweep_cuda(*mats, *rhs, delta_c, want_factors=factors))
         k_f[4] = k_f[4][:, -1]
         ref_f = kl.fwd_sweep_reference(*mats, *rhs, delta_c, want_factors=factors)
         errs = [rel_err(a, b) for a, b in zip(k_f, ref_f[:5] + ref_f[6:])]
-        nbytes, flops = sweep_counts(Bn, Tn, d, s, "kkt_fwd_sweep", factors)
+        nbytes, flops = sweep_counts(Bn, Tn, d, s, "kkt_fwd_sweep", factors, r or 1)
         out["kkt_fwd_sweep"] = dict(
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
             ms=time_ms(lambda: kl.fwd_sweep_cuda(*real, delta_c, want_factors=factors)),
             plain_ms=time_ms(lambda: kl.fwd_sweep_reference(*real, delta_c, factors)),
-            bytes=nbytes, flops=flops, kept_factors=factors,
+            bytes=nbytes, flops=flops, kept_factors=factors, columns=r or 1,
         )
 
         def bwd_args(L_P, L_S, X_A, qs, dz_last, C_, A_, B_, rnu_):
-            dz0 = torch.empty(Bn, Tn, d, dtype=L_P.dtype, device=dev)
+            dz0 = torch.empty(Bn, Tn, *dz_last.shape[1:], dtype=L_P.dtype, device=dev)
             dz0[:, -1] = dz_last
             return (L_P, L_S, X_A, qs, C_, A_, B_, rnu_, dz0)
 
@@ -406,12 +432,12 @@ def main():
         rf = kl.fwd_sweep_reference(*real, delta_c, factors)
         C, A, Bj, rnu = real[1], real[2], real[3], real[5]
         real_bwd = bwd_args(*rf[:5], C, A, Bj, rnu)
-        nbytes, flops = sweep_counts(Bn, Tn, d, s, "kkt_bwd_sweep")
+        nbytes, flops = sweep_counts(Bn, Tn, d, s, "kkt_bwd_sweep", r=r or 1)
         out["kkt_bwd_sweep"] = dict(
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
             ms=time_ms(lambda: kl.bwd_sweep_cuda(*real_bwd)),
             plain_ms=time_ms(lambda: kl.bwd_sweep_reference(*rf[:4], C, A, Bj, rnu, rf[4])),
-            bytes=nbytes, flops=flops,
+            bytes=nbytes, flops=flops, columns=r or 1,
         )
         if factors:
             G, L_Pf = ref_f[6].contiguous(), ref_f[7].contiguous()
@@ -538,14 +564,18 @@ def main():
     wall = time.perf_counter() - t0
     counts = dict(build.launch_counts)
     iters = solver.last_steps
-    Zs = res.Z.double().cpu().numpy()
-    if Zs.shape != (B, T, d) or not np.isfinite(Zs).all():
-        fail(f"solution has shape {Zs.shape} or non-finite values")
-    fids = q.batched_rollout_fidelity(
-        Zs[:, :, a_sl], Zs[:, :, dt_sl][:, :, 0], sysq,
-        prob.trajectory.goal["Ũ⃗"], prob.trajectory.initial["Ũ⃗"], device="cuda",
-    )
-    infid = 1.0 - fids
+
+    def had_infid(res, path):
+        """Per-instance infidelity of a Hadamard solve, float64 rollout."""
+        Zs = res.Z.double().cpu().numpy()
+        if Zs.shape != (B, T, d) or not np.isfinite(Zs).all():
+            fail(f"{path} solution has shape {Zs.shape} or non-finite values")
+        return 1.0 - q.batched_rollout_fidelity(
+            Zs[:, :, a_sl], Zs[:, :, dt_sl][:, :, 0], sysq,
+            prob.trajectory.goal["Ũ⃗"], prob.trajectory.initial["Ũ⃗"], device="cuda",
+        )
+
+    infid = had_infid(res, "hadamard")
     frac = float(np.mean(infid <= 1e-4))
     retries = counts["kkt_fwd_sweep"] - iters
     emit({"phase": "main_path", "path": "hadamard", "batch": B, "T": T, "ipm_iters": iters,
@@ -569,11 +599,6 @@ def main():
     kkt_reference("hadamard", real)
     emit({"phase": "launches_per_iter", "path": "hadamard",
           **{k: v / max(iters, 1) for k, v in counts.items()}})
-    # the TPU kernels not ported yet (6 and 7), bounded at these shapes
-    for name, (nbytes, flops) in step_counts(B, T, d, s).items():
-        emit({"phase": "bound_unported", "name": name, "shapes": shapes, "bytes": nbytes,
-              "flops": flops, "bound_ms": 1e3 * max(nbytes / bw, flops / f32_peak),
-              "bound_by": "bytes" if nbytes / bw >= flops / f32_peak else "operations"})
 
     # ---- the CNOT problem (BASELINE #3), Padé and exponential ------------- #
     P, kron = q.PAULIS, np.kron
@@ -667,7 +692,8 @@ def main():
         # unrefined kernel path must be no worse than ten times the plain one
         with torch.no_grad():
             dz0, nu0, ok0, fac = kl.solve_kkt_lanes(*real2, delta_c, want_factors=True)
-            dz1, nu1 = solver2._refine(list(raw2), dw2, dz0, nu0, fac)
+            dz1, nu1 = solver2._refine(list(raw2), dw2, dz0, nu0,
+                                       lambda a, b: kl.resolve_kkt_lanes(fac, a, b))
             dz_p, nu_p, ok_p = solve_kkt(*real2, delta_c)
             dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in real2], delta_c)
             keep = ok_r & ok0.cpu() & ok_p.cpu()
@@ -787,18 +813,213 @@ def main():
     # ---- 11-13. the CNOT problem with the exponential integrator ---------- #
     resultsx, countsx = cnot_phases("cnot_exp", "exponential")
 
+    # ---- the Hadamard problem with other solver modes ---------------------- #
+    def had_variant(solver_kw, piccolo_kw):
+        """Phase 4's problem with other solver or framework options."""
+        return q.UnitarySmoothPulseProblem(
+            sysq, q.GATES["H"], T, 0.2, Q=1e4, R=1e-3,
+            ipopt_options=q.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2,
+                                          line_search="filter", **solver_kw),
+            piccolo_options=q.PiccoloOptions(verbose=False, **piccolo_kw),
+            rng=np.random.default_rng(0),
+        ).solver
+
+    def timed_solve(solver_, iters_):
+        """A discarded warm-up solve of a few iterations, then the timed
+        solve of phase 4's seeds: (result, wall s, launch counts,
+        iterations, KKT attempts)."""
+        solver_.solve(seeds(6), max_iter=NEW_WARM)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res_ = solver_.solve(seeds(42), max_iter=iters_)
+        torch.cuda.synchronize()
+        return (res_, time.perf_counter() - t0, dict(build.launch_counts), solver_.last_steps,
+                solver_.kkt_attempts)
+
+    def main_path_line(path, res_, wall_, counts_, iters_, att_):
+        infid_ = had_infid(res_, path)
+        fr_ = {f"frac_infid_{t}": float(np.mean(infid_ <= float(t)))
+               for t in ("1e-4", "1e-3", "1e-2")}
+        emit({"phase": "main_path", "path": path, "batch": B, "T": T, "ipm_iters": iters_,
+              "wall_s": wall_, "ipm_ms_per_iter": 1e3 * wall_ / max(iters_, 1),
+              "converged_frac": fr_["frac_infid_1e-4"],
+              "solves_per_s_at_1e-4": B * fr_["frac_infid_1e-4"] / wall_, **fr_,
+              "best_infid": float(infid_.min()), "median_infid": float(np.median(infid_)),
+              "ipm_converged_frac": float(res_.converged.float().mean()),
+              "hadamard_converged_frac": frac, "launches": counts_, "kkt_attempts": att_,
+              "kkt_attempts_per_iter": att_ / max(iters_, 1),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        emit({"phase": "launches_per_iter", "path": path,
+              **{k: v / max(iters_, 1) for k, v in counts_.items()}})
+        return fr_
+
+    # ---- 14. kernels on the hadamard_lbfgs system with a full memory ------ #
+    solverq = had_variant({}, dict(eval_hessian=False))
+    modes = (solverq.qn_lbfgs, solverq.fused_assembly_on, solverq.resto_on, solverq.kkt_refine_n)
+    if modes != (True, False, False, 0):
+        fail(f"hadamard_lbfgs modes {modes} != (True, False, False, 0)")
+    with torch.no_grad():
+        stq = solverq.init_state(seeds(7))
+        for _ in range(QN_AT - 1):
+            stq = solverq.step(stq)
+        kkt_q, aux_q = solverq._iteration_pre(stq)
+        dwq = solverq._solve_kkt_batched(kkt_q, stq.delta_w, stq, False, aux_q.lowrank)[3]
+        Hq, Cq, Aq, Bq, rzq, rnuq = [x.contiguous() for x in kkt_q]
+        Hq = (Hq + dwq[:, None, None, None] * torch.eye(d, device=Hq.device)).contiguous()
+        realq = (Hq, Cq, Aq, Bq, *lbfgs_rhs(rzq, rnuq, aux_q.lowrank[0]))
+        ncols = realq[4].shape[-1]
+        resultsq = {"prop_bank": bank_entry(stq.Z.contiguous(), solverq.nlp.analytic,
+                                            solverq.var_scale, second_order=False)}
+        resultsq.update(sweep_entries(realq, B, T, delta_c, factors=False, r=ncols))
+        real47 = tuple(seeded_kkt(CX_B, CX_T, 47, 42, Hq.device, ncols)[:6])
+        results47 = sweep_entries(real47, CX_B, CX_T, delta_c, factors=False, r=ncols)
+    finish(resultsq, bw, f32_peak)
+    finish(results47, bw, f32_peak)
+    memq = aux_q.qn["qn_count"].float()
+    for path, res_, shp in (("hadamard_lbfgs", resultsq, dict(shapes, r=ncols)),
+                            ("seeded_d47", results47, {"B": CX_B, "T": CX_T, "d": 47, "s": 42,
+                                                       "r": ncols, "dtype": "float32"})):
+        for name, r in res_.items():
+            emit({"phase": "kernel", "path": path, "name": name,
+                  "shapes": r.pop("shapes", shp), **r})
+    emit({"phase": "lbfgs_system", "iteration": QN_AT, "columns": ncols,
+          "memory_pairs_min": float(memq.min()), "memory_pairs_mean": float(memq.mean()),
+          "sigma_median": float(stq.qn_sigma.median()), "dw_max": float(dwq.max())})
+    bad = [n for res_ in (resultsq, results47) for n, r in res_.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the L-BFGS shapes: {bad}")
+    kkt_reference("hadamard_lbfgs", realq)
+
+    # ---- 15. hadamard_lbfgs main path --------------------------------------- #
+    resq, wallq, countsq, itq, attq = timed_solve(solverq, QN_ITERS)
+    frq = main_path_line("hadamard_lbfgs", resq, wallq, countsq, itq, attq)
+    if countsq["dyn_assembly"] != 0 or countsq["kkt_rhs_fwd_sweep"] != 0:
+        fail(f"hadamard_lbfgs ran the fused assembly or a re-solve: {countsq}")
+    if not countsq["kkt_fwd_sweep"] == countsq["kkt_bwd_sweep"] == attq + 1:
+        fail(f"hadamard_lbfgs: sweeps {countsq} != KKT attempts {attq} + 1")
+    if countsq["prop_bank"] < itq or countsq["kkt_fwd_step"] + countsq["kkt_bwd_step"] != 0:
+        fail(f"hadamard_lbfgs: fewer bank launches than iterations, or a step: {countsq}")
+    if frq["frac_infid_1e-3"] < 0.9:
+        fail(f"hadamard_lbfgs frac@1e-3 {frq['frac_infid_1e-3']} < 0.9")
+
+    # ---- 16. the per-knot steps (kernels 6, 7) at the Hadamard shapes ----- #
+    def step_buffers(Bn, Tn, d_, s_, like):
+        new = dict(dtype=like.dtype, device=like.device)
+        return (torch.empty(Bn, Tn - 1, d_, d_, **new), torch.empty(Bn, Tn - 1, s_, s_, **new),
+                torch.empty(Bn, Tn - 1, d_, s_, **new), torch.empty(Bn, Tn - 1, d_, **new))
+
+    def step_entries(real_, Bn, Tn):
+        """Kernels 6 and 7 against their plain versions on seeded blocks
+        (one knot each, and a whole scan solve against the plain KKT solve);
+        per-solve times (T-1 launches) on the real blocks."""
+        d_, s_ = real_[0].shape[-1], real_[2].shape[-2]
+        dev = real_[0].device
+        Hs, Cs, As, Bs, rzs, rnus = seeded_kkt(Bn, Tn, d_, s_, dev)[:6]
+        LP, LS, XA, qs = step_buffers(Bn, Tn, d_, s_, Hs)
+        k_f = kl.fwd_step_cuda(Hs[:, 0].contiguous(), rzs[:, 0].contiguous(), Hs, Cs, As, Bs,
+                               rzs, rnus, 0, delta_c, LP, LS, XA, qs)
+        r_f = kl.fwd_step_reference(Hs[:, 0], rzs[:, 0], Hs[:, 1], Cs[:, 0], As[:, 0],
+                                    Bs[:, 0], rzs[:, 1], rnus[:, 0], delta_c)
+        errs_f = [rel_err(a, b) for a, b in zip(k_f + (LP[:, 0], LS[:, 0], XA[:, 0], qs[:, 0]),
+                                                 r_f[:6])]
+        dz = Hs.new_zeros(Bn, Tn, d_)
+        nu = Hs.new_zeros(Bn, Tn - 1, s_)
+        dz[:, 1] = rzs[:, 1]
+        kl.bwd_step_cuda(LP, LS, XA, qs, Cs, As, Bs, rnus, dz, nu, 0)
+        r_b = kl.bwd_step_reference(dz[:, 1], LP[:, 0], LS[:, 0], XA[:, 0], qs[:, 0], Cs[:, 0],
+                                    As[:, 0], Bs[:, 0], rnus[:, 0])
+        errs_b = [rel_err(dz[:, 0], r_b[0]), rel_err(nu[:, 0], r_b[1])]
+        dz_s, nu_s, ok_s = kl.solve_kkt_lanes_scan(Hs, Cs, As, Bs, rzs, rnus, delta_c)
+        dz_p, nu_p, ok_p = solve_kkt(Hs, Cs, As, Bs, rzs, rnus, delta_c)
+        errs_s = [rel_err(dz_s, dz_p), rel_err(nu_s, nu_p)]
+        if not (bool(ok_s.all()) and bool(ok_p.all())):
+            fail("the seeded scan solve failed")
+
+        H_, C_, A_, B_, rz_, rnu_ = real_
+        bufs = step_buffers(Bn, Tn, d_, s_, H_)
+
+        def fwd_kernel():
+            P, qc = H_[:, 0].contiguous(), rz_[:, 0].contiguous()
+            for t in range(Tn - 1):
+                P, qc = kl.fwd_step_cuda(P, qc, H_, C_, A_, B_, rz_, rnu_, t, delta_c, *bufs)
+
+        def fwd_plain():
+            P, qc = H_[:, 0], rz_[:, 0]
+            for t in range(Tn - 1):
+                P, qc, *_ = kl.fwd_step_reference(P, qc, H_[:, t + 1], C_[:, t], A_[:, t],
+                                                  B_[:, t], rz_[:, t + 1], rnu_[:, t], delta_c)
+
+        fwd_kernel()
+        dzr = H_.new_zeros(Bn, Tn, d_)
+        nur = H_.new_zeros(Bn, Tn - 1, s_)
+
+        def bwd_kernel():
+            for t in reversed(range(Tn - 1)):
+                kl.bwd_step_cuda(*bufs, C_, A_, B_, rnu_, dzr, nur, t)
+
+        def bwd_plain():
+            dzn = dzr[:, -1]
+            for t in reversed(range(Tn - 1)):
+                dzn, _ = kl.bwd_step_reference(dzn, *[x[:, t] for x in bufs], C_[:, t], A_[:, t],
+                                               B_[:, t], rnu_[:, t])
+
+        counts_ = step_counts(Bn, Tn, d_, s_)
+        solve_ms = time_ms(lambda: kl.solve_kkt_lanes_scan(*real_, delta_c))
+        out = {}
+        for name, errs, kern, plain in (("kkt_fwd_step", errs_f, fwd_kernel, fwd_plain),
+                                        ("kkt_bwd_step", errs_b + errs_s, bwd_kernel, bwd_plain)):
+            ms = time_ms(kern)
+            out[name] = dict(
+                max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+                ms=ms, ms_per_launch=ms / (Tn - 1), plain_ms=time_ms(plain, n=5),
+                scan_solve_ms=solve_ms, scan_solve_max_rel_err=max(e[1] for e in errs_s),
+                bytes=counts_[name][0], flops=counts_[name][1], launches_timed=Tn - 1,
+            )
+        return out
+
+    with torch.no_grad():
+        resultss = step_entries(real, B, T)
+    finish(resultss, bw, f32_peak)
+    for name, r in resultss.items():
+        emit({"phase": "kernel", "path": "hadamard_scan", "name": name, "shapes": shapes, **r})
+    bad = [n for n, r in resultss.items() if not r["ok"]]
+    if bad:
+        fail(f"step kernels disagree with their plain versions: {bad}")
+
+    # ---- 17. hadamard_scan main path ---------------------------------------- #
+    solvers = had_variant(dict(kkt_backend="lanes_scan"), {})
+    if (solvers.scan, solvers.fused_assembly_on, solvers.kkt_refine_n) != (True, True, 0):
+        fail(f"hadamard_scan modes {(solvers.scan, solvers.fused_assembly_on)}")
+    ress, walls, countss, its, atts = timed_solve(solvers, ITERS)
+    frs = main_path_line("hadamard_scan", ress, walls, countss, its, atts)
+    sweeps = ("kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+    if any(countss[k] for k in sweeps):
+        fail(f"hadamard_scan launched a fused sweep: {countss}")
+    if not countss["kkt_fwd_step"] == countss["kkt_bwd_step"] == (T - 1) * (atts + 1):
+        fail(f"hadamard_scan: steps {countss} != (T-1) x (KKT attempts {atts} + 1)")
+    if countss["dyn_assembly"] < its or countss["prop_bank"] != 1:
+        fail(f"hadamard_scan: assembly not in every iteration or not one bank: {countss}")
+    if frs["frac_infid_1e-4"] < 0.9:
+        fail(f"hadamard_scan frac@1e-4 {frs['frac_infid_1e-4']} < 0.9")
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
     entries += [("cnot", n, r, counts2) for n, r in results2.items()]
     entries += [("ket_exp", n, r, countsk) for n, r in resultsk.items()]
     entries += [("cnot_exp", n, r, countsx) for n, r in resultsx.items()]
+    entries += [("hadamard_lbfgs", n, r, countsq) for n, r in resultsq.items()]
+    entries += [("hadamard_scan", n, results[n], countss) for n in ("dyn_assembly", "prop_bank")]
+    entries += [("hadamard_scan", n, r, countss) for n, r in resultss.items()]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": cnt[name], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"],
+         "columns": r.get("columns", 1)}
         for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

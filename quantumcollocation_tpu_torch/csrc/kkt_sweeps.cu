@@ -4,7 +4,10 @@
 // (kernel 2, with the jnp terminal block that follows it, which is folded
 // into the end of kkt_fwd_sweep here), ::_bwd_sweep_kernel (kernel 3) and
 // ::_rhs_fwd_sweep_kernel (kernel 4, with the terminal solve of
-// _resolve_kkt_lanes_impl folded in), for a single right-hand-side column.
+// _resolve_kkt_lanes_impl folded in), and the lanes_scan backend's
+// ::_fwd_step_kernel (kernel 6) and ::_bwd_step_kernel (kernel 7).
+// Kernels 2 and 3 take r right-hand-side columns (the L-BFGS [rz | U]
+// system has 13); kernels 4, 6 and 7 take one, as their JAX callers do.
 //
 // Forward sweep, per instance, carrying Delta_t and qd_t (Delta_0 = 0):
 //   P = H_t + Delta;  L_P = chol(P);  [X_A | X_C | x] = P^-1 [A^T | C | q];
@@ -34,7 +37,15 @@
 // solves (the three solves against L_P run as one, 29 columns at d=15,
 // s=13) and the rows of the Cholesky column updates and the products.
 // Buffers are batch-first, so a warp reads and writes its instance's
-// contiguous blocks, and the solver's layout needs no transpose.
+// contiguous blocks, and the solver's layout needs no transpose.  With r
+// columns, x, q, qd and the terminal rhs widen to d x r, r and rnu_t to
+// s x r; the single-column instantiation (template R = 1) compiles as the
+// one-column code did.  The per-knot bodies (fwd_knot, bwd_knot) are shared
+// by the sweeps, which loop over the knots with the carry in shared memory,
+// and the lanes_scan steps, one launch per knot, which read and write the
+// full carry P, q in global memory: P_{t+1} = sym(H_{t+1}) + Delta',
+// q_{t+1} = rz_{t+1} + qd' (the JAX scan leaves the terminal Cholesky to
+// plain array code, and so does the port).
 
 #include <cuda_runtime.h>
 
@@ -104,176 +115,311 @@ __device__ void warp_chol_solve_vec(const float* L, int ldl, float* y, int n, in
   }
 }
 
+// Shared-memory layout of one warp's forward elimination, r rhs columns.
+struct FwdBufs {
+  float* Lm;  // P, then L_P          d x ldd
+  float* Dl;  // Delta (carry / out)  d x ldd
+  float* W;   // [X_A | X_C | x]      d x nc
+  float* Am;  // A_t                  s x d
+  float* Cm;  // C_t                  d x d
+  float* Mm;  // [S -> L_S | G | r]   s x nc
+  float* SG;  // [S^-1 G | y]         s x (d+r)
+  float* qd;  // qd (carry / out)     d x r
+  float* qv;  // terminal rhs         d x r
+};
+
+__host__ __device__ inline int fwd_warp_floats(int d, int s, int r) {
+  const int ldd = odd(d), nc = s + d + r;
+  return 2 * d * ldd + d * nc + s * d + d * d + s * nc + s * (d + r) + 2 * d * r;
+}
+
+__device__ FwdBufs fwd_bufs(float* base, int d, int s, int r) {
+  const int ldd = odd(d), nc = s + d + r;
+  FwdBufs m;
+  m.Lm = base;
+  m.Dl = m.Lm + d * ldd;
+  m.W = m.Dl + d * ldd;
+  m.Am = m.W + d * nc;
+  m.Cm = m.Am + s * d;
+  m.Mm = m.Cm + d * d;
+  m.SG = m.Mm + s * nc;
+  m.qd = m.SG + s * (d + r);
+  m.qv = m.qd + d * r;
+  return m;
+}
+
+// Forward elimination of one knot, shared by the fused sweep (kernel 2) and
+// the per-knot step (kernel 6).  On entry m.Lm holds P and the last r
+// columns of m.W hold q; At, Ct, Bt, rnut point at the knot's blocks.  It
+// writes L_P, L_S, X_A, q (and G = A X_C - B where Go is not null) to
+// global memory, and leaves Delta' = sym(G^T S^-1 G - C^T X_C) in m.Dl and
+// qd' = G^T y - C^T x in m.qd.  R > 0 fixes the column count at compile
+// time (R = 1: the single-column instantiation); R = 0 reads it from r.
+template <int R>
+__device__ void fwd_knot(const FwdBufs& m, const float* __restrict__ At,
+                         const float* __restrict__ Ct, const float* __restrict__ Bt,
+                         const float* __restrict__ rnut, int d, int s, int r_arg, float delta_c,
+                         int lane, float* __restrict__ LPo, float* __restrict__ LSo,
+                         float* __restrict__ XAo, float* __restrict__ Go,
+                         float* __restrict__ qo) {
+  const int r = R > 0 ? R : r_arg;
+  const int ldd = odd(d), nc = s + d + r, sd = s + d;
+  for (int idx = lane; idx < d * d; idx += 32) m.Cm[idx] = Ct[idx];
+  for (int idx = lane; idx < s * d; idx += 32) m.Am[idx] = At[idx];
+  for (int idx = lane; idx < d * sd; idx += 32) {
+    const int i = idx / sd, c = idx % sd;
+    m.W[i * nc + c] = c < s ? At[c * d + i] : Ct[i * d + (c - s)];
+  }
+  for (int idx = lane; idx < d * r; idx += 32) qo[idx] = m.W[(idx / r) * nc + sd + idx % r];
+  __syncwarp();
+  warp_chol(m.Lm, d, ldd, lane);
+  warp_chol_solve(m.Lm, ldd, m.W, d, nc, nc, lane);
+  for (int c = lane; c < nc; c += 32) {
+    for (int i = 0; i < s; ++i) {
+      float v = 0.f;
+      for (int k = 0; k < d; ++k) v += m.Am[i * d + k] * m.W[k * nc + c];
+      if (c < s) {
+        if (c == i) v += delta_c;
+      } else if (c < sd) {
+        v -= Bt[i * d + (c - s)];
+      } else {
+        v -= rnut[i * r + (c - sd)];
+      }
+      m.Mm[i * nc + c] = v;
+      if (c >= s) m.SG[i * (d + r) + (c - s)] = v;
+    }
+  }
+  __syncwarp();
+  warp_chol(m.Mm, s, nc, lane);
+  warp_chol_solve(m.Mm, nc, m.SG, s, d + r, d + r, lane);
+  // Delta' (unsymmetrized, into Dl) and qd' (columns j >= d)
+  for (int j = lane; j < d + r; j += 32) {
+    for (int i = 0; i < d; ++i) {
+      float a = 0.f, c = 0.f;
+      for (int k = 0; k < s; ++k) a += m.Mm[k * nc + s + i] * m.SG[k * (d + r) + j];
+      for (int k = 0; k < d; ++k) c += m.Cm[k * d + i] * m.W[k * nc + s + j];
+      if (j < d) {
+        m.Dl[i * ldd + j] = a - c;
+      } else {
+        m.qd[i * r + (j - d)] = a - c;
+      }
+    }
+  }
+  __syncwarp();
+  for (int idx = lane; idx < d * d; idx += 32) {
+    const int i = idx / d, j = idx % d;
+    if (j >= i) {
+      const float v = 0.5f * (m.Dl[i * ldd + j] + m.Dl[j * ldd + i]);
+      m.Dl[i * ldd + j] = v;
+      m.Dl[j * ldd + i] = v;
+    }
+  }
+  for (int idx = lane; idx < d * d; idx += 32) LPo[idx] = m.Lm[(idx / d) * ldd + idx % d];
+  for (int idx = lane; idx < s * s; idx += 32) LSo[idx] = m.Mm[(idx / s) * nc + idx % s];
+  for (int idx = lane; idx < d * s; idx += 32) XAo[idx] = m.W[(idx / s) * nc + idx % s];
+  if (Go)  // G = A X_C - B, still in Mm's columns s..s+d-1
+    for (int idx = lane; idx < s * d; idx += 32) Go[idx] = m.Mm[(idx / d) * nc + s + idx % d];
+  __syncwarp();
+}
+
+template <int R>
 __global__ void fwd_sweep(const float* __restrict__ H, const float* __restrict__ C,
                           const float* __restrict__ A, const float* __restrict__ Bm,
                           const float* __restrict__ rz, const float* __restrict__ rnu, int Bn,
-                          int T, int d, int s, float delta_c, float* __restrict__ LP,
-                          float* __restrict__ LS, float* __restrict__ XA,
-                          float* __restrict__ q, float* __restrict__ dz,
-                          float* __restrict__ Gk, float* __restrict__ LPf) {
+                          int T, int d, int s, int r_arg, float delta_c,
+                          float* __restrict__ LP, float* __restrict__ LS,
+                          float* __restrict__ XA, float* __restrict__ q,
+                          float* __restrict__ dz, float* __restrict__ Gk,
+                          float* __restrict__ LPf) {
   extern __shared__ float smem[];
+  const int r = R > 0 ? R : r_arg;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
   if (b >= Bn) return;
-  const int ldd = odd(d), nc = s + d + 1;
-  const int per_warp = 2 * d * ldd + d * nc + s * d + d * d + s * nc + s * (d + 1) + 2 * d;
-  float* Lm = smem + warp * per_warp;  // P, then L_P          d x ldd
-  float* Dl = Lm + d * ldd;             // carry Delta          d x ldd
-  float* W = Dl + d * ldd;              // [X_A | X_C | x]      d x nc
-  float* Am = W + d * nc;               // A_t                  s x d
-  float* Cm = Am + s * d;               // C_t                  d x d
-  float* Mm = Cm + d * d;               // [S -> L_S | G | r]   s x nc
-  float* SG = Mm + s * nc;              // [S^-1 G | y]         s x (d+1)
-  float* qd = SG + s * (d + 1);         // carry qd             d
-  float* qv = qd + d;                   // terminal rhs         d
+  const int ldd = odd(d), nc = s + d + r;
+  const FwdBufs m = fwd_bufs(smem + warp * fwd_warp_floats(d, s, r), d, s, r);
 
-  for (int idx = lane; idx < d * d; idx += 32) Dl[(idx / d) * ldd + idx % d] = 0.f;
-  for (int i = lane; i < d; i += 32) qd[i] = 0.f;
+  for (int idx = lane; idx < d * d; idx += 32) m.Dl[(idx / d) * ldd + idx % d] = 0.f;
+  for (int i = lane; i < d * r; i += 32) m.qd[i] = 0.f;
   __syncwarp();
 
-  const long dd = (long)d * d, sd = (long)s * d;
+  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s, dr = (long)d * r;
   for (int t = 0; t < T - 1; ++t) {
     const float* Ht = H + (b * T + t) * dd;
-    const float* Ct = C + (b * (T - 1) + t) * dd;
-    const float* At = A + (b * (T - 1) + t) * sd;
-    const float* Bt = Bm + (b * (T - 1) + t) * sd;
-    const float* rzt = rz + (b * T + t) * d;
-    const float* rnut = rnu + (b * (T - 1) + t) * s;
+    const float* rzt = rz + (b * T + t) * dr;
     const long kt = b * (T - 1) + t;
-
     for (int idx = lane; idx < d * d; idx += 32) {
       const int i = idx / d, j = idx % d;
-      Lm[i * ldd + j] = Ht[idx] + Dl[i * ldd + j];
-      Cm[idx] = Ct[idx];
+      m.Lm[i * ldd + j] = Ht[idx] + m.Dl[i * ldd + j];
     }
-    for (int idx = lane; idx < s * d; idx += 32) Am[idx] = At[idx];
-    for (int idx = lane; idx < d * nc; idx += 32) {
-      const int i = idx / nc, c = idx % nc;
-      float v;
-      if (c < s) {
-        v = At[c * d + i];
-      } else if (c < s + d) {
-        v = Ct[i * d + (c - s)];
-      } else {
-        v = rzt[i] + qd[i];
-        q[kt * d + i] = v;
-      }
-      W[idx] = v;
-    }
+    for (int idx = lane; idx < d * r; idx += 32)
+      m.W[(idx / r) * nc + s + d + idx % r] = rzt[idx] + m.qd[idx];
     __syncwarp();
-    warp_chol(Lm, d, ldd, lane);
-    warp_chol_solve(Lm, ldd, W, d, nc, nc, lane);
-    for (int c = lane; c < nc; c += 32) {
-      for (int i = 0; i < s; ++i) {
-        float m = 0.f;
-        for (int k = 0; k < d; ++k) m += Am[i * d + k] * W[k * nc + c];
-        if (c < s) {
-          if (c == i) m += delta_c;
-        } else if (c < s + d) {
-          m -= Bt[i * d + (c - s)];
-        } else {
-          m -= rnut[i];
-        }
-        Mm[i * nc + c] = m;
-        if (c >= s) SG[i * (d + 1) + (c - s)] = m;
-      }
-    }
-    __syncwarp();
-    warp_chol(Mm, s, nc, lane);
-    warp_chol_solve(Mm, nc, SG, s, d + 1, d + 1, lane);
-    // Delta' (unsymmetrized, into Dl) and qd' (column j = d)
-    for (int j = lane; j <= d; j += 32) {
-      for (int i = 0; i < d; ++i) {
-        float a = 0.f, c = 0.f;
-        for (int k = 0; k < s; ++k) a += Mm[k * nc + s + i] * SG[k * (d + 1) + j];
-        for (int k = 0; k < d; ++k) c += Cm[k * d + i] * W[k * nc + s + j];
-        if (j < d) {
-          Dl[i * ldd + j] = a - c;
-        } else {
-          qd[i] = a - c;
-        }
-      }
-    }
-    __syncwarp();
-    for (int idx = lane; idx < d * d; idx += 32) {
-      const int i = idx / d, j = idx % d;
-      if (j >= i) {
-        const float v = 0.5f * (Dl[i * ldd + j] + Dl[j * ldd + i]);
-        Dl[i * ldd + j] = v;
-        Dl[j * ldd + i] = v;
-      }
-    }
-    for (int idx = lane; idx < d * d; idx += 32) LP[kt * dd + idx] = Lm[(idx / d) * ldd + idx % d];
-    for (int idx = lane; idx < s * s; idx += 32) LS[kt * s * s + idx] = Mm[(idx / s) * nc + idx % s];
-    for (int idx = lane; idx < d * s; idx += 32) XA[kt * sd + idx] = W[(idx / s) * nc + idx % s];
-    if (Gk)  // G = A X_C - B, still in Mm's columns s..s+d-1
-      for (int idx = lane; idx < s * d; idx += 32) Gk[kt * sd + idx] = Mm[(idx / d) * nc + s + idx % d];
-    __syncwarp();
+    fwd_knot<R>(m, A + kt * sd, C + kt * dd, Bm + kt * sd, rnu + kt * s * r, d, s, r, delta_c,
+                lane, LP + kt * dd, LS + kt * ss, XA + kt * sd, Gk ? Gk + kt * sd : nullptr,
+                q + kt * dr);
   }
   // terminal block
   const float* Hf = H + (b * T + T - 1) * dd;
   for (int idx = lane; idx < d * d; idx += 32) {
     const int i = idx / d, j = idx % d;
-    Lm[i * ldd + j] = 0.5f * ((Hf[i * d + j] + Dl[i * ldd + j]) + (Hf[j * d + i] + Dl[j * ldd + i]));
+    m.Lm[i * ldd + j] =
+        0.5f * ((Hf[i * d + j] + m.Dl[i * ldd + j]) + (Hf[j * d + i] + m.Dl[j * ldd + i]));
   }
-  for (int i = lane; i < d; i += 32) qv[i] = rz[(b * T + T - 1) * d + i] + qd[i];
+  for (int i = lane; i < d * r; i += 32) m.qv[i] = rz[(b * T + T - 1) * dr + i] + m.qd[i];
   __syncwarp();
-  warp_chol(Lm, d, ldd, lane);
+  warp_chol(m.Lm, d, ldd, lane);
   if (LPf)
-    for (int idx = lane; idx < d * d; idx += 32) LPf[b * dd + idx] = Lm[(idx / d) * ldd + idx % d];
-  warp_chol_solve_vec(Lm, ldd, qv, d, lane);
-  for (int i = lane; i < d; i += 32) dz[(b * T + T - 1) * d + i] = qv[i];
+    for (int idx = lane; idx < d * d; idx += 32) LPf[b * dd + idx] = m.Lm[(idx / d) * ldd + idx % d];
+  if (r == 1) {
+    warp_chol_solve_vec(m.Lm, ldd, m.qv, d, lane);
+  } else {
+    warp_chol_solve(m.Lm, ldd, m.qv, d, r, r, lane);
+  }
+  for (int i = lane; i < d * r; i += 32) dz[(b * T + T - 1) * dr + i] = m.qv[i];
 }
 
-__global__ void bwd_sweep(const float* __restrict__ LP, const float* __restrict__ LS,
-                          const float* __restrict__ XA, const float* __restrict__ q,
-                          const float* __restrict__ C, const float* __restrict__ A,
-                          const float* __restrict__ Bm, const float* __restrict__ rnu, int Bn,
-                          int T, int d, int s, float* __restrict__ dz, float* __restrict__ nu) {
+// One knot of the lanes_scan forward elimination (kernel 6), one column,
+// every instance: the full carry P (B,d,d) and q (B,d) in, P' = sym(H_{t+1})
+// + Delta' and q' = rz_{t+1} + qd' out, and the knot's L_P, L_S, X_A and q
+// written at knot t of LP, LS, XA, qs.
+__global__ void fwd_step(const float* __restrict__ P, const float* __restrict__ qin,
+                         const float* __restrict__ H, const float* __restrict__ C,
+                         const float* __restrict__ A, const float* __restrict__ Bm,
+                         const float* __restrict__ rz, const float* __restrict__ rnu, int Bn,
+                         int T, int d, int s, int t, float delta_c, float* __restrict__ Pn,
+                         float* __restrict__ qn, float* __restrict__ LP, float* __restrict__ LS,
+                         float* __restrict__ XA, float* __restrict__ qs) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
   if (b >= Bn) return;
-  const int per_warp = d * d + s * s + 2 * d + s;
-  float* Lp = smem + warp * per_warp;  // L_P   d x d
-  float* Ls = Lp + d * d;              // L_S   s x s
-  float* dzn = Ls + s * s;             // dz_{t+1}
-  float* xv = dzn + d;                 // x
-  float* yv = xv + d;                  // y
-  const long dd = (long)d * d, sd = (long)s * d;
-  for (int i = lane; i < d; i += 32) dzn[i] = dz[(b * T + T - 1) * d + i];
+  const int ldd = odd(d), nc = s + d + 1;
+  const FwdBufs m = fwd_bufs(smem + warp * fwd_warp_floats(d, s, 1), d, s, 1);
+  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
+  const long kt = b * (T - 1) + t;
+  for (int idx = lane; idx < d * d; idx += 32) m.Lm[(idx / d) * ldd + idx % d] = P[b * dd + idx];
+  for (int i = lane; i < d; i += 32) m.W[i * nc + s + d] = qin[b * d + i];
+  __syncwarp();
+  fwd_knot<1>(m, A + kt * sd, C + kt * dd, Bm + kt * sd, rnu + kt * s, d, s, 1, delta_c, lane,
+              LP + kt * dd, LS + kt * ss, XA + kt * sd, nullptr, qs + kt * d);
+  const float* Hn = H + (b * T + t + 1) * dd;
+  for (int idx = lane; idx < d * d; idx += 32) {
+    const int i = idx / d, j = idx % d;
+    Pn[b * dd + idx] = 0.5f * (Hn[i * d + j] + Hn[j * d + i]) + m.Dl[i * ldd + j];
+  }
+  for (int i = lane; i < d; i += 32) qn[b * d + i] = rz[(b * T + t + 1) * d + i] + m.qd[i];
+}
+
+__host__ __device__ inline int bwd_warp_floats(int d, int s, int r) {
+  return d * d + s * s + (2 * d + s) * r;
+}
+
+// Back substitution of one knot, shared by the fused sweep (kernel 3) and
+// the per-knot step (kernel 7): from dz_{t+1} in dzn (d x r, shared),
+//   u = q_t - C dz_{t+1};  v = rnu_t - B dz_{t+1};  x = P^-1 u;
+//   y = S^-1 (A x - v);    dz_t = x - X_A y;       nu_t = y,
+// written to dzo and nuo; dzn then holds dz_t.  R as in fwd_knot.
+template <int R>
+__device__ void bwd_knot(float* Lp, float* Ls, float* dzn, float* xv, float* yv,
+                         const float* __restrict__ LPt, const float* __restrict__ LSt,
+                         const float* __restrict__ XAt, const float* __restrict__ qt,
+                         const float* __restrict__ Ct, const float* __restrict__ At,
+                         const float* __restrict__ Bt, const float* __restrict__ rnut, int d,
+                         int s, int r_arg, int lane, float* __restrict__ dzo,
+                         float* __restrict__ nuo) {
+  const int r = R > 0 ? R : r_arg;
+  for (int idx = lane; idx < d * d; idx += 32) Lp[idx] = LPt[idx];
+  for (int idx = lane; idx < s * s; idx += 32) Ls[idx] = LSt[idx];
+  for (int idx = lane; idx < d * r; idx += 32) {
+    const int i = idx / r, c = idx % r;
+    float v = qt[idx];
+    for (int j = 0; j < d; ++j) v -= Ct[i * d + j] * dzn[j * r + c];
+    xv[idx] = v;
+  }
+  __syncwarp();
+  if (r == 1) {
+    warp_chol_solve_vec(Lp, d, xv, d, lane);
+  } else {
+    warp_chol_solve(Lp, d, xv, d, r, r, lane);
+  }
+  for (int idx = lane; idx < s * r; idx += 32) {
+    const int k = idx / r, c = idx % r;
+    float v = -rnut[idx];
+    for (int j = 0; j < d; ++j) v += Bt[k * d + j] * dzn[j * r + c] + At[k * d + j] * xv[j * r + c];
+    yv[idx] = v;
+  }
+  __syncwarp();
+  if (r == 1) {
+    warp_chol_solve_vec(Ls, s, yv, s, lane);
+  } else {
+    warp_chol_solve(Ls, s, yv, s, r, r, lane);
+  }
+  for (int idx = lane; idx < d * r; idx += 32) {
+    const int i = idx / r, c = idx % r;
+    float v = xv[idx];
+    for (int k = 0; k < s; ++k) v -= XAt[i * s + k] * yv[k * r + c];
+    dzo[idx] = v;
+  }
+  for (int idx = lane; idx < s * r; idx += 32) nuo[idx] = yv[idx];
+  __syncwarp();
+  for (int idx = lane; idx < d * r; idx += 32) dzn[idx] = dzo[idx];
+  __syncwarp();
+}
+
+template <int R>
+__global__ void bwd_sweep(const float* __restrict__ LP, const float* __restrict__ LS,
+                          const float* __restrict__ XA, const float* __restrict__ q,
+                          const float* __restrict__ C, const float* __restrict__ A,
+                          const float* __restrict__ Bm, const float* __restrict__ rnu, int Bn,
+                          int T, int d, int s, int r_arg, float* __restrict__ dz,
+                          float* __restrict__ nu) {
+  extern __shared__ float smem[];
+  const int r = R > 0 ? R : r_arg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
+  if (b >= Bn) return;
+  float* Lp = smem + warp * bwd_warp_floats(d, s, r);  // L_P   d x d
+  float* Ls = Lp + d * d;                               // L_S   s x s
+  float* dzn = Ls + s * s;                              // dz_{t+1}  d x r
+  float* xv = dzn + d * r;                              // x     d x r
+  float* yv = xv + d * r;                               // y     s x r
+  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
+  const long dr = (long)d * r, sr = (long)s * r;
+  for (int i = lane; i < d * r; i += 32) dzn[i] = dz[(b * T + T - 1) * dr + i];
   __syncwarp();
   for (int t = T - 2; t >= 0; --t) {
     const long kt = b * (T - 1) + t;
-    const float* Ct = C + kt * dd;
-    const float* At = A + kt * sd;
-    const float* Bt = Bm + kt * sd;
-    for (int idx = lane; idx < d * d; idx += 32) Lp[idx] = LP[kt * dd + idx];
-    for (int idx = lane; idx < s * s; idx += 32) Ls[idx] = LS[kt * s * s + idx];
-    for (int i = lane; i < d; i += 32) {
-      float v = q[kt * d + i];
-      for (int j = 0; j < d; ++j) v -= Ct[i * d + j] * dzn[j];
-      xv[i] = v;
-    }
-    __syncwarp();
-    warp_chol_solve_vec(Lp, d, xv, d, lane);
-    for (int k = lane; k < s; k += 32) {
-      float v = -rnu[kt * s + k];
-      for (int j = 0; j < d; ++j) v += Bt[k * d + j] * dzn[j] + At[k * d + j] * xv[j];
-      yv[k] = v;
-    }
-    __syncwarp();
-    warp_chol_solve_vec(Ls, s, yv, s, lane);
-    for (int i = lane; i < d; i += 32) {
-      float v = xv[i];
-      for (int k = 0; k < s; ++k) v -= XA[kt * sd + i * s + k] * yv[k];
-      dz[(b * T + t) * d + i] = v;
-    }
-    for (int k = lane; k < s; k += 32) nu[kt * s + k] = yv[k];
-    __syncwarp();
-    for (int i = lane; i < d; i += 32) dzn[i] = dz[(b * T + t) * d + i];
-    __syncwarp();
+    bwd_knot<R>(Lp, Ls, dzn, xv, yv, LP + kt * dd, LS + kt * ss, XA + kt * sd, q + kt * dr,
+                C + kt * dd, A + kt * sd, Bm + kt * sd, rnu + kt * sr, d, s, r, lane,
+                dz + (b * T + t) * dr, nu + kt * sr);
   }
+}
+
+// One knot of the lanes_scan back substitution (kernel 7), one column,
+// every instance: dz_{t+1} read from dz (B,T,d), dz_t and nu_t written.
+__global__ void bwd_step(const float* __restrict__ LP, const float* __restrict__ LS,
+                         const float* __restrict__ XA, const float* __restrict__ q,
+                         const float* __restrict__ C, const float* __restrict__ A,
+                         const float* __restrict__ Bm, const float* __restrict__ rnu, int Bn,
+                         int T, int d, int s, int t, float* __restrict__ dz,
+                         float* __restrict__ nu) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
+  if (b >= Bn) return;
+  float* Lp = smem + warp * bwd_warp_floats(d, s, 1);
+  float* Ls = Lp + d * d;
+  float* dzn = Ls + s * s;
+  float* xv = dzn + d;
+  float* yv = xv + d;
+  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
+  const long kt = b * (T - 1) + t;
+  for (int i = lane; i < d; i += 32) dzn[i] = dz[(b * T + t + 1) * d + i];
+  __syncwarp();
+  bwd_knot<1>(Lp, Ls, dzn, xv, yv, LP + kt * dd, LS + kt * ss, XA + kt * sd, q + kt * d,
+              C + kt * dd, A + kt * sd, Bm + kt * sd, rnu + kt * s, d, s, 1, lane,
+              dz + (b * T + t) * d, nu + kt * s);
 }
 
 // rhs-only forward sweep (kernel 4): one warp per instance, carry qd.
@@ -287,8 +433,7 @@ __global__ void rhs_fwd_sweep(const float* __restrict__ LP, const float* __restr
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
   if (b >= Bn) return;
-  const int per_warp = d * d + s * s + 2 * d + s;
-  float* Lp = smem + warp * per_warp;  // L_P, then L_Pf   d x d
+  float* Lp = smem + warp * bwd_warp_floats(d, s, 1);  // L_P, then L_Pf   d x d
   float* Ls = Lp + d * d;              // L_S              s x s
   float* qd = Ls + s * s;              // carry qd
   float* xv = qd + d;                  // x
@@ -328,13 +473,6 @@ __global__ void rhs_fwd_sweep(const float* __restrict__ LP, const float* __restr
   warp_chol_solve_vec(Lp, d, xv, d, lane);
   for (int i = lane; i < d; i += 32) dz[(b * T + T - 1) * d + i] = xv[i];
 }
-
-int fwd_warp_bytes(int d, int s) {
-  const int ldd = odd(d), nc = s + d + 1;
-  return (2 * d * ldd + d * nc + s * d + d * d + s * nc + s * (d + 1) + 2 * d) * (int)sizeof(float);
-}
-
-int rhs_warp_bytes(int d, int s) { return (d * d + s * s + 2 * d + s) * (int)sizeof(float); }
 
 // The device's opt-in shared memory per block and SM count, read once per
 // device: the launchers run several times per solver iteration.
@@ -379,53 +517,85 @@ int configure(Kernel kernel, int warp_bytes, int Bn, int* smem, int* opted) {
   return w;
 }
 
-}  // namespace
-
-// Batch-first buffers: H (B,T,d,d), C (B,T-1,d,d), A/B (B,T-1,s,d),
-// rz (B,T,d), rnu (B,T-1,s); LP (B,T-1,d,d), LS (B,T-1,s,s),
-// XA (B,T-1,d,s), q (B,T-1,d), dz (B,T,d): the forward sweep writes
-// dz[:, T-1], the backward sweep the rest and nu (B,T-1,s).  With kept
-// factors (G and LPf not null) the forward sweep also writes G (B,T-1,s,d)
-// and LPf (B,d,d).  The launchers return a CUDA error code, and
+// Launches `kernel` with one warp per instance and `warp_floats` floats of
+// shared memory per warp; returns a CUDA error code, and
 // cudaErrorInvalidConfiguration when one warp's blocks exceed the shared
 // memory a block may use.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int warp_floats, int Bn, int* opted, void* stream, Args... args) {
+  int smem = 0;
+  const int w = configure(kernel, warp_floats * (int)sizeof(float), Bn, &smem, opted);
+  if (w == 0) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Batch-first buffers, r right-hand-side columns: H (B,T,d,d),
+// C (B,T-1,d,d), A/B (B,T-1,s,d), rz (B,T,d,r), rnu (B,T-1,s,r);
+// LP (B,T-1,d,d), LS (B,T-1,s,s), XA (B,T-1,d,s), q (B,T-1,d,r),
+// dz (B,T,d,r): the forward sweep writes dz[:, T-1], the backward sweep the
+// rest and nu (B,T-1,s,r).  With kept factors (G and LPf not null) the
+// forward sweep also writes G (B,T-1,s,d) and LPf (B,d,d).  r = 1 runs the
+// single-column instantiation.
 extern "C" int qct_kkt_fwd_sweep(const float* H, const float* C, const float* A, const float* Bm,
                                  const float* rz, const float* rnu, int Bn, int T, int d, int s,
-                                 float delta_c, float* LP, float* LS, float* XA, float* q,
+                                 int r, float delta_c, float* LP, float* LS, float* XA, float* q,
                                  float* dz, float* G, float* LPf, void* stream) {
-  static int opted[16] = {0};
-  int smem = 0;
-  const int w = configure(fwd_sweep, fwd_warp_bytes(d, s), Bn, &smem, opted);
-  if (w == 0) return (int)cudaErrorInvalidConfiguration;
-  fwd_sweep<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(
-      H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS, XA, q, dz, G, LPf);
-  return (int)cudaGetLastError();
+  static int opted1[16] = {0}, optedr[16] = {0};
+  const int wf = fwd_warp_floats(d, s, r);
+  if (r == 1)
+    return launch(fwd_sweep<1>, wf, Bn, opted1, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, r,
+                  delta_c, LP, LS, XA, q, dz, G, LPf);
+  return launch(fwd_sweep<0>, wf, Bn, optedr, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, r,
+                delta_c, LP, LS, XA, q, dz, G, LPf);
 }
 
 extern "C" int qct_kkt_bwd_sweep(const float* LP, const float* LS, const float* XA,
                                  const float* q, const float* C, const float* A, const float* Bm,
-                                 const float* rnu, int Bn, int T, int d, int s, float* dz,
+                                 const float* rnu, int Bn, int T, int d, int s, int r, float* dz,
                                  float* nu, void* stream) {
-  static int opted[16] = {0};
-  int smem = 0;
-  const int w = configure(bwd_sweep, rhs_warp_bytes(d, s), Bn, &smem, opted);
-  if (w == 0) return (int)cudaErrorInvalidConfiguration;
-  bwd_sweep<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(
-      LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
-  return (int)cudaGetLastError();
+  static int opted1[16] = {0}, optedr[16] = {0};
+  const int wf = bwd_warp_floats(d, s, r);
+  if (r == 1)
+    return launch(bwd_sweep<1>, wf, Bn, opted1, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d,
+                  s, r, dz, nu);
+  return launch(bwd_sweep<0>, wf, Bn, optedr, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s,
+                r, dz, nu);
 }
 
-// Kept factors LP, LS, G (B,T-1,s,d), LPf (B,d,d) with C and A; a new rhs
-// rz, rnu.  Writes q (B,T-1,d) and dz[:, T-1] for the backward sweep.
+// Kept factors LP, LS, G (B,T-1,s,d), LPf (B,d,d) with C and A; a new
+// single-column rhs rz, rnu.  Writes q (B,T-1,d) and dz[:, T-1] for the
+// backward sweep.
 extern "C" int qct_kkt_rhs_fwd_sweep(const float* LP, const float* LS, const float* G,
                                      const float* C, const float* A, const float* rz,
                                      const float* rnu, const float* LPf, int Bn, int T, int d,
                                      int s, float* q, float* dz, void* stream) {
   static int opted[16] = {0};
-  int smem = 0;
-  const int w = configure(rhs_fwd_sweep, rhs_warp_bytes(d, s), Bn, &smem, opted);
-  if (w == 0) return (int)cudaErrorInvalidConfiguration;
-  rhs_fwd_sweep<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(
-      LP, LS, G, C, A, rz, rnu, LPf, Bn, T, d, s, q, dz);
-  return (int)cudaGetLastError();
+  return launch(rhs_fwd_sweep, bwd_warp_floats(d, s, 1), Bn, opted, stream, LP, LS, G, C, A, rz,
+                rnu, LPf, Bn, T, d, s, q, dz);
+}
+
+// The lanes_scan steps at knot t (0 <= t < T-1), one column, the same
+// batch-first buffers as the sweeps.  Forward: the carry P (B,d,d), q (B,d)
+// in, Pn, qn out; LP, LS, XA and qs (B,T-1,d) written at knot t.
+// Backward: dz (B,T,d) read at t+1 and written at t, nu (B,T-1,s) at t.
+extern "C" int qct_kkt_fwd_step(const float* P, const float* qin, const float* H, const float* C,
+                                const float* A, const float* Bm, const float* rz,
+                                const float* rnu, int Bn, int T, int d, int s, int t,
+                                float delta_c, float* Pn, float* qn, float* LP, float* LS,
+                                float* XA, float* qs, void* stream) {
+  static int opted[16] = {0};
+  return launch(fwd_step, fwd_warp_floats(d, s, 1), Bn, opted, stream, P, qin, H, C, A, Bm, rz,
+                rnu, Bn, T, d, s, t, delta_c, Pn, qn, LP, LS, XA, qs);
+}
+
+extern "C" int qct_kkt_bwd_step(const float* LP, const float* LS, const float* XA,
+                                const float* q, const float* C, const float* A, const float* Bm,
+                                const float* rnu, int Bn, int T, int d, int s, int t, float* dz,
+                                float* nu, void* stream) {
+  static int opted[16] = {0};
+  return launch(bwd_step, bwd_warp_floats(d, s, 1), Bn, opted, stream, LP, LS, XA, q, C, A, Bm,
+                rnu, Bn, T, d, s, t, dz, nu);
 }

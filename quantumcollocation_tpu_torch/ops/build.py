@@ -5,7 +5,11 @@ and is compiled by nvcc for Hopper (sm_90a) into its own shared library
 under build/kernels/ at the repository root, named by a hash of the
 source, then loaded with ctypes.  Nothing includes PyTorch's headers, so a
 build takes seconds.  Builds happen at first use, or all at once (one nvcc
-process per source, started together) through build_all().
+process per source, started together) through build_all().  To print
+ptxas's registers, shared memory and spills of each kernel (-Xptxas -v)
+of any source:
+
+    python -m quantumcollocation_tpu_torch.ops.build [path/to/source.cu ...]
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -39,7 +44,7 @@ NVCC_FLAGS = [
 # right where it launches its kernel, and nowhere else
 launch_counts = {
     "dyn_assembly": 0, "prop_bank": 0, "kkt_fwd_sweep": 0, "kkt_bwd_sweep": 0,
-    "kkt_rhs_fwd_sweep": 0,
+    "kkt_rhs_fwd_sweep": 0, "kkt_fwd_step": 0, "kkt_bwd_step": 0,
 }
 
 _libs: dict = {}
@@ -107,3 +112,15 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: the blocks do not fit the shared memory of a block")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+if __name__ == "__main__":
+    # ptxas resource report of each source given (default: the port's own)
+    for src in sys.argv[1:] or [str(_CSRC / f) for f in SOURCES.values()]:
+        out = BUILD_DIR / "ptxas_report.so"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), src],
+                              capture_output=True, text=True)
+        print(f"== {src}\n{proc.stdout}{proc.stderr}", flush=True)
+        if proc.returncode != 0:
+            sys.exit(proc.returncode)

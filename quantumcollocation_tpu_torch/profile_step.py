@@ -1,15 +1,20 @@
 """Where one IPM iteration of a main-path solve spends its time.
 
     python -m quantumcollocation_tpu_torch.profile_step
-        [--config hadamard|cnot|ket_exp|cnot_exp] [--steps 3] [--batch B]
+        [--config hadamard|hadamard_lbfgs|hadamard_scan|cnot|ket_exp|cnot_exp]
+        [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
 T=51, Q=1e4, R=1e-3, filter line search, seeds = the initial guess plus
-0.1-σ control noise), "ket_exp" (the two-ket transfer |0>->|1>, |1>->|0>
+0.1-σ control noise), "hadamard_lbfgs" (hadamard with
+PiccoloOptions(eval_hessian=False): the L-BFGS mode, profiled after 8
+iterations so that its memory is full), "hadamard_scan" (hadamard with
+kkt_backend "lanes_scan"), "ket_exp" (the two-ket transfer |0>->|1>, |1>->|0>
 with the exponential integrator, T=50, seeds as hadamard's), "cnot"
 (BASELINE #3: two qubits, fixed Δt=0.3, B=128, T=40, kkt_backend "lanes",
 seeds from multistart_initial_decisions) or "cnot_exp" (cnot with the
-exponential integrator), float32 on CUDA.  Runs two warm-up iterations, then profiles `--steps`
+exponential integrator), float32 on CUDA.  Runs two warm-up iterations
+(eight for hadamard_lbfgs), then profiles `--steps`
 iterations with torch.profiler and prints one JSON line: host wall per
 iteration, device-busy time per iteration (the sum of kernel times), the
 idle share, the CUDA launch count, and the kernels with the most device
@@ -70,9 +75,13 @@ def build(config, batch):
     else:
         T = 51
         sysq = QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]])
+        backend = "lanes_scan" if config == "hadamard_scan" else "xla"
         prob = UnitarySmoothPulseProblem(
-            sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3, ipopt_options=SolverOptions(**opts),
-            piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+            sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3,
+            ipopt_options=SolverOptions(kkt_backend=backend, **opts),
+            piccolo_options=PiccoloOptions(verbose=False,
+                                           eval_hessian=config != "hadamard_lbfgs"),
+            rng=np.random.default_rng(0),
         )
     z0 = prob.initial_decision(1)[0]
     a_sl = prob.trajectory.comp_slice("a")
@@ -83,8 +92,8 @@ def build(config, batch):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("hadamard", "cnot", "ket_exp", "cnot_exp"),
-                    default="hadamard")
+    ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan", "cnot",
+                                         "ket_exp", "cnot_exp"), default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)
     args = ap.parse_args()
@@ -93,7 +102,7 @@ def main():
     solver, Z0 = build(args.config, args.batch)
     B = Z0.shape[0]
     st = solver.init_state(Z0)
-    for _ in range(2):
+    for _ in range(8 if args.config == "hadamard_lbfgs" else 2):
         st = solver.step(st)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -6,19 +6,29 @@ in lockstep with per-instance convergence masks (a converged instance
 freezes).  One iteration (`_step`):
 
   1. the dynamics blocks: with the fused assembly on (small stage sizes,
-     solver/options.py::resolve_modes) one kernel (ops/dyn_assembly.py)
-     gives F, A, B and the defect curvature; off, the propagator-bank
-     kernel (ops/prop_bank.py) gives the banks and solver/analytic.py
-     assembles the blocks from them.  torch.func gives the cost blocks;
+     exact Hessian; solver/options.py::resolve_modes) one kernel
+     (ops/dyn_assembly.py) gives F, A, B and the defect curvature; off,
+     the propagator-bank kernel (ops/prop_bank.py) gives the banks and
+     solver/analytic.py assembles the blocks from them.  torch.func gives
+     the cost blocks.  With eval_hessian=False (quasi_newton="lbfgs") the
+     bank runs first order, and the Hessian is the compact L-BFGS
+     σI - U M⁻¹ Uᵀ (solver/lbfgs.py), its memory updated from the last
+     step's pair (∇L at both points with the current multipliers);
   2. residuals, the KKT error, the monotone barrier update and the
-     feasibility-restoration state machine (Ipopt A-9 analog);
+     feasibility-restoration state machine (Ipopt A-9 analog; off under
+     L-BFGS, as in JAX);
   3. the condensed block-tridiagonal KKT system goes through the Riccati
      sweep kernels (solver/kkt_lanes.py), with per-instance δ_w
      regularization retries while an instance's factorization fails.
      With kkt_refine passes, each attempt keeps its factors and corrects
      its step by iterative refinement: the residual of the regularized
      system at (dz, ν) re-solved against the same factors (the rhs-only
-     forward sweep, then the backward sweep);
+     forward sweep, then the backward sweep).  Under L-BFGS the σI +
+     barrier base and the 13-column right-hand side [rz | U] go through
+     one sweep pair and Sherman-Morrison-Woodbury adds the low-rank part.
+     kkt_backend="lanes_scan" solves through the per-knot step kernels
+     instead (2(T-1) launches per attempt), and refines, when kkt_refine
+     asks for it, through a fresh scan solve;
   4. fraction-to-boundary, a filter or merit line search, and the update
      with Ipopt's κ_Σ bound-dual safeguard.
 
@@ -32,8 +42,8 @@ trial.
 
 Not ported yet (the solver raises NotImplementedError): stage inequality
 rows (m > 0) and with them the ρJᵀJ lift and retry warm start, second-order
-correction, recalc_y, L-BFGS / Gauss-Newton Hessians, the watchdog,
-adaptive μ, and the cyclic-reduction and per-knot KKT backends.
+correction, recalc_y, Gauss-Newton Hessians, the watchdog, adaptive μ, and
+the cyclic-reduction KKT backend.
 """
 
 from __future__ import annotations
@@ -44,9 +54,10 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .kkt_lanes import resolve_kkt_lanes, solve_kkt_lanes
+from .kkt_lanes import resolve_kkt_lanes, solve_kkt_lanes, solve_kkt_lanes_scan
+from .lbfgs import lbfgs_compact, lbfgs_rhs, lbfgs_update
 from .options import SolverOptions, resolve_modes
-from .stage_nlp import StageNLP, make_nlp_functions, scale_stage_nlp
+from .stage_nlp import StageNLP, jt_blocks, make_nlp_functions, scale_stage_nlp
 
 __all__ = ["IPMState", "IPMResult", "InteriorPointSolver"]
 
@@ -78,6 +89,13 @@ class IPMState:
     flt_phi: Any = None
     flt_ptr: Any = None  # (B,) ring pointer
     theta_ref: Any = None  # (B,) max(1, theta_0)
+    # limited-memory BFGS (None unless quasi_newton == "lbfgs")
+    qn_S: Any = None  # (B, mem, T*d) step history (chronological)
+    qn_Y: Any = None  # (B, mem, T*d) Lagrangian-gradient differences
+    qn_sty: Any = None  # (B, mem) s_i^T y_i
+    qn_count: Any = None  # (B,) int32 valid pairs
+    qn_prevZ: Any = None  # (B, T, d) previous iterate
+    qn_sigma: Any = None  # (B,) B0 = σI scaling
     # feasibility restoration (None when off)
     ls_fail: Any = None
     stall_count: Any = None
@@ -120,6 +138,8 @@ class _Aux(NamedTuple):
     stall_count: Any = None
     resto_theta0: Any = None
     resto_k: Any = None
+    qn: Any = None  # L-BFGS: the updated memory (dict of IPMState fields)
+    lowrank: Any = None  # L-BFGS: (U (B, n, 2m), M (B, 2m, 2m))
 
 
 def _bmax(x, initial=None):
@@ -146,25 +166,39 @@ class InteriorPointSolver:
         self.options = o
         self.exact_hessian = exact_hessian
         unsupported = {
-            "eval_hessian=False (L-BFGS / Gauss-Newton)": not exact_hessian,
+            "eval_hessian=False with quasi_newton='gauss-newton'": (
+                not exact_hessian and o.quasi_newton != "lbfgs"
+            ),
             "stage inequality rows (m > 0)": nlp.m > 0,
             "mu_strategy='adaptive'": o.mu_strategy != "monotone",
             "soc=True": bool(o.soc),
             "watchdog_trials > 0": o.watchdog_trials > 0,
             "recalc_y=True": bool(o.recalc_y),
-            f"kkt_backend={o.kkt_backend!r}": o.kkt_backend in ("cr", "lanes_scan"),
+            f"kkt_backend={o.kkt_backend!r}": o.kkt_backend == "cr",
             "kkt_aug=True": o.kkt_aug is True,
             "kkt_retry_warm=True": o.kkt_retry_warm is True,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError("not ported yet: " + ", ".join(bad))
-        self.resto_on = bool(o.restoration)
+        self.qn_lbfgs = not exact_hessian
+        self.scan = o.kkt_backend == "lanes_scan"
+        if self.qn_lbfgs and self.scan:
+            raise ValueError(
+                "kkt_backend='lanes_scan' (the per-knot backend) supports exact Hessians "
+                "only; use kkt_backend='lanes' or 'xla' with quasi_newton='lbfgs'"
+            )
+        # L-BFGS: no restoration, and no refinement (the SMW-combined step
+        # keeps no factors), as in JAX
+        self.resto_on = bool(o.restoration) and not self.qn_lbfgs
         self.fused_assembly_on, self.kkt_refine_n = resolve_modes(
             o, nlp.d, nlp.s,
             has_groups=nlp.analytic is not None and len(nlp.analytic.groups) > 0,
             exact_hessian=exact_hessian,
         )
+        if self.qn_lbfgs:
+            self.kkt_refine_n = 0
+        self.kkt_attempts = 0  # KKT attempts since the last solve began
         self.device, self.dtype = nlp.device, nlp.dtype
         self.var_scale = np.ones(nlp.d)
         self.defect_scale = np.ones(nlp.s)
@@ -243,7 +277,7 @@ class InteriorPointSolver:
         gphi = self.funcs.grad_cost(Z) * free
         H = self._eye.expand(Bt, nlp.T, nlp.d, nlp.d).contiguous()
         Cz = Z.new_zeros(Bt, nlp.T - 1, nlp.d, nlp.d)
-        _, nu, ok = solve_kkt_lanes(
+        _, nu, ok = (solve_kkt_lanes_scan if self.scan else solve_kkt_lanes)(
             H, Cz, A.contiguous(), Bj.contiguous(), gphi.contiguous(),
             Z.new_zeros(Bt, nlp.T - 1, nlp.s), 1e-8,
         )
@@ -260,6 +294,14 @@ class InteriorPointSolver:
                 flt_phi=Z.new_full((Bt, o.filter_size), float("inf")),
                 flt_ptr=izeros(),
                 theta_ref=torch.clamp_min(theta0, 1.0),
+            )
+        if self.qn_lbfgs:
+            mem, n = o.lbfgs_memory, nlp.T * nlp.d
+            extra.update(
+                qn_S=Z.new_zeros(Bt, mem, n), qn_Y=Z.new_zeros(Bt, mem, n),
+                qn_sty=Z.new_zeros(Bt, mem), qn_count=izeros(),
+                qn_prevZ=Z.clone(),  # the first pair (s = 0) is skipped
+                qn_sigma=Z.new_ones(Bt),
             )
         if self.resto_on:
             extra.update(
@@ -282,13 +324,6 @@ class InteriorPointSolver:
         )
 
     # ------------------------------------------------------------------ #
-    def _jt(self, A, Bj, lmb):
-        """J^T λ assembled from the blocks: (B, T, d)."""
-        out = A.new_zeros(A.shape[0], A.shape[1] + 1, A.shape[3])
-        out[:, :-1] += torch.einsum("btsd,bts->btd", A, lmb)
-        out[:, 1:] += torch.einsum("btsd,bts->btd", Bj, lmb)
-        return out
-
     def _iteration_pre(self, st: IPMState):
         o, nlp = self.options, self.nlp
         T, s = nlp.T, nlp.s
@@ -302,8 +337,10 @@ class InteriorPointSolver:
         if self.fused_assembly_on:
             F, A, Bj, Hc, Cc = an.assembly_batched(Z, lam)
         else:
-            F, A, Bj, dyn_aux = an.dyn_eval(Z, an.banks_batched(Z, second_order=True))
-            Hc, Cc = an.defect_curvature(lam, dyn_aux)
+            banks = an.banks_batched(Z, second_order=self.exact_hessian)
+            F, A, Bj, dyn_aux = an.dyn_eval(Z, banks)
+            if self.exact_hessian:
+                Hc, Cc = an.defect_curvature(lam, dyn_aux)
         gcost = self.funcs.grad_cost(Z)
         E_pr = _bmax(F.abs())
 
@@ -337,7 +374,7 @@ class InteriorPointSolver:
             resto_flip = enter | exit_
             Dr2 = 1.0 / torch.clamp_min(zR * zR, 1.0)
 
-        jt_lam = self._jt(A, Bj, lam)
+        jt_lam = jt_blocks(A, Bj, lam)
         gL = gcost - jt_lam
         gcost_kkt = gcost
         if self.resto_on:
@@ -375,9 +412,27 @@ class InteriorPointSolver:
         tau = torch.clamp_min(1.0 - mu, o.tau_min)
 
         # condensed KKT blocks
-        H, C = self.funcs.cost_hess(Z)
-        H = H + Hc
-        C = C + Cc
+        qn, lowrank = None, None
+        if self.qn_lbfgs:
+            # insert the pair of the last transition (the same multipliers
+            # at both points, as Ipopt's limited-memory mode), then
+            # B = σI - U M⁻¹ Uᵀ with the low-rank part applied by SMW in
+            # the KKT solve
+            Bt = Z.shape[0]
+            y_vec = ((gL - self.funcs.grad_lagrangian(st.qn_prevZ, lam)) * free).flatten(1)
+            s_vec = ((Z - st.qn_prevZ) * free).flatten(1)
+            qS, qY, qsty, qcount, sig_new, acc = lbfgs_update(
+                st.qn_S, st.qn_Y, st.qn_sty, st.qn_count, s_vec, y_vec
+            )
+            sigma = torch.where(acc, torch.clamp(sig_new, 1e-8, 1e8), st.qn_sigma)
+            qn = dict(qn_S=qS, qn_Y=qY, qn_sty=qsty, qn_count=qcount, qn_sigma=sigma)
+            lowrank = lbfgs_compact(qS, qY, qsty, qcount, sigma)
+            H = _col(sigma, 4) * self._eye.expand(Bt, T, nlp.d, nlp.d)
+            C = Z.new_zeros(Bt, T - 1, nlp.d, nlp.d)
+        else:
+            H, C = self.funcs.cost_hess(Z)
+            H = H + Hc
+            C = C + Cc
         if self.resto_on:
             ir4 = _col(in_resto, 4)
             H = torch.where(ir4, torch.diag_embed(o.resto_zeta * Dr2), H)
@@ -401,35 +456,54 @@ class InteriorPointSolver:
             F=F, mu=mu, tau=tau, sl=sl, su=su, Sig_l=Sig_l, Sig_u=Sig_u, E0=E0,
             E_dual=E_dual, E_pr=E_pr, E_comp0=E_comp0,
             now_converged=now_converged, gcost=gcost_kkt, mu_changed=mu_changed,
-            **resto,
+            qn=qn, lowrank=lowrank, **resto,
         )
         return kkt_in, aux
 
     # ------------------------------------------------------------------ #
-    def _refine(self, kkt_in, dw, dz, nu, fac):
+    def _refine(self, kkt_in, dw, dz, nu, resolve):
         """kkt_refine passes: the residual of the ORIGINAL (δ_w- and
-        δ_c-regularized) system at (dz, ν), re-solved against the kept
-        factors; a correction applies where the re-solve is finite."""
+        δ_c-regularized) system at (dz, ν), re-solved by resolve(rz, rnu)
+        (against the kept factors, or a fresh lanes_scan solve); a
+        correction applies where the re-solve is finite."""
         H, C, A, Bj, rz, rnu = kkt_in
         for _ in range(self.kkt_refine_n):
             Hdz = torch.einsum("btij,btj->bti", H, dz) + _col(dw, 3) * dz
             Hdz[:, :-1] += torch.einsum("btij,btj->bti", C, dz[:, 1:])
             Hdz[:, 1:] += torch.einsum("btji,btj->bti", C, dz[:, :-1])
-            r1 = Hdz + self._jt(A, Bj, nu) - rz
+            r1 = Hdz + jt_blocks(A, Bj, nu) - rz
             Jdz = torch.einsum("btsd,btd->bts", A, dz[:, :-1]) + torch.einsum(
                 "btsd,btd->bts", Bj, dz[:, 1:]
             )
             r2 = Jdz - self.options.delta_c * nu - rnu
-            ez, enu, okr = resolve_kkt_lanes(fac, -r1, -r2)
+            ez, enu, okr = resolve(-r1, -r2)
             dz = dz + torch.where(_col(okr, 3), ez, torch.zeros_like(ez))
             nu = nu + torch.where(_col(okr, 3), enu, torch.zeros_like(enu))
         return dz, nu
 
-    def _solve_kkt_batched(self, kkt_in, delta_w0, st: IPMState, stop_if_converged):
+    def _lbfgs_solve(self, H, C, A, Bj, rz, rnu, U, M):
+        """L-BFGS step by Sherman-Morrison-Woodbury: the σI + barrier base
+        and the right-hand side [rz | U] (1 + 2m columns) through one sweep
+        pair, then x = x0 - W (-M + Uᵀ W_z)⁻¹ Uᵀ dz0 with W = K0⁻¹ [U; 0],
+        one small (2m)² solve per instance."""
+        Bt, T, d = rz.shape
+        k2 = U.shape[-1]
+        DZ, NU, okm = solve_kkt_lanes(H, C, A, Bj, *lbfgs_rhs(rz, rnu, U), self.options.delta_c)
+        dz0, Wz = DZ[..., 0], DZ[..., 1:]
+        nu0, Wnu = NU[..., 0], NU[..., 1:]
+        Wzf = Wz.reshape(Bt, T * d, k2)
+        h, info = torch.linalg.solve_ex(-M + U.mT @ Wzf, U.mT @ dz0.reshape(Bt, -1, 1))
+        dz = dz0 - (Wzf @ h).reshape(Bt, T, d)
+        nu = nu0 - torch.einsum("btsk,bk->bts", Wnu, h[..., 0])
+        return dz, nu, okm & torch.isfinite(h).flatten(1).all(1) & (info == 0)
+
+    def _solve_kkt_batched(self, kkt_in, delta_w0, st: IPMState, stop_if_converged,
+                           lowrank=None):
         """KKT solve with per-instance δ_w escalation on factorization
         failure (Ipopt: try 0, then δ_last/3, then x8 per retry), each
-        attempt refined kkt_refine_n times through its kept factors.
-        Returns None when every instance had already converged on entry."""
+        attempt refined kkt_refine_n times.  lowrank = (U, M) of the L-BFGS
+        Hessian.  Returns None when every instance had already converged
+        on entry."""
         o = self.options
         kkt_in = [x.contiguous() for x in kkt_in]
         H, C, A, Bj, rz, rnu = kkt_in
@@ -453,11 +527,23 @@ class InteriorPointSolver:
                     dw_try == 0.0, first, torch.clamp_max(dw_try * 8.0, o.delta_w_max)
                 )
                 Hreg = H + _col(dw_next, 4) * self._eye
-            dz2, nu2, ok2, *fac = solve_kkt_lanes(
-                Hreg, C, A, Bj, rz, rnu, o.delta_c, want_factors=refine
-            )
+            self.kkt_attempts += 1
+            if self.scan:
+                dz2, nu2, ok2 = solve_kkt_lanes_scan(Hreg, C, A, Bj, rz, rnu, o.delta_c)
+
+                def resolve(r1, r2, Hreg=Hreg):
+                    return solve_kkt_lanes_scan(Hreg, C, A, Bj, r1, r2, o.delta_c)
+            elif lowrank is not None:
+                dz2, nu2, ok2 = self._lbfgs_solve(Hreg, C, A, Bj, rz, rnu, *lowrank)
+            else:
+                dz2, nu2, ok2, *fac = solve_kkt_lanes(
+                    Hreg, C, A, Bj, rz, rnu, o.delta_c, want_factors=refine
+                )
+
+                def resolve(r1, r2, fac=fac):
+                    return resolve_kkt_lanes(fac[0], r1, r2)
             if refine:
-                dz2, nu2 = self._refine(kkt_in, dw_next, dz2, nu2, fac[0])
+                dz2, nu2 = self._refine(kkt_in, dw_next, dz2, nu2, resolve)
             dz = torch.where(_col(ok, 3), dz, dz2)
             nu = torch.where(_col(ok, 3), nu, nu2)
             dw_used = torch.where(ok, dw_used, dw_next)
@@ -621,6 +707,13 @@ class InteriorPointSolver:
             upd3, torch.clamp(zu_new, mu3 / (ks * su_new), ks * mu3 / su_new) * has_ub, zu
         )
         extra = dict(flt)
+        if self.qn_lbfgs:
+            # keep the memory updated in _iteration_pre, and advance prevZ to
+            # the current iterate (the next pair spans this transition)
+            extra.update(
+                {k: torch.where(_col(upd, v.ndim), v, getattr(st, k)) for k, v in aux.qn.items()},
+                qn_prevZ=torch.where(upd3, Z, st.qn_prevZ),
+            )
         if self.resto_on:
             extra.update(
                 ls_fail=torch.where(upd, ~accepted, st.ls_fail),
@@ -644,7 +737,8 @@ class InteriorPointSolver:
     def _step(self, st: IPMState, stop_if_converged: bool):
         with torch.no_grad():
             kkt_in, aux = self._iteration_pre(st)
-            out = self._solve_kkt_batched(kkt_in, st.delta_w, st, stop_if_converged)
+            out = self._solve_kkt_batched(kkt_in, st.delta_w, st, stop_if_converged,
+                                          aux.lowrank)
             if out is None:
                 return None
             return self._iteration_post(st, aux, *out)
@@ -660,6 +754,7 @@ class InteriorPointSolver:
         max_iter = max_iter or self.options.max_iter
         state = self.init_state(Z0)
         self.last_steps = 0  # iterations the last solve ran
+        self.kkt_attempts = 0
         for k in range(max_iter):
             new = self._step(state, True)
             if new is None:

@@ -8,7 +8,10 @@ Counterpart of quantumcollocation_tpu/solver/kkt.py.  Solves
 for every instance, where H̄ is block-tridiagonal (H_t diagonal, C_t
 coupling) and J block-bidiagonal (A_t, B_t).  Shapes with the batch first:
 H (B, T, d, d), C (B, T-1, d, d), A/B (B, T-1, s, d), rz (B, T, d),
-rnu (B, T-1, s).  Returns (Δz, ν, ok) with ok (B,) bool.
+rnu (B, T-1, s).  Returns (Δz, ν, ok) with ok (B,) bool.  A right-hand
+side of r columns, rz (B, T, d, r) and rnu (B, T-1, s, r), gives Δz
+(B, T, d, r) and ν (B, T-1, s, r), as the JAX lanes solve does for the
+L-BFGS [rz | U] system; one without the column axis comes back without it.
 
 This is the plain version of the two sweep kernels (solver/kkt_lanes.py).
 torch.linalg.cholesky raises on a matrix that is not positive definite
@@ -28,6 +31,7 @@ __all__ = [
     "factor_kkt",
     "forward_rhs",
     "back_substitute",
+    "terminal_solve",
     "solve_with_factors",
     "solve_kkt",
 ]
@@ -80,40 +84,60 @@ def factor_kkt(H, C, A, B, delta_c) -> KKTFactors:
     )
 
 
+def _with_cols(rz, rnu):
+    """(rz, rnu, single): the right-hand sides with a column axis, and
+    whether the caller gave a single column without one."""
+    single = rz.ndim == 3
+    return (rz.unsqueeze(-1), rnu.unsqueeze(-1), True) if single else (rz, rnu, False)
+
+
 def forward_rhs(fac: KKTFactors, rz, rnu):
-    """Forward rhs elimination: the carried q_t for t < T-1, (B, T-1, d),
-    and the terminal rhs q_{T-1}, (B, d)."""
-    q = rz[:, 0].unsqueeze(-1)
+    """Forward rhs elimination: the carried q_t for t < T-1, (B, T-1, d[, r]),
+    and the terminal rhs q_{T-1}, (B, d[, r]); r columns where rz is
+    (B, T, d, r) and rnu (B, T-1, s, r)."""
+    rz, rnu, single = _with_cols(rz, rnu)
+    q = rz[:, 0]
     qs = []
     for t in range(fac.L_P.shape[1]):
         x = _chol_solve(fac.L_P[:, t], q)
-        y = _chol_solve(fac.L_S[:, t], fac.A[:, t] @ x - rnu[:, t].unsqueeze(-1))
-        qs.append(q[..., 0])
-        q = rz[:, t + 1].unsqueeze(-1) - fac.C[:, t].mT @ x + fac.G[:, t].mT @ y
-    return torch.stack(qs, 1), q[..., 0]
+        y = _chol_solve(fac.L_S[:, t], fac.A[:, t] @ x - rnu[:, t])
+        qs.append(q)
+        q = rz[:, t + 1] - fac.C[:, t].mT @ x + fac.G[:, t].mT @ y
+    qs = torch.stack(qs, 1)
+    return (qs[..., 0], q[..., 0]) if single else (qs, q)
 
 
 def back_substitute(fac: KKTFactors, qs, dz_last, rnu):
-    """Reverse-time back substitution from dz_{T-1}: (dz (B, T, d),
-    nu (B, T-1, s))."""
-    dz_next = dz_last.unsqueeze(-1)
+    """Reverse-time back substitution from dz_{T-1}: (dz (B, T, d[, r]),
+    nu (B, T-1, s[, r])), with as many columns as qs."""
+    single = qs.ndim == 3
+    if single:
+        qs, dz_last, rnu = qs.unsqueeze(-1), dz_last.unsqueeze(-1), rnu.unsqueeze(-1)
+    dz_next = dz_last
     dzs, nus = [dz_next], []
     for t in reversed(range(fac.L_P.shape[1])):
-        u = qs[:, t].unsqueeze(-1) - fac.C[:, t] @ dz_next
-        v = rnu[:, t].unsqueeze(-1) - fac.B[:, t] @ dz_next
+        u = qs[:, t] - fac.C[:, t] @ dz_next
+        v = rnu[:, t] - fac.B[:, t] @ dz_next
         x = _chol_solve(fac.L_P[:, t], u)
         y = _chol_solve(fac.L_S[:, t], fac.A[:, t] @ x - v)
         dz_next = x - fac.X_A[:, t] @ y
         dzs.append(dz_next)
         nus.append(y)
-    return torch.stack(dzs[::-1], 1)[..., 0], torch.stack(nus[::-1], 1)[..., 0]
+    dz, nu = torch.stack(dzs[::-1], 1), torch.stack(nus[::-1], 1)
+    return (dz[..., 0], nu[..., 0]) if single else (dz, nu)
+
+
+def terminal_solve(L_final, q_final):
+    """dz_{T-1} = P_f^-1 q_{T-1} for q_final (B, d) or (B, d, r)."""
+    if q_final.ndim == 2:
+        return _chol_solve(L_final, q_final.unsqueeze(-1))[..., 0]
+    return _chol_solve(L_final, q_final)
 
 
 def solve_with_factors(fac: KKTFactors, rz, rnu):
     """Solve for a rhs against an existing factorization."""
     qs, q_final = forward_rhs(fac, rz, rnu)
-    dz_last = _chol_solve(fac.L_final, q_final.unsqueeze(-1))[..., 0]
-    dz, nu = back_substitute(fac, qs, dz_last, rnu)
+    dz, nu = back_substitute(fac, qs, terminal_solve(fac.L_final, q_final), rnu)
     ok = (
         fac.ok
         & torch.isfinite(dz).flatten(1).all(1)

@@ -21,10 +21,12 @@ so a configuration carries over unchanged.  `resolve_modes` turns the
 
 matmul_precision and eval_precision are kept for surface parity and
 ignored: the port's precision is its dtype (float32 on the GPU with TF32
-off, float64 on the CPU).  kkt_backend names one route here (the sweep
-kernels), and only feeds the kkt_refine rule.  The solver raises
-NotImplementedError for options whose code paths are not ported yet (see
-InteriorPointSolver).
+off, float64 on the CPU).  kkt_backend "xla" and "lanes" both take the
+fused sweep kernels (the name only feeds the kkt_refine rule);
+"lanes_scan" takes the per-knot step kernels.  quasi_newton "lbfgs" (with
+PiccoloOptions(eval_hessian=False)) runs the L-BFGS mode, lbfgs_memory
+pairs.  The solver raises NotImplementedError for options whose code paths
+are not ported yet (see InteriorPointSolver).
 """
 
 from __future__ import annotations

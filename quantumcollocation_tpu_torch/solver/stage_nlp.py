@@ -12,7 +12,9 @@ KKT ingredients are block-tridiagonal:
 The dynamics blocks come from the analytic assembly (solver/analytic.py);
 the cost blocks from torch.func (grad, hessian, vmap) over the objective's
 stage and terminal functions, the counterpart of the JAX package's
-jax.grad / jax.hessian.  Every evaluator takes a (B, T, d) batch.  The
+jax.grad / jax.hessian.  Every evaluator takes a (B, T, d) batch.
+grad_lagrangian (the L-BFGS pair's ∇L) is ∇φ - J^T λ with J from the
+first-order propagator bank.  The
 port has no stage inequality rows yet (m = 0).
 """
 
@@ -25,7 +27,9 @@ import numpy as np
 import torch
 from torch.func import grad, hessian, vmap
 
-__all__ = ["StageNLP", "NLPFunctions", "make_nlp_functions", "scale_stage_nlp"]
+__all__ = [
+    "StageNLP", "NLPFunctions", "make_nlp_functions", "scale_stage_nlp", "jt_blocks",
+]
 
 
 @dataclasses.dataclass
@@ -58,6 +62,15 @@ class NLPFunctions:
     cost_hess: Callable  # (B, T, d) -> H (B, T, d, d), C (B, T-1, d, d)
     defects: Callable  # (B, T, d) -> (B, T-1, s)
     jac_blocks: Callable  # (B, T, d) -> A, B (B, T-1, s, d)
+    grad_lagrangian: Callable  # (B, T, d), λ (B, T-1, s) -> (B, T, d)
+
+
+def jt_blocks(A, B, lam):
+    """J^T λ assembled from the Jacobian blocks: (B, T, d)."""
+    out = A.new_zeros(A.shape[0], A.shape[1] + 1, A.shape[3])
+    out[:, :-1] += torch.einsum("btsd,bts->btd", A, lam)
+    out[:, 1:] += torch.einsum("btsd,bts->btd", B, lam)
+    return out
 
 
 def scale_stage_nlp(nlp: StageNLP, var_scale, defect_scale, obj_scale):
@@ -106,10 +119,18 @@ def make_nlp_functions(nlp: StageNLP) -> NLPFunctions:
         _, A, B, _ = nlp.analytic.dyn_eval(Z, second_order=False)
         return A, B
 
+    grad_cost = vmap(grad(cost_one))
+
+    def grad_lagrangian(Z, lam):
+        # ∇φ - J^T λ of L = φ - λ·F; the JAX package differentiates the
+        # defects by AD, here J comes from the first-order bank (kernel 5)
+        return grad_cost(Z) - jt_blocks(*jac_blocks(Z), lam)
+
     return NLPFunctions(
         total_cost=vmap(cost_one),
-        grad_cost=vmap(grad(cost_one)),
+        grad_cost=grad_cost,
         cost_hess=cost_hess,
         defects=nlp.analytic.defects,
         jac_blocks=jac_blocks,
+        grad_lagrangian=grad_lagrangian,
     )

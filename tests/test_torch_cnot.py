@@ -99,7 +99,7 @@ def test_twelve_iterations_match_jax():
         piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
     )
     assert (pt.solver.fused_assembly_on, pt.solver.kkt_refine_n) == (False, 1)
-    st_j = pj.solver._solve_loop(pj.solver.init_state(Z0), 12)
+    st_j = pj.solver._solve_loop(pj.solver._init_state_jit(Z0), 12)
     st_t = pt.solver.init_state(Z0_t)
     for _ in range(12):
         st_t = pt.solver.step(st_t)

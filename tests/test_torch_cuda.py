@@ -281,3 +281,99 @@ def test_cnot_exp_path_launches_its_kernels(cuda):
     assert torch.isfinite(res.Z).all()
     assert c["dyn_assembly"] == 0 and c["prop_bank"] >= prob.solver.last_steps > 0, c
     assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+
+
+def _seeded_kkt(Bt, T, d, s, r, device, seed=0):
+    """Definite, defect-shaped blocks (as above) with an r-column rhs."""
+    rng = np.random.default_rng(seed)
+    w = 0.3 if d <= 16 else 1.0 / np.sqrt(d)
+    H = np.eye(d) * 3 + w * rng.normal(size=(Bt, T, d, d))
+    E = np.eye(s, d)
+    cols = () if r is None else (r,)
+    args = [0.5 * (H + np.swapaxes(H, -1, -2)),
+            (0.2 if d <= 16 else 0.7 * w) * rng.normal(size=(Bt, T - 1, d, d)),
+            -E + 0.1 * rng.normal(size=(Bt, T - 1, s, d)),
+            (1.0 if d <= 16 else 0.5) * E + 0.1 * rng.normal(size=(Bt, T - 1, s, d)),
+            rng.normal(size=(Bt, T, d, *cols)), rng.normal(size=(Bt, T - 1, s, *cols))]
+    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in args]
+
+
+@pytest.mark.parametrize("d, s", [(15, 13), (47, 42)])
+def test_multi_column_sweeps_match_plain_version(cuda, d, s):
+    # the L-BFGS [rz | U] system: 13 columns through kernels 2 and 3
+    args = _seeded_kkt(16, 8, d, s, 13, cuda, seed=d)
+    k = kl.fwd_sweep_cuda(*args, 1e-8)
+    r = kl.fwd_sweep_reference(*args, 1e-8)
+    for o, ref in zip(k[:4] + (k[4][:, -1],), r[:5]):
+        assert o.shape == ref.shape
+        _close_rel(o, ref)
+    dz, nu, ok = kl.solve_kkt_lanes(*args, 1e-8)
+    dz_r, nu_r, ok_r = solve_kkt(*args, 1e-8)
+    assert dz.shape == (16, 8, d, 13) and bool(ok.all()) and bool(ok_r.all())
+    _close_rel(dz, dz_r)
+    _close_rel(nu, nu_r)
+    # column 0 as a single-column solve
+    dz1, nu1, _ = kl.solve_kkt_lanes(*args[:4], args[4][..., 0].contiguous(),
+                                     args[5][..., 0].contiguous(), 1e-8)
+    _close_rel(dz[..., 0], dz1)
+    _close_rel(nu[..., 0], nu1)
+
+
+def test_step_kernels_match_plain_version(cuda):
+    Bt, T, d, s = 32, 9, 15, 13
+    H, C, A, B, rz, rnu = _seeded_kkt(Bt, T, d, s, None, cuda, seed=3)
+    new = dict(dtype=torch.float32, device=cuda)
+    L_P, L_S = torch.empty(Bt, T - 1, d, d, **new), torch.empty(Bt, T - 1, s, s, **new)
+    X_A, qs = torch.empty(Bt, T - 1, d, s, **new), torch.empty(Bt, T - 1, d, **new)
+    before = dict(build.launch_counts)
+    Pn, qn = kl.fwd_step_cuda(H[:, 0].contiguous(), rz[:, 0].contiguous(), H, C, A, B, rz, rnu,
+                              0, 1e-8, L_P, L_S, X_A, qs)
+    ref = kl.fwd_step_reference(H[:, 0], rz[:, 0], H[:, 1], C[:, 0], A[:, 0], B[:, 0], rz[:, 1],
+                                rnu[:, 0], 1e-8)
+    for o, r in zip((Pn, qn, L_P[:, 0], L_S[:, 0], X_A[:, 0], qs[:, 0]), ref[:6]):
+        _close_rel(o, r)
+    dz = torch.zeros(Bt, T, d, **new)
+    nu = torch.zeros(Bt, T - 1, s, **new)
+    dz[:, 1] = torch.randn(Bt, d, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    kl.bwd_step_cuda(L_P, L_S, X_A, qs, C, A, B, rnu, dz, nu, 0)
+    dz_r, nu_r = kl.bwd_step_reference(dz[:, 1], L_P[:, 0], L_S[:, 0], X_A[:, 0], qs[:, 0],
+                                       C[:, 0], A[:, 0], B[:, 0], rnu[:, 0])
+    _close_rel(dz[:, 0], dz_r)
+    _close_rel(nu[:, 0], nu_r)
+    assert build.launch_counts["kkt_fwd_step"] == before["kkt_fwd_step"] + 1
+    assert build.launch_counts["kkt_bwd_step"] == before["kkt_bwd_step"] + 1
+    # a whole scan solve: T-1 launches each way, against the plain solve
+    dz, nu, ok = kl.solve_kkt_lanes_scan(H, C, A, B, rz, rnu, 1e-8)
+    dz_r, nu_r, ok_r = solve_kkt(H, C, A, B, rz, rnu, 1e-8)
+    assert bool(ok.all()) and bool(ok_r.all())
+    _close_rel(dz, dz_r)
+    _close_rel(nu, nu_r)
+    assert build.launch_counts["kkt_fwd_step"] == before["kkt_fwd_step"] + T
+    assert build.launch_counts["kkt_bwd_step"] == before["kkt_bwd_step"] + T
+
+
+@pytest.mark.parametrize("mode", ["lbfgs", "scan"])
+def test_lbfgs_and_scan_paths_launch_their_kernels(cuda, mode):
+    sysq = qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"], qt.GATES["Y"]])
+    prob = qt.UnitarySmoothPulseProblem(
+        sysq, qt.GATES["H"], 11, 0.2, Q=1e4, R=1e-3,
+        ipopt_options=qt.SolverOptions(line_search="filter", kappa_mu=0.2, tol=1e-5,
+                                       kkt_backend="lanes_scan" if mode == "scan" else "xla"),
+        piccolo_options=qt.PiccoloOptions(verbose=False, eval_hessian=mode != "lbfgs"),
+        rng=np.random.default_rng(0),
+    )
+    solver = prob.solver
+    build.reset_launch_counts()
+    res = prob.solve_batched(prob.initial_decision(8), max_iter=6)
+    c, n, att = build.launch_counts, solver.last_steps, solver.kkt_attempts
+    assert torch.isfinite(res.Z).all() and n > 0
+    assert c["kkt_rhs_fwd_sweep"] == 0, c
+    if mode == "lbfgs":
+        # the bank (first order) at the iterate and at the previous one
+        assert c["dyn_assembly"] == 0 and c["prop_bank"] >= n, c
+        assert c["kkt_fwd_sweep"] == c["kkt_bwd_sweep"] == att + 1, c  # +1: multipliers
+        assert c["kkt_fwd_step"] == c["kkt_bwd_step"] == 0, c
+    else:
+        assert c["dyn_assembly"] == n and c["prop_bank"] == 1, c
+        assert c["kkt_fwd_sweep"] == c["kkt_bwd_sweep"] == 0, c
+        assert c["kkt_fwd_step"] == c["kkt_bwd_step"] == 10 * (att + 1), c

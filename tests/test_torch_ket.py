@@ -210,7 +210,7 @@ def test_eight_iterations_match_jax():
         piccolo_options=qt.PiccoloOptions(verbose=False, integrator="exponential"), device="cpu",
     )
     assert pt.solver.fused_assembly_on and pj.solver.fused_assembly_on
-    st_j = pj.solver._solve_loop(pj.solver.init_state(Z0), 8)
+    st_j = pj.solver._solve_loop(pj.solver._init_state_jit(Z0), 8)
     st_t = pt.solver.init_state(Z0_t)
     for _ in range(8):
         st_t = pt.solver.step(st_t)

@@ -73,7 +73,7 @@ def test_twelve_iterations_match_jax(line_search):
         ipopt_options=qt.SolverOptions(print_level=1, tol=1e-6, line_search=line_search),
         piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
     )
-    st_j = pj.solver._solve_loop(pj.solver.init_state(Z0), 12)
+    st_j = pj.solver._solve_loop(pj.solver._init_state_jit(Z0), 12)
     st_t = pt.solver.init_state(Z0_t)
     for _ in range(12):
         st_t = pt.solver.step(st_t)
@@ -102,12 +102,20 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        qt.UnitarySmoothPulseProblem(
-            qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
-            ipopt_options=qt.SolverOptions(soc=True),
-            piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
-        )
+    # soc, recalc_y, the cr backend, Gauss-Newton Hessians and stage
+    # inequality rows (here the leakage constraint's) are not ported
+    cases = [
+        (dict(soc=True), {}), (dict(recalc_y=True), {}), (dict(kkt_backend="cr"), {}),
+        (dict(quasi_newton="gauss-newton"), dict(eval_hessian=False)),
+        ({}, dict(leakage_suppression=True)),
+    ]
+    for solver_kw, piccolo_kw in cases:
+        with pytest.raises(NotImplementedError):
+            qt.UnitarySmoothPulseProblem(
+                qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
+                ipopt_options=qt.SolverOptions(**solver_kw),
+                piccolo_options=qt.PiccoloOptions(verbose=False, **piccolo_kw), device="cpu",
+            )
 
 
 def test_port_runs_with_jax_blocked():
