@@ -72,7 +72,9 @@ Phases, one JSON object per line on stdout:
      "lanes_scan", 48 iterations (frac@1e-4 >= 0.9); each step kernel
      launches (T-1) x (KKT attempts + 1) times and the fused sweeps never.
 The exponential bank's rows also time its library counterpart
-(exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices).
+(exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
+the rows of kernels 2 and 3 report their launch configuration (threads per
+instance, instances per block, shared bytes per block).
 Then the kernels line, and last {"ok": true, "device": {...}}.  Each main
 path checks its own kernels' launch counts.  Any failed check exits
 nonzero before the last line.  Without CUDA it exits 1.
@@ -417,6 +419,7 @@ def main():
             ms=time_ms(lambda: kl.fwd_sweep_cuda(*real, delta_c, want_factors=factors)),
             plain_ms=time_ms(lambda: kl.fwd_sweep_reference(*real, delta_c, factors)),
             bytes=nbytes, flops=flops, kept_factors=factors, columns=r or 1,
+            launch=kl.sweep_config("kkt_fwd_sweep", Bn, d, s, r or 1),
         )
 
         def bwd_args(L_P, L_S, X_A, qs, dz_last, C_, A_, B_, rnu_):
@@ -438,6 +441,7 @@ def main():
             ms=time_ms(lambda: kl.bwd_sweep_cuda(*real_bwd)),
             plain_ms=time_ms(lambda: kl.bwd_sweep_reference(*rf[:4], C, A, Bj, rnu, rf[4])),
             bytes=nbytes, flops=flops, columns=r or 1,
+            launch=kl.sweep_config("kkt_bwd_sweep", Bn, d, s, r or 1),
         )
         if factors:
             G, L_Pf = ref_f[6].contiguous(), ref_f[7].contiguous()
@@ -1019,7 +1023,7 @@ def main():
          "replaces": REPLACES[name], "launches": cnt[name], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"],
-         "columns": r.get("columns", 1)}
+         "columns": r.get("columns", 1), **({"launch": r["launch"]} if "launch" in r else {})}
         for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

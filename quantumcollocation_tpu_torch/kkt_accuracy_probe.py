@@ -1,0 +1,144 @@
+"""How far the float32 KKT solve's error on a real system moves with rounding.
+
+    python -m quantumcollocation_tpu_torch.kkt_accuracy_probe
+        [--config hadamard cnot cnot_exp] [--perturb 8]
+        [--other path/to/another/kkt_sweeps.cu]
+
+For each configuration of profile_step.py, the first IPM iteration's KKT
+system (H with the accepted δ_w, as chip_smoke.py phases 5, 8 and 13 take
+it, with profile_step's seeds), then `--perturb` copies of it whose
+float32 blocks are each multiplied elementwise by (1 + u 2^-23), u drawn
+from {-1, 0, 1} with numpy's generator seeded by the copy's index: changes
+of about one rounding.  For the system and each copy it measures, against
+the float64 CPU solve of the same float32 blocks and relative to its
+largest entry: the sweep kernels' solve (solve_kkt_lanes, unrefined), the
+plain float32 solve, and, with --other, the sweep kernels built from
+another kkt_sweeps.cu (an earlier commit's, say) with the same C
+interface.  Prints one JSON line per configuration: the unperturbed
+system's errors and the min, median and max over the copies.  The first
+iteration's systems are near-singular in float32, so these errors are of
+order 0.1 and move with rounding alone; the spread says how far.  Needs a
+CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .ops import build as kbuild
+from .profile_step import build
+from .solver import kkt_lanes as kl
+from .solver.kkt import solve_kkt
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _other_library(source):
+    """The sweep kernels of another kkt_sweeps.cu, built with the port's
+    nvcc flags into build/kernels/."""
+    out = kbuild.BUILD_DIR / "libkkt_sweeps_probe_other.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", str(out), str(source)], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.qct_kkt_fwd_sweep.restype = _I
+    lib.qct_kkt_fwd_sweep.argtypes = [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_P] * 8
+    lib.qct_kkt_bwd_sweep.restype = _I
+    lib.qct_kkt_bwd_sweep.argtypes = [_P] * 8 + [_I] * 5 + [_P] * 3
+    return lib
+
+
+def _solve_with(lib, H, C, A, B, rz, rnu, delta_c):
+    """(dz, nu) of the two sweeps of `lib` on single-column blocks."""
+    Bn, T, d, _ = H.shape
+    s = A.shape[2]
+    new = dict(dtype=torch.float32, device=H.device)
+    LP, LS = torch.empty(Bn, T - 1, d, d, **new), torch.empty(Bn, T - 1, s, s, **new)
+    XA, q = torch.empty(Bn, T - 1, d, s, **new), torch.empty(Bn, T - 1, d, **new)
+    dz, nu = torch.empty(Bn, T, d, **new), torch.empty(Bn, T - 1, s, **new)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [x.data_ptr() for x in (H, C, A, B, rz, rnu)]
+    kbuild.check(lib.qct_kkt_fwd_sweep(*ptrs, Bn, T, d, s, 1, float(delta_c),
+                                       *[x.data_ptr() for x in (LP, LS, XA, q, dz)], None, None,
+                                       stream), "other kkt_fwd_sweep")
+    kbuild.check(lib.qct_kkt_bwd_sweep(*[x.data_ptr() for x in (LP, LS, XA, q, C, A, B, rnu)], Bn,
+                                       T, d, s, 1, dz.data_ptr(), nu.data_ptr(), stream),
+                 "other kkt_bwd_sweep")
+    return dz, nu
+
+
+def _rel(out, ref, keep):
+    err = (out.cpu().double()[keep] - ref[keep]).abs().max().item()
+    return err / max(1.0, ref[keep].abs().max().item())
+
+
+def first_system(config):
+    """The first IPM iteration's float32 KKT blocks (H with the accepted
+    δ_w) and the solver's delta_c."""
+    solver, Z0 = build(config, None)
+    with torch.no_grad():
+        st = solver.init_state(Z0)
+        kkt_in, _ = solver._iteration_pre(st)
+        dw = solver._solve_kkt_batched(kkt_in, st.delta_w, st, False)[3]
+    H, C, A, B, rz, rnu = [x.contiguous() for x in kkt_in]
+    H = (H + dw[:, None, None, None] * torch.eye(H.shape[-1], device=H.device)).contiguous()
+    return (H, C, A, B, rz, rnu), solver.options.delta_c
+
+
+def errors(blocks, delta_c, other):
+    """Errors of the solves of one system against its float64 CPU solve."""
+    with torch.no_grad():
+        dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in blocks], delta_c)
+        dz_k, nu_k, ok_k = kl.solve_kkt_lanes(*blocks, delta_c)
+        dz_p, nu_p, ok_p = solve_kkt(*blocks, delta_c)
+        keep = ok_r & ok_k.cpu() & ok_p.cpu()
+        out = {"kernel": max(_rel(dz_k, dz_r, keep), _rel(nu_k, nu_r, keep)),
+               "plain": max(_rel(dz_p, dz_r, keep), _rel(nu_p, nu_r, keep))}
+        if other is not None:
+            dz_o, nu_o = _solve_with(other, *blocks, delta_c)
+            ok_o = (torch.isfinite(dz_o).flatten(1).all(1) & torch.isfinite(nu_o).flatten(1).all(1))
+            keep &= ok_o.cpu()
+            out["other"] = max(_rel(dz_o, dz_r, keep), _rel(nu_o, nu_r, keep))
+        out["compared"] = int(keep.sum())
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", nargs="+", default=["hadamard", "cnot", "cnot_exp"],
+                    choices=("hadamard", "cnot", "ket_exp", "cnot_exp"))
+    ap.add_argument("--perturb", type=int, default=8)
+    ap.add_argument("--other", type=Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kkt_accuracy_probe needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    other = _other_library(args.other) if args.other else None
+    for config in args.config:
+        blocks, delta_c = first_system(config)
+        base = errors(blocks, delta_c, other)
+        runs = []
+        for i in range(args.perturb):
+            rng = np.random.default_rng(i)
+            copy = [x * (1.0 + torch.as_tensor(rng.integers(-1, 2, size=x.shape) * 2.0**-23,
+                                               dtype=x.dtype, device=x.device))
+                    for x in blocks]
+            runs.append(errors(copy, delta_c, other))
+        summary = {k: {"min": min(r[k] for r in runs),
+                       "median": statistics.median(r[k] for r in runs),
+                       "max": max(r[k] for r in runs)}
+                   for k in base if k != "compared"}
+        print(json.dumps({"config": config, "device": torch.cuda.get_device_name(0),
+                          "perturbed_copies": args.perturb, "unperturbed": base,
+                          "perturbed": summary}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

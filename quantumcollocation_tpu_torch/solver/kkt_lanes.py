@@ -4,10 +4,12 @@ Replaces quantumcollocation_tpu/solver/kkt_lanes.py::solve_kkt_lanes,
 resolve_kkt_lanes and solve_kkt_lanes_scan and their Pallas kernels
 _fwd_sweep_kernel, _bwd_sweep_kernel, _rhs_fwd_sweep_kernel,
 _fwd_step_kernel and _bwd_step_kernel with the CUDA kernels of
-csrc/kkt_sweeps.cu (one warp per instance).  The fused sweeps loop over
-the knots inside the kernel, with the terminal blocks folded into the ends
-of the forward sweeps; they take a right-hand side of r columns, rz
-(B, T, d, r) and rnu (B, T-1, s, r), as the L-BFGS [rz | U] system needs.
+csrc/kkt_sweeps.cu (the fused sweeps: a group of warps per instance; the
+rhs-only sweep and the steps: one warp per instance).  The fused sweeps
+loop over the knots inside the kernel, with the terminal blocks folded
+into the ends of the forward sweeps; they take a right-hand side of r
+columns, rz (B, T, d, r) and rnu (B, T-1, s, r), as the L-BFGS [rz | U]
+system needs.
 With want_factors the solve also keeps its factors (LanesFactors), and
 resolve_kkt_lanes re-solves a new single-column right-hand side against
 them with triangular work only: the rhs-only forward sweep, then the
@@ -28,6 +30,7 @@ CUDA tensors go to the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -57,6 +60,7 @@ __all__ = [
     "rhs_fwd_sweep_cuda",
     "fwd_step_cuda",
     "bwd_step_cuda",
+    "sweep_config",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -133,7 +137,9 @@ def bwd_step_reference(dz_next, L_P, L_S, X_A, q, C, A, B, rnu):
     return (x - X_A @ y)[..., 0], y[..., 0]
 
 
+@functools.cache
 def _lib():
+    """The kernels' library, its C signatures set once."""
     lib = build.library("kkt_sweeps")
     lib.qct_kkt_fwd_sweep.restype = _I
     lib.qct_kkt_fwd_sweep.argtypes = [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_P] * 8
@@ -145,7 +151,20 @@ def _lib():
     lib.qct_kkt_fwd_step.argtypes = [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_P] * 7
     lib.qct_kkt_bwd_step.restype = _I
     lib.qct_kkt_bwd_step.argtypes = [_P] * 8 + [_I] * 5 + [_P] * 3
+    lib.qct_kkt_sweep_config.restype = _I
+    lib.qct_kkt_sweep_config.argtypes = [_I] * 5 + [_P]
     return lib
+
+
+def sweep_config(kernel, Bn, d, s, r=1):
+    """Launch configuration of kernel 2 ("kkt_fwd_sweep") or 3
+    ("kkt_bwd_sweep") on the current CUDA device for these shapes:
+    threads per instance, instances per block, shared bytes per block."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().qct_kkt_sweep_config(int(kernel == "kkt_bwd_sweep"), Bn, d, s, r, out)
+    build.check(err, kernel)
+    return dict(threads_per_instance=out[0], instances_per_block=out[1],
+                shared_bytes_per_block=out[2])
 
 
 def _check(name, x, shape):

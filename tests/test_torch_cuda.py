@@ -71,17 +71,25 @@ def test_sweep_kernels_match_plain_version(cuda):
         assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-def test_sweep_kernel_reports_a_failed_factorization(cuda):
+@pytest.mark.parametrize("d, s, Bt", [(15, 13, 4), (15, 13, 400), (47, 42, 4)])
+def test_sweep_kernel_reports_a_failed_factorization(cuda, d, s, Bt):
+    # instance 2 meets a negative pivot, never clamped: its NaN stays in its
+    # own dz and nu, and the launch ends.  At d=15, B=400 it shares a block
+    # with healthy instances; at d=47 every block holds one instance.
     rng = np.random.default_rng(1)
-    Bt, T, d, s = 4, 6, 15, 13
+    T = 6
     H = np.broadcast_to(3 * np.eye(d), (Bt, T, d, d)).copy()
-    H[2, 3] = -np.eye(d)  # instance 2: a negative pivot, never clamped
+    H[2, 3] = -np.eye(d)
     args = [H, np.zeros((Bt, T - 1, d, d)), rng.normal(size=(Bt, T - 1, s, d)),
             rng.normal(size=(Bt, T - 1, s, d)), rng.normal(size=(Bt, T, d)),
             rng.normal(size=(Bt, T - 1, s))]
     args = [torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in args]
-    _, _, ok = kl.solve_kkt_lanes(*args, 1e-8)
-    assert ok.tolist() == [True, True, False, True]
+    if Bt == 400:
+        assert kl.sweep_config("kkt_fwd_sweep", Bt, d, s)["instances_per_block"] > 2
+    dz, nu, ok = kl.solve_kkt_lanes(*args, 1e-8)
+    torch.cuda.synchronize()
+    assert ok.tolist() == [i != 2 for i in range(Bt)]
+    assert not (torch.isfinite(dz[2]).all() and torch.isfinite(nu[2]).all())
 
 
 def test_wrappers_refuse_float64(cuda):
@@ -317,6 +325,42 @@ def test_multi_column_sweeps_match_plain_version(cuda, d, s):
                                      args[5][..., 0].contiguous(), 1e-8)
     _close_rel(dz[..., 0], dz1)
     _close_rel(nu[..., 0], nu1)
+
+
+@pytest.mark.parametrize("T", [2, 11])
+@pytest.mark.parametrize("Bt", [1, 133, 265])
+@pytest.mark.parametrize("r", [1, 13])
+@pytest.mark.parametrize("d, s", [(15, 13), (28, 24), (47, 42)])
+def test_group_sweeps_match_plain_version(cuda, d, s, r, Bt, T):
+    # kernels 2 and 3 (a group of warps per instance) against the plain
+    # sweeps and the plain KKT solve: one instance, more instances than
+    # SMs, and batches whose last block is ragged where a block holds
+    # several groups (d <= 32: 2 and 3 instances per block on 132 SMs)
+    cols = r if r > 1 else None
+    args = _seeded_kkt(Bt, T, d, s, cols, cuda, seed=d + r + T)
+    factors = r == 1
+    k = kl.fwd_sweep_cuda(*args, 1e-8, want_factors=factors)
+    ref = kl.fwd_sweep_reference(*args, 1e-8, want_factors=factors)
+    pairs = list(zip(k[:4] + (k[4][:, -1],), ref[:5]))
+    if factors:
+        pairs += list(zip(k[5:], ref[6:]))
+    for o, rr in pairs:
+        assert o.shape == rr.shape
+        _close_rel(o, rr)
+    fac = [x.contiguous() for x in ref[:4]]
+    dz_b, nu_b = kl.bwd_sweep_cuda(*fac, *args[1:4], args[5], k[4])
+    dz_p, nu_p = kl.bwd_sweep_reference(*fac, *args[1:4], args[5], k[4][:, -1])
+    _close_rel(dz_b, dz_p)
+    _close_rel(nu_b, nu_p)
+    dz, nu, ok = kl.solve_kkt_lanes(*args, 1e-8)
+    dz_r, nu_r, ok_r = solve_kkt(*args, 1e-8)
+    torch.cuda.synchronize()
+    assert bool(ok.all()) and bool(ok_r.all())
+    _close_rel(dz, dz_r)
+    _close_rel(nu, nu_r)
+    for kernel in ("kkt_fwd_sweep", "kkt_bwd_sweep"):
+        cfg = kl.sweep_config(kernel, Bt, d, s, r)
+        assert cfg["threads_per_instance"] == (128 if d <= 32 else 256), cfg
 
 
 def test_step_kernels_match_plain_version(cuda):
