@@ -67,14 +67,17 @@ Phases, one JSON object per line on stdout:
  16. kernels, scan shapes: the per-knot steps (kernels 6 and 7) against
      fwd_step_reference / bwd_step_reference, one knot and a whole
      solve_kkt_lanes_scan solve, on seeded blocks of the Hadamard shapes;
-     times (per launch and per solve) on the first iteration's real blocks;
+     on the first iteration's real blocks, device time per launch (a CUDA
+     graph of a solve's T-1 launches, replayed between two events; the
+     rows' ms, plain_ms and bound are per launch) and, on a line before the
+     rows, the host-bound time of a solve's launches from Python;
  17. main path, hadamard_scan: phase 4's problem with kkt_backend
      "lanes_scan", 48 iterations (frac@1e-4 >= 0.9); each step kernel
      launches (T-1) x (KKT attempts + 1) times and the fused sweeps never.
 The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
-the rows of kernels 2 and 3 report their launch configuration (threads per
-instance, instances per block, shared bytes per block).
+the rows of kernels 2, 3, 4 and 6 report their launch configuration
+(threads per instance, instances per block, shared bytes per block).
 Then the kernels line, and last {"ok": true, "device": {...}}.  Each main
 path checks its own kernels' launch counts.  Any failed check exits
 nonzero before the last line.  Without CUDA it exits 1.
@@ -84,7 +87,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -128,22 +130,6 @@ def fail(msg):
     sys.exit(1)
 
 
-def time_ms(fn, n=20, warm=3):
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def card_rates(name):
     """(bytes/s, float32 FLOP/s outside the tensor cores): NVIDIA's data
     sheets for the H100 variants, dense."""
@@ -162,30 +148,6 @@ def rel_err(out, ref, keep=None):
     err = (out.double() - ref.double()).abs().max().item()
     scale = max(1.0, ref.double().abs().max().item())
     return err, err / scale
-
-
-def seeded_kkt(Bn, Tn, d, s, device, r=None):
-    """Seeded blocks of the given shapes, shaped like dynamics defects
-    (A ≈ -I, B ≈ I) and definite, so that float32 resolves them (their
-    float32 error against float64 is ~1e-6 relative at d=15).  At the
-    two-qubit size the noise shrinks with d, and B ≈ I/2 makes the chain
-    contract: with B ≈ I the eliminated blocks sum H along the 40 knots,
-    and the carried rhs reaches ~7e3, where float32 rounding alone is
-    ~8e-5 of it (a CPU float32-vs-float64 probe).  With r, the two
-    right-hand sides have r columns."""
-    rng = np.random.default_rng(0)
-    cols = () if r is None else (r,)
-    small = d <= 16
-    w = 0.3 if small else 1.0 / np.sqrt(d)
-    Hs = np.eye(d) * 3 + w * rng.normal(size=(Bn, Tn, d, d))
-    E = np.eye(s, d)
-    out = [0.5 * (Hs + np.swapaxes(Hs, -1, -2)),
-           (0.2 if small else 0.7 * w) * rng.normal(size=(Bn, Tn - 1, d, d)),
-           -E + 0.1 * rng.normal(size=(Bn, Tn - 1, s, d)),
-           (1.0 if small else 0.5) * E + 0.1 * rng.normal(size=(Bn, Tn - 1, s, d)),
-           rng.normal(size=(Bn, Tn, d, *cols)), rng.normal(size=(Bn, Tn - 1, s, *cols)),
-           rng.normal(size=(Bn, Tn, d, *cols)), rng.normal(size=(Bn, Tn - 1, s, *cols))]
-    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in out]
 
 
 def sweep_counts(Bn, Tn, d, s, kernel, factors=False, r=1):
@@ -339,6 +301,7 @@ def main():
     from quantumcollocation_tpu_torch.solver import kkt_lanes as kl
     from quantumcollocation_tpu_torch.solver.kkt import solve_kkt
     from quantumcollocation_tpu_torch.solver.lbfgs import lbfgs_rhs
+    from quantumcollocation_tpu_torch.bench_util import graph_ms, seeded_kkt, time_ms
 
     # ---- 1. environment ---------------------------------------------- #
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -456,7 +419,7 @@ def main():
                                                          rL_Pf)),
                 plain_ms=time_ms(lambda: kl.rhs_fwd_sweep_reference(rf[0], rf[1], rG, C, A, rz,
                                                                     rnu, rL_Pf)),
-                bytes=nbytes, flops=flops,
+                bytes=nbytes, flops=flops, launch=kl.sweep_config("kkt_rhs_fwd_sweep", Bn, d, s),
             )
         return out
 
@@ -917,7 +880,8 @@ def main():
     def step_entries(real_, Bn, Tn):
         """Kernels 6 and 7 against their plain versions on seeded blocks
         (one knot each, and a whole scan solve against the plain KKT solve);
-        per-solve times (T-1 launches) on the real blocks."""
+        on the real blocks, device times per launch (a CUDA graph of a
+        solve's T-1 launches) and, apart, the host-bound per-solve times."""
         d_, s_ = real_[0].shape[-1], real_[2].shape[-2]
         dev = real_[0].device
         Hs, Cs, As, Bs, rzs, rnus = seeded_kkt(Bn, Tn, d_, s_, dev)[:6]
@@ -943,9 +907,10 @@ def main():
 
         H_, C_, A_, B_, rz_, rnu_ = real_
         bufs = step_buffers(Bn, Tn, d_, s_, H_)
+        P0, q0 = H_[:, 0].contiguous(), rz_[:, 0].contiguous()
 
         def fwd_kernel():
-            P, qc = H_[:, 0].contiguous(), rz_[:, 0].contiguous()
+            P, qc = P0, q0
             for t in range(Tn - 1):
                 P, qc = kl.fwd_step_cuda(P, qc, H_, C_, A_, B_, rz_, rnu_, t, delta_c, *bufs)
 
@@ -971,20 +936,28 @@ def main():
 
         counts_ = step_counts(Bn, Tn, d_, s_)
         solve_ms = time_ms(lambda: kl.solve_kkt_lanes_scan(*real_, delta_c))
-        out = {}
+        out, host = {}, {"scan_solve_ms": solve_ms}
         for name, errs, kern, plain in (("kkt_fwd_step", errs_f, fwd_kernel, fwd_plain),
                                         ("kkt_bwd_step", errs_b + errs_s, bwd_kernel, bwd_plain)):
-            ms = time_ms(kern)
+            # the T-1 launches of a solve from Python read the host between
+            # launches; a CUDA graph of them reads the device
+            host[f"{name}_host_ms_per_solve"] = time_ms(kern)
             out[name] = dict(
                 max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-                ms=ms, ms_per_launch=ms / (Tn - 1), plain_ms=time_ms(plain, n=5),
+                ms=graph_ms(kern) / (Tn - 1), plain_ms=time_ms(plain, n=5) / (Tn - 1),
+                ms_unit="device per launch (CUDA graph of a solve's T-1 launches)",
                 scan_solve_ms=solve_ms, scan_solve_max_rel_err=max(e[1] for e in errs_s),
-                bytes=counts_[name][0], flops=counts_[name][1], launches_timed=Tn - 1,
+                bytes=counts_[name][0] / (Tn - 1), flops=counts_[name][1] / (Tn - 1),
+                launches_per_solve=Tn - 1,
             )
-        return out
+        out["kkt_fwd_step"]["launch"] = kl.sweep_config("kkt_fwd_step", Bn, d_, s_)
+        return out, host
 
     with torch.no_grad():
-        resultss = step_entries(real, B, T)
+        resultss, step_host = step_entries(real, B, T)
+    emit({"phase": "step_host_timing", "path": "hadamard_scan", "shapes": shapes,
+          "unit": "ms per solve: T-1 launches from Python between CUDA events, host-bound",
+          **step_host})
     finish(resultss, bw, f32_peak)
     for name, r in resultss.items():
         emit({"phase": "kernel", "path": "hadamard_scan", "name": name, "shapes": shapes, **r})
@@ -1023,7 +996,8 @@ def main():
          "replaces": REPLACES[name], "launches": cnt[name], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"],
-         "columns": r.get("columns", 1), **({"launch": r["launch"]} if "launch" in r else {})}
+         "columns": r.get("columns", 1),
+         **{k: r[k] for k in ("launch", "ms_unit") if k in r}}
         for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

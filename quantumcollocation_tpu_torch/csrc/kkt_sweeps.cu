@@ -68,63 +68,43 @@
 // block.  Buffers are batch-first, so the solver's layout needs no
 // transpose.
 //
-// Kernels 4, 6 and 7 keep the one-warp-per-instance design (warp_chol,
-// warp_chol_solve, warp_chol_solve_vec, fwd_knot, bwd_knot): lanes own
-// the right-hand-side columns of the triangular solves and the rows of the
-// Cholesky column updates and products; each is a later PR's redesign.
-// The lanes_scan steps (6, 7) run one knot per launch and read and write
-// the full carry P, q in global memory: P_{t+1} = sym(H_{t+1}) + Delta',
-// q_{t+1} = rz_{t+1} + qd' (the JAX scan leaves the terminal Cholesky to
-// plain array code, and so does the port).
+// Kernel 4 (the rhs-only forward sweep, JAX _rhs_fwd_sweep_kernel) reads
+// L_P, L_S, G, C, A, rz, rnu a knot (10,219 floats at d=47, s=42): a bytes
+// bound of ~0.06 ms at B=128, T=40.  But its knot is four dependent
+// triangular solves, 2(d + s) = 178 steps, with one instance per SM, so
+// latency bounds it.  It runs on the group design: a group of G warps per
+// instance (as kernel 3 picks it), cp.async prefetching knot t+1's blocks
+// (none depends on the carry qd) while knot t computes, the solves on one
+// warp with the vector in registers (warp_solve_vec, 1 / diag once a
+// knot), A x on the group by kParts lanes per row, and C^T x on the other
+// warps while warp 0 solves with L_S, so only G^T y follows that solve.
+// G and C are staged as stored, a thread per output column (a stage
+// transposed by the copy, for kParts-lane row products, measured a few
+// percent slower).  The terminal L_Pf solve arrives as the last stage.
+//
+// Kernel 6 (one knot of the lanes_scan forward elimination, JAX
+// _fwd_step_kernel) is kernel 2's kernel instantiated for one knot
+// (fwd_sweep_group<1, ..., STEP = true>), so the two run one knot body: it
+// cp.asyncs P, q and the knot's C, A, B, rnu into a stage of kernel 2's
+// layout, P and q where H_t and rz_t go, with the carries Delta and qd zeroed
+// (the body's P = H_t + Delta and q = rz_t + qd then read P and q
+// unchanged), and writes P_{t+1} = sym(H_{t+1}) + Delta', q_{t+1} =
+// rz_{t+1} + qd' to global memory (the JAX scan leaves the terminal
+// Cholesky to plain array code, and so does the port).  Its bound at
+// B=512, d=15 is ~1 us of bytes a launch; a launch is one knot's chain of
+// ~2(d + s) barrier steps, and the carry's round trip through global memory.
+//
+// Kernel 7 keeps the one-warp-per-instance design (warp_chol_solve_vec,
+// bwd_knot): lanes own the rows of the triangular solves' column updates
+// and of the products; it is a later PR's redesign.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxWarps = 4;  // instances per block of kernels 4, 6, 7, at most
+constexpr int kMaxWarps = 4;  // instances per block of kernel 7, at most
 
 __host__ __device__ __forceinline__ int odd(int n) { return n | 1; }  // bank-conflict-free stride
-
-// In-place lower Cholesky of the n x n matrix at M (row stride ld); the
-// upper triangle is zeroed.  Lanes own the rows of each column update.
-__device__ void warp_chol(float* M, int n, int ld, int lane) {
-  for (int j = 0; j < n; ++j) {
-    for (int i = j + lane; i < n; i += 32) {
-      float v = M[i * ld + j];
-      for (int k = 0; k < j; ++k) v -= M[i * ld + k] * M[j * ld + k];
-      M[i * ld + j] = v;
-    }
-    __syncwarp();
-    const float piv = sqrtf(M[j * ld + j]);
-    __syncwarp();
-    for (int i = j + lane; i < n; i += 32) M[i * ld + j] = (i == j) ? piv : M[i * ld + j] / piv;
-    __syncwarp();
-  }
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n, j = idx % n;
-    if (j > i) M[i * ld + j] = 0.f;
-  }
-  __syncwarp();
-}
-
-// In place Y <- (L L^T)^-1 Y for an n x ncols block Y (row stride ldy);
-// lanes own the columns.
-__device__ void warp_chol_solve(const float* L, int ldl, float* Y, int n, int ncols, int ldy,
-                                int lane) {
-  for (int c = lane; c < ncols; c += 32) {
-    for (int i = 0; i < n; ++i) {
-      float v = Y[i * ldy + c];
-      for (int k = 0; k < i; ++k) v -= L[i * ldl + k] * Y[k * ldy + c];
-      Y[i * ldy + c] = v / L[i * ldl + i];
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      float v = Y[i * ldy + c];
-      for (int k = i + 1; k < n; ++k) v -= L[k * ldl + i] * Y[k * ldy + c];
-      Y[i * ldy + c] = v / L[i * ldl + i];
-    }
-  }
-  __syncwarp();
-}
 
 // In place y <- (L L^T)^-1 y for one column y of length n; lanes own the
 // rows of each column update, so the chain is n steps, not n^2.
@@ -143,144 +123,6 @@ __device__ void warp_chol_solve_vec(const float* L, int ldl, float* y, int n, in
     for (int r = lane; r < i; r += 32) y[r] -= L[i * ldl + r] * xi;
     __syncwarp();
   }
-}
-
-// Shared-memory layout of one warp's forward elimination, r rhs columns
-// (the per-knot step uses one).
-struct FwdBufs {
-  float* Lm;  // P, then L_P          d x ldd
-  float* Dl;  // Delta (carry / out)  d x ldd
-  float* W;   // [X_A | X_C | x]      d x nc
-  float* Am;  // A_t                  s x d
-  float* Cm;  // C_t                  d x d
-  float* Mm;  // [S -> L_S | G | r]   s x nc
-  float* SG;  // [S^-1 G | y]         s x (d+r)
-  float* qd;  // qd (carry / out)     d x r
-  float* qv;  // terminal rhs         d x r
-};
-
-__host__ __device__ inline int fwd_warp_floats(int d, int s, int r) {
-  const int ldd = odd(d), nc = s + d + r;
-  return 2 * d * ldd + d * nc + s * d + d * d + s * nc + s * (d + r) + 2 * d * r;
-}
-
-__device__ FwdBufs fwd_bufs(float* base, int d, int s, int r) {
-  const int ldd = odd(d), nc = s + d + r;
-  FwdBufs m;
-  m.Lm = base;
-  m.Dl = m.Lm + d * ldd;
-  m.W = m.Dl + d * ldd;
-  m.Am = m.W + d * nc;
-  m.Cm = m.Am + s * d;
-  m.Mm = m.Cm + d * d;
-  m.SG = m.Mm + s * nc;
-  m.qd = m.SG + s * (d + r);
-  m.qv = m.qd + d * r;
-  return m;
-}
-
-// Forward elimination of one knot by one warp, one column (the per-knot
-// step, kernel 6).  On entry m.Lm holds P and the last column of m.W holds
-// q; At, Ct, Bt, rnut point at the knot's blocks.  It writes L_P, L_S,
-// X_A, q (and G = A X_C - B where Go is not null) to global memory, and
-// leaves Delta' = sym(G^T S^-1 G - C^T X_C) in m.Dl and qd' = G^T y - C^T x
-// in m.qd.
-__device__ void fwd_knot(const FwdBufs& m, const float* __restrict__ At,
-                         const float* __restrict__ Ct, const float* __restrict__ Bt,
-                         const float* __restrict__ rnut, int d, int s, float delta_c, int lane,
-                         float* __restrict__ LPo, float* __restrict__ LSo,
-                         float* __restrict__ XAo, float* __restrict__ Go,
-                         float* __restrict__ qo) {
-  constexpr int r = 1;
-  const int ldd = odd(d), nc = s + d + r, sd = s + d;
-  for (int idx = lane; idx < d * d; idx += 32) m.Cm[idx] = Ct[idx];
-  for (int idx = lane; idx < s * d; idx += 32) m.Am[idx] = At[idx];
-  for (int idx = lane; idx < d * sd; idx += 32) {
-    const int i = idx / sd, c = idx % sd;
-    m.W[i * nc + c] = c < s ? At[c * d + i] : Ct[i * d + (c - s)];
-  }
-  for (int idx = lane; idx < d * r; idx += 32) qo[idx] = m.W[(idx / r) * nc + sd + idx % r];
-  __syncwarp();
-  warp_chol(m.Lm, d, ldd, lane);
-  warp_chol_solve(m.Lm, ldd, m.W, d, nc, nc, lane);
-  for (int c = lane; c < nc; c += 32) {
-    for (int i = 0; i < s; ++i) {
-      float v = 0.f;
-      for (int k = 0; k < d; ++k) v += m.Am[i * d + k] * m.W[k * nc + c];
-      if (c < s) {
-        if (c == i) v += delta_c;
-      } else if (c < sd) {
-        v -= Bt[i * d + (c - s)];
-      } else {
-        v -= rnut[i * r + (c - sd)];
-      }
-      m.Mm[i * nc + c] = v;
-      if (c >= s) m.SG[i * (d + r) + (c - s)] = v;
-    }
-  }
-  __syncwarp();
-  warp_chol(m.Mm, s, nc, lane);
-  warp_chol_solve(m.Mm, nc, m.SG, s, d + r, d + r, lane);
-  // Delta' (unsymmetrized, into Dl) and qd' (columns j >= d)
-  for (int j = lane; j < d + r; j += 32) {
-    for (int i = 0; i < d; ++i) {
-      float a = 0.f, c = 0.f;
-      for (int k = 0; k < s; ++k) a += m.Mm[k * nc + s + i] * m.SG[k * (d + r) + j];
-      for (int k = 0; k < d; ++k) c += m.Cm[k * d + i] * m.W[k * nc + s + j];
-      if (j < d) {
-        m.Dl[i * ldd + j] = a - c;
-      } else {
-        m.qd[i * r + (j - d)] = a - c;
-      }
-    }
-  }
-  __syncwarp();
-  for (int idx = lane; idx < d * d; idx += 32) {
-    const int i = idx / d, j = idx % d;
-    if (j >= i) {
-      const float v = 0.5f * (m.Dl[i * ldd + j] + m.Dl[j * ldd + i]);
-      m.Dl[i * ldd + j] = v;
-      m.Dl[j * ldd + i] = v;
-    }
-  }
-  for (int idx = lane; idx < d * d; idx += 32) LPo[idx] = m.Lm[(idx / d) * ldd + idx % d];
-  for (int idx = lane; idx < s * s; idx += 32) LSo[idx] = m.Mm[(idx / s) * nc + idx % s];
-  for (int idx = lane; idx < d * s; idx += 32) XAo[idx] = m.W[(idx / s) * nc + idx % s];
-  if (Go)  // G = A X_C - B, still in Mm's columns s..s+d-1
-    for (int idx = lane; idx < s * d; idx += 32) Go[idx] = m.Mm[(idx / d) * nc + s + idx % d];
-  __syncwarp();
-}
-
-// One knot of the lanes_scan forward elimination (kernel 6), one column,
-// every instance: the full carry P (B,d,d) and q (B,d) in, P' = sym(H_{t+1})
-// + Delta' and q' = rz_{t+1} + qd' out, and the knot's L_P, L_S, X_A and q
-// written at knot t of LP, LS, XA, qs.
-__global__ void fwd_step(const float* __restrict__ P, const float* __restrict__ qin,
-                         const float* __restrict__ H, const float* __restrict__ C,
-                         const float* __restrict__ A, const float* __restrict__ Bm,
-                         const float* __restrict__ rz, const float* __restrict__ rnu, int Bn,
-                         int T, int d, int s, int t, float delta_c, float* __restrict__ Pn,
-                         float* __restrict__ qn, float* __restrict__ LP, float* __restrict__ LS,
-                         float* __restrict__ XA, float* __restrict__ qs) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
-  if (b >= Bn) return;
-  const int ldd = odd(d), nc = s + d + 1;
-  const FwdBufs m = fwd_bufs(smem + warp * fwd_warp_floats(d, s, 1), d, s, 1);
-  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
-  const long kt = b * (T - 1) + t;
-  for (int idx = lane; idx < d * d; idx += 32) m.Lm[(idx / d) * ldd + idx % d] = P[b * dd + idx];
-  for (int i = lane; i < d; i += 32) m.W[i * nc + s + d] = qin[b * d + i];
-  __syncwarp();
-  fwd_knot(m, A + kt * sd, C + kt * dd, Bm + kt * sd, rnu + kt * s, d, s, delta_c, lane,
-           LP + kt * dd, LS + kt * ss, XA + kt * sd, nullptr, qs + kt * d);
-  const float* Hn = H + (b * T + t + 1) * dd;
-  for (int idx = lane; idx < d * d; idx += 32) {
-    const int i = idx / d, j = idx % d;
-    Pn[b * dd + idx] = 0.5f * (Hn[i * d + j] + Hn[j * d + i]) + m.Dl[i * ldd + j];
-  }
-  for (int i = lane; i < d; i += 32) qn[b * d + i] = rz[(b * T + t + 1) * d + i] + m.qd[i];
 }
 
 __host__ __device__ inline int bwd_warp_floats(int d, int s, int r) {
@@ -353,58 +195,6 @@ __global__ void bwd_step(const float* __restrict__ LP, const float* __restrict__
   bwd_knot(Lp, Ls, dzn, xv, yv, LP + kt * dd, LS + kt * ss, XA + kt * sd, q + kt * d,
            C + kt * dd, A + kt * sd, Bm + kt * sd, rnu + kt * s, d, s, lane,
            dz + (b * T + t) * d, nu + kt * s);
-}
-
-// rhs-only forward sweep (kernel 4): one warp per instance, carry qd.
-__global__ void rhs_fwd_sweep(const float* __restrict__ LP, const float* __restrict__ LS,
-                              const float* __restrict__ Gk, const float* __restrict__ C,
-                              const float* __restrict__ A, const float* __restrict__ rz,
-                              const float* __restrict__ rnu, const float* __restrict__ LPf,
-                              int Bn, int T, int d, int s, float* __restrict__ q,
-                              float* __restrict__ dz) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
-  if (b >= Bn) return;
-  float* Lp = smem + warp * bwd_warp_floats(d, s, 1);  // L_P, then L_Pf   d x d
-  float* Ls = Lp + d * d;              // L_S              s x s
-  float* qd = Ls + s * s;              // carry qd
-  float* xv = qd + d;                  // x
-  float* yv = xv + d;                  // y
-  const long dd = (long)d * d, sd = (long)s * d;
-  for (int i = lane; i < d; i += 32) qd[i] = 0.f;
-  __syncwarp();
-  for (int t = 0; t < T - 1; ++t) {
-    const long kt = b * (T - 1) + t;
-    for (int idx = lane; idx < d * d; idx += 32) Lp[idx] = LP[kt * dd + idx];
-    for (int idx = lane; idx < s * s; idx += 32) Ls[idx] = LS[kt * s * s + idx];
-    for (int i = lane; i < d; i += 32) {
-      const float v = rz[(b * T + t) * d + i] + qd[i];
-      q[kt * d + i] = v;
-      xv[i] = v;
-    }
-    __syncwarp();
-    warp_chol_solve_vec(Lp, d, xv, d, lane);
-    for (int k = lane; k < s; k += 32) {
-      float v = -rnu[kt * s + k];
-      for (int j = 0; j < d; ++j) v += A[kt * sd + k * d + j] * xv[j];
-      yv[k] = v;
-    }
-    __syncwarp();
-    warp_chol_solve_vec(Ls, s, yv, s, lane);
-    for (int i = lane; i < d; i += 32) {
-      float a = 0.f, c = 0.f;
-      for (int k = 0; k < s; ++k) a += Gk[kt * sd + k * d + i] * yv[k];
-      for (int k = 0; k < d; ++k) c += C[kt * dd + k * d + i] * xv[k];
-      qd[i] = a - c;
-    }
-    __syncwarp();
-  }
-  for (int idx = lane; idx < d * d; idx += 32) Lp[idx] = LPf[b * dd + idx];
-  for (int i = lane; i < d; i += 32) xv[i] = rz[(b * T + T - 1) * d + i] + qd[i];
-  __syncwarp();
-  warp_chol_solve_vec(Lp, d, xv, d, lane);
-  for (int i = lane; i < d; i += 32) dz[(b * T + T - 1) * d + i] = xv[i];
 }
 
 // ---- Kernels 2 and 3: a group of G warps per instance ------------------ //
@@ -791,7 +581,8 @@ __host__ __device__ inline int fwd_stage_floats(int d, int s, int r) {
   return 2 * d * d + 2 * s * d + (d + s) * r;
 }
 
-// Shared memory of one instance of the forward sweep, floats.
+// Shared memory of one instance of the forward sweep (kernels 2 and 6),
+// floats.
 __host__ __device__ inline int fwd_group_floats(int d, int s, int r, int pw) {
   const int ldd = odd(d), nc = s + d + r;
   return 2 * d * ldd + d * nc + s * odd(nc) + s * (d + r) + 2 * d * r + d + s + 2 * pw +
@@ -817,18 +608,38 @@ __device__ void fwd_prefetch(float* st, const float* __restrict__ H, const float
   cp_async_commit();
 }
 
-// Kernel 2: the forward elimination and the terminal block, a group of G
-// warps per instance, several groups per block, each on its own named
-// barrier (1 + its index).  Knot t+1's blocks are copied into the second
-// stage while knot t computes.
-template <int R, int G, int MR_, int MC_>
+// Kernel 6's own buffers: the carry P (B,d,d), q (B,d) in, Pn, qn out, and
+// its knot t.  Kernel 2 passes none.
+struct StepIO {
+  const float* P;
+  const float* q;
+  float* Pn;
+  float* qn;
+  int t;
+};
+
+// Kernel 2 (STEP = false): the forward elimination and the terminal block,
+// a group of G warps per instance, several groups per block, each on its
+// own named barrier (1 + its index).  Knot t+1's blocks are copied into the
+// second stage while knot t computes.
+// Kernel 6 (STEP = true, one column): the same kernel for the one knot
+// step.t of the lanes_scan elimination, so both run one knot body.  The
+// carry P and q are staged where H_t and rz_t go, with Delta and qd zero,
+// so the body's P = H_t + Delta and q = rz_t + qd read them unchanged; H and
+// rz of knot t+1 go to the second stage, and it writes P' = sym(H_{t+1}) +
+// Delta' and q' = rz_{t+1} + qd' to Pn and qn where kernel 2 runs its
+// terminal block.  (The body as a __device__ function that two kernels
+// call compiled kernel 2 differently at d=15, where it runs at the
+// 128-register cap of 512-thread blocks, and made it up to 9% slower.)
+template <int R, int G, int MR_, int MC_, bool STEP>
 __global__ void __launch_bounds__(max_block_threads(G), 1)
     fwd_sweep_group(const float* __restrict__ H, const float* __restrict__ C,
                     const float* __restrict__ A, const float* __restrict__ Bm,
                     const float* __restrict__ rz, const float* __restrict__ rnu, int Bn, int T,
                     int d, int s, int r_arg, float delta_c, float* __restrict__ LP,
                     float* __restrict__ LS, float* __restrict__ XA, float* __restrict__ q,
-                    float* __restrict__ dz, float* __restrict__ Gk, float* __restrict__ LPf) {
+                    float* __restrict__ dz, float* __restrict__ Gk, float* __restrict__ LPf,
+                    StepIO step) {
   extern __shared__ float smem[];
   using Cf = Grp<G, MR_, MC_>;
   constexpr int NT = Cf::NT, TR = Cf::TR, MR = Cf::MR, MC = Cf::MC;
@@ -854,15 +665,33 @@ __global__ void __launch_bounds__(max_block_threads(G), 1)
 
   for (int idx = tid; idx < d * d; idx += NT) Dl[(idx / d) * ldd + idx % d] = 0.f;
   for (int i = tid; i < d * r; i += NT) qd[i] = 0.f;
-  fwd_prefetch<NT>(stage0, H, C, A, Bm, rz, rnu, b, T, 0, d, s, r, tid);
 
   const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s, dr = (long)d * r;
-  for (int t = 0; t < T - 1; ++t) {
+  int t_first = 0, t_end = T - 1;  // the knots this launch eliminates
+  if constexpr (STEP) {
+    t_first = step.t;
+    t_end = step.t + 1;
+    const long kt = b * (T - 1) + step.t;
+    copy_async<NT>(stage0, step.P + b * dd, d * d, tid);
+    copy_async<NT>(stage0 + dd, C + kt * dd, d * d, tid);
+    copy_async<NT>(stage0 + 2 * dd, A + kt * sd, s * d, tid);
+    copy_async<NT>(stage0 + 2 * dd + sd, Bm + kt * sd, s * d, tid);
+    copy_async<NT>(stage0 + 2 * dd + 2 * sd, step.q + b * d, d, tid);
+    copy_async<NT>(stage0 + 2 * dd + 2 * sd + d, rnu + kt * s, s, tid);
+    copy_async<NT>(stage0 + stf, H + (b * T + step.t + 1) * dd, d * d, tid);
+    copy_async<NT>(stage0 + stf + 2 * dd + 2 * sd, rz + (b * T + step.t + 1) * d, d, tid);
+    cp_async_commit();
+  } else {
+    fwd_prefetch<NT>(stage0, H, C, A, Bm, rz, rnu, b, T, 0, d, s, r, tid);
+  }
+
+  for (int t = t_first; t < t_end; ++t) {
     cp_async_wait_all();
     group_sync(bar, NT);
-    fwd_prefetch<NT>(stage0 + ((t + 1) & 1) * stf, H, C, A, Bm, rz, rnu, b, T, t + 1, d, s, r,
-                     tid);
-    const float* Hs = stage0 + (t & 1) * stf;
+    if constexpr (!STEP)
+      fwd_prefetch<NT>(stage0 + ((t + 1) & 1) * stf, H, C, A, Bm, rz, rnu, b, T, t + 1, d, s, r,
+                       tid);
+    const float* Hs = STEP ? stage0 : stage0 + (t & 1) * stf;
     const float* Cs = Hs + dd;
     const float* As = Cs + dd;
     const float* Bs = As + sd;
@@ -951,22 +780,34 @@ __global__ void __launch_bounds__(max_block_threads(G), 1)
       for (int idx = tid; idx < s * d; idx += NT)
         Gk[kt * sd + idx] = Mm[(idx / d) * ldm + s + idx % d];
   }
-  // terminal block: P_f = sym(H_{T-1} + Delta), dz_{T-1} = P_f^-1 (rz_{T-1} + qd)
-  cp_async_wait_all();
-  group_sync(bar, NT);
-  const float* Hf = stage0 + ((T - 1) & 1) * stf;
-  const float* rzf = Hf + 2 * dd + 2 * sd;
-  for (int idx = tid; idx < d * d; idx += NT) {
-    const int i = idx / d, j = idx % d;
-    Lm[i * ldd + j] =
-        0.5f * ((Hf[i * d + j] + Dl[i * ldd + j]) + (Hf[j * d + i] + Dl[j * ldd + i]));
+  if constexpr (STEP) {
+    // P' = sym(H_{t+1}) + Delta',  q' = rz_{t+1} + qd'
+    group_sync(bar, NT);
+    const float* Hn = stage0 + stf;
+    const float* rzn = Hn + 2 * dd + 2 * sd;
+    for (int idx = tid; idx < d * d; idx += NT) {
+      const int i = idx / d, j = idx % d;
+      step.Pn[b * dd + idx] = 0.5f * (Hn[i * d + j] + Hn[j * d + i]) + Dl[i * ldd + j];
+    }
+    for (int i = tid; i < d; i += NT) step.qn[b * d + i] = rzn[i] + qd[i];
+  } else {
+    // terminal block: P_f = sym(H_{T-1} + Delta), dz_{T-1} = P_f^-1 (rz_{T-1} + qd)
+    cp_async_wait_all();
+    group_sync(bar, NT);
+    const float* Hf = stage0 + ((T - 1) & 1) * stf;
+    const float* rzf = Hf + 2 * dd + 2 * sd;
+    for (int idx = tid; idx < d * d; idx += NT) {
+      const int i = idx / d, j = idx % d;
+      Lm[i * ldd + j] =
+          0.5f * ((Hf[i * d + j] + Dl[i * ldd + j]) + (Hf[j * d + i] + Dl[j * ldd + i]));
+    }
+    for (int i = tid; i < d * r; i += NT) qv[i] = rzf[i] + qd[i];
+    group_sync(bar, NT);
+    group_chol_solve<Cf>(Lm, ldd, qv, r, d, r, invP, prow, tid, bar);
+    if (LPf)
+      for (int idx = tid; idx < d * d; idx += NT) LPf[b * dd + idx] = Lm[(idx / d) * ldd + idx % d];
+    for (int i = tid; i < d * r; i += NT) dz[(b * T + T - 1) * dr + i] = qv[i];
   }
-  for (int i = tid; i < d * r; i += NT) qv[i] = rzf[i] + qd[i];
-  group_sync(bar, NT);
-  group_chol_solve<Cf>(Lm, ldd, qv, r, d, r, invP, prow, tid, bar);
-  if (LPf)
-    for (int idx = tid; idx < d * d; idx += NT) LPf[b * dd + idx] = Lm[(idx / d) * ldd + idx % d];
-  for (int i = tid; i < d * r; i += NT) dz[(b * T + T - 1) * dr + i] = qv[i];
 }
 
 // One prefetch stage of the backward sweep: knot t's L_P, L_S, X_A, q, C,
@@ -1141,6 +982,141 @@ __global__ void __launch_bounds__(max_block_threads(G), 1)
   }
 }
 
+// One prefetch stage of the rhs-only forward sweep: knot t's L_P, L_S, G,
+// C, A, rz, rnu at these offsets (the terminal stage: L_Pf in L_P's place,
+// and rz_{T-1}).
+__host__ __device__ inline int rhs_stage_floats(int d, int s) {
+  return 2 * d * d + s * s + 2 * s * d + d + s;
+}
+
+// Shared memory of one instance of the rhs-only forward sweep, floats:
+// qd, x, C^T x, 1 / diag L_P (d each), y, 1 / diag L_S (s each), two stages.
+__host__ __device__ inline int rhs_group_floats(int d, int s) {
+  return 4 * d + 2 * s + 2 * rhs_stage_floats(d, s);
+}
+
+// Warps per instance of kernel 4, as kernel 3 picks them for one column.
+__host__ __device__ inline int rhs_group_warps(int d, int s) { return d > 32 || s > 32 ? 8 : 4; }
+
+// Starts the copies of knot t (t = T-1: L_Pf and rz_{T-1}) into stage st.
+template <int NT>
+__device__ void rhs_prefetch(float* st, const float* __restrict__ LP, const float* __restrict__ LS,
+                             const float* __restrict__ Gk, const float* __restrict__ C,
+                             const float* __restrict__ A, const float* __restrict__ rz,
+                             const float* __restrict__ rnu, const float* __restrict__ LPf, long b,
+                             int T, int t, int d, int s, int tid) {
+  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
+  if (t < T - 1) {
+    const long kt = b * (T - 1) + t;
+    copy_async<NT>(st, LP + kt * dd, d * d, tid);
+    copy_async<NT>(st + dd, LS + kt * ss, s * s, tid);
+    copy_async<NT>(st + dd + ss, Gk + kt * sd, s * d, tid);
+    copy_async<NT>(st + dd + ss + sd, C + kt * dd, d * d, tid);
+    copy_async<NT>(st + 2 * dd + ss + sd, A + kt * sd, s * d, tid);
+    copy_async<NT>(st + 2 * dd + ss + 2 * sd + d, rnu + kt * s, s, tid);
+  } else {
+    copy_async<NT>(st, LPf + b * dd, d * d, tid);
+  }
+  copy_async<NT>(st + 2 * dd + ss + 2 * sd, rz + (b * T + t) * d, d, tid);
+  cp_async_commit();
+}
+
+// Kernel 4: the rhs-only forward sweep against kept factors, one column, a
+// group of G warps per instance on its own named barrier; knot t+1's blocks
+// (last, L_Pf and rz_{T-1}) are copied into the second stage while knot t
+// computes.  A knot, with the carry qd in shared memory:
+//   warp 0: q = rz_t + qd (written out), x = L_P^-T L_P^-1 q;  the others: 1 / diag L_S
+//   group:  y = A x - rnu_t, kParts lanes per row
+//   warp 0: y = L_S^-T L_S^-1 y;                             the others: C^T x
+//   group:  qd' = G^T y - C^T x
+// then warp 0 solves dz_{T-1} = L_Pf^-T L_Pf^-1 (rz_{T-1} + qd).
+template <int G>
+__global__ void __launch_bounds__(max_block_threads(G), 1)
+    rhs_fwd_sweep_group(const float* __restrict__ LP, const float* __restrict__ LS,
+                        const float* __restrict__ Gk, const float* __restrict__ C,
+                        const float* __restrict__ A, const float* __restrict__ rz,
+                        const float* __restrict__ rnu, const float* __restrict__ LPf, int Bn,
+                        int T, int d, int s, float* __restrict__ q, float* __restrict__ dz) {
+  extern __shared__ float smem[];
+  constexpr int NT = 32 * G, NR = NT - 32;  // NR: the threads beside warp 0
+  const int grp = threadIdx.x / NT, tid = threadIdx.x % NT, bar = 1 + grp;
+  const long b = (long)blockIdx.x * (blockDim.x / NT) + grp;
+  if (b >= Bn) return;  // no other group waits on this group's barrier
+  const int lane = tid % 32, part = tid % kParts;
+  float* qd = smem + grp * rhs_group_floats(d, s);  // qd carry
+  float* xv = qd + d;                               // q, then x
+  float* cx = xv + d;                               // C^T x
+  float* invP = cx + d;                             // 1 / diag L_P (L_Pf)
+  float* yv = invP + d;                             // A x - rnu_t, then y
+  float* invS = yv + s;                             // 1 / diag L_S
+  float* stage0 = invS + s;
+  const int stf = rhs_stage_floats(d, s);
+  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
+
+  for (int i = tid; i < d; i += NT) qd[i] = 0.f;
+  rhs_prefetch<NT>(stage0, LP, LS, Gk, C, A, rz, rnu, LPf, b, T, 0, d, s, tid);
+  for (int t = 0; t < T - 1; ++t) {
+    cp_async_wait_all();
+    group_sync(bar, NT);
+    rhs_prefetch<NT>(stage0 + ((t + 1) & 1) * stf, LP, LS, Gk, C, A, rz, rnu, LPf, b, T, t + 1,
+                     d, s, tid);
+    const float* Lp = stage0 + (t & 1) * stf;
+    const float* Ls = Lp + dd;
+    const float* Gs = Ls + ss;
+    const float* Cs = Gs + sd;
+    const float* As = Cs + dd;
+    const float* rzs = As + sd;
+    const float* rnus = rzs + d;
+    const long kt = b * (T - 1) + t;
+    if (tid < 32) {
+      for (int i = lane; i < d; i += 32) {
+        invP[i] = 1.f / Lp[i * d + i];
+        const float v = rzs[i] + qd[i];
+        q[kt * d + i] = v;
+        xv[i] = v;
+      }
+      __syncwarp();
+      warp_solve_vec(Lp, d, invP, xv, d, lane, xv);
+    } else {
+      for (int i = tid - 32; i < s; i += NR) invS[i] = 1.f / Ls[i * s + i];
+    }
+    group_sync(bar, NT);
+    for (int o0 = 0; o0 < s; o0 += NT / kParts) {
+      const int o = o0 + tid / kParts;
+      const float v = part_dot(As, d, o < s ? o : 0, xv, d, part);
+      if (o < s && part == 0) yv[o] = v - rnus[o];
+    }
+    group_sync(bar, NT);
+    if (tid < 32) {
+      warp_solve_vec(Ls, s, invS, yv, s, lane, yv);
+    } else {  // column products: neighbouring threads on neighbouring columns
+      for (int i = tid - 32; i < d; i += NR) {
+        float v = 0.f;
+        for (int k = 0; k < d; ++k) v += Cs[k * d + i] * xv[k];
+        cx[i] = v;
+      }
+    }
+    group_sync(bar, NT);
+    for (int i = tid; i < d; i += NT) {
+      float v = 0.f;
+      for (int k = 0; k < s; ++k) v += Gs[k * d + i] * yv[k];
+      qd[i] = v - cx[i];
+    }
+  }
+  cp_async_wait_all();
+  group_sync(bar, NT);
+  if (tid < 32) {
+    const float* Lf = stage0 + ((T - 1) & 1) * stf;
+    const float* rzf = Lf + 2 * dd + ss + 2 * sd;
+    for (int i = lane; i < d; i += 32) {
+      invP[i] = 1.f / Lf[i * d + i];
+      xv[i] = rzf[i] + qd[i];
+    }
+    __syncwarp();
+    warp_solve_vec(Lf, d, invP, xv, d, lane, dz + (b * T + T - 1) * d);
+  }
+}
+
 // The device's opt-in shared memory per block and SM count, read once per
 // device: the launchers run several times per solver iteration.
 struct DevInfo {
@@ -1205,7 +1181,7 @@ int launch(Kernel kernel, int warp_floats, int Bn, int* opted, void* stream, Arg
   return (int)cudaGetLastError();
 }
 
-// Instances per block for kernels 2 and 3 (a group of nt threads and
+// Instances per block for the group kernels 2, 3, 4, 6 (a group of nt threads and
 // `group_bytes` of shared memory each): as many as fit the block's shared
 // memory, at most max_block_threads and 15 groups (named barriers 1..15), and no
 // more than it takes to give every SM one group first.  Returns 0 when
@@ -1237,35 +1213,81 @@ int launch_group(Kernel kernel, int group_floats, int nt, int Bn, int* opted, vo
   return (int)cudaGetLastError();
 }
 
-// The instantiation for tile configuration `cfg` (an index into kFwdCfg or
-// kBwdCfg) and column count r (R = 1 for one column, R = 0 for r read at
-// run time); opted[cfg][R] as in opt_in.
+// What a group kernel launches with for these shapes: its instantiation
+// (an index into kFwdCfg or kBwdCfg; for kernel 4, 0 for 4 warps and 1 for
+// 8), threads per instance and shared floats per instance; cfg = -1 where
+// the launcher refuses the shapes.  The launchers and qct_kkt_sweep_config
+// both read it.
+struct GroupShape {
+  int cfg, nt, floats;
+};
+
+GroupShape fwd_shape(int d, int s, int r) {  // kernel 2
+  const int i = pick_cfg(kFwdCfg, d > s ? d : s, s + d + r);
+  if (i < 0) return {-1, 0, 0};
+  const TileCfg c = kFwdCfg[i];
+  return {i, 32 * c.G, fwd_group_floats(d, s, r, pub_floats(c.G, c.MR, c.MC))};
+}
+
+GroupShape bwd_shape(int d, int s, int r) {  // kernel 3
+  const int i = pick_cfg(kBwdCfg, d > s ? d : s, r);
+  if (i < 0) return {-1, 0, 0};
+  const TileCfg c = kBwdCfg[i];
+  return {i, 32 * c.G, bwd_group_floats(d, s, r, pub_floats(c.G, c.MR, c.MC))};
+}
+
+GroupShape rhs_shape(int d, int s) {  // kernel 4
+  if (d > 64 || s > 64) return {-1, 0, 0};
+  const int g = rhs_group_warps(d, s);
+  return {g == 4 ? 0 : 1, 32 * g, rhs_group_floats(d, s)};
+}
+
+GroupShape step_shape(int d, int s) {  // kernel 6
+  const int i = pick_cfg(kFwdCfg, d > s ? d : s, s + d + 1);
+  if (i < 0) return {-1, 0, 0};
+  const TileCfg c = kFwdCfg[i];
+  return {i, 32 * c.G, fwd_group_floats(d, s, 1, pub_floats(c.G, c.MR, c.MC))};
+}
+
+// The instantiation C = g.cfg of a sweep, for column count r (R = 1 for one
+// column, R = 0 for r read at run time); opted[C][R] as in opt_in.
 template <int C>
-int launch_fwd(int r, int (*opted)[2][16], void* stream, const float* H, const float* Cb,
-               const float* A, const float* Bm, const float* rz, const float* rnu, int Bn, int T,
-               int d, int s, float delta_c, float* LP, float* LS, float* XA, float* q, float* dz,
-               float* G, float* LPf) {
+int launch_fwd(GroupShape g, int r, int (*opted)[2][16], void* stream, const float* H,
+               const float* Cb, const float* A, const float* Bm, const float* rz, const float* rnu,
+               int Bn, int T, int d, int s, float delta_c, float* LP, float* LS, float* XA,
+               float* q, float* dz, float* G, float* LPf) {
   constexpr TileCfg c = kFwdCfg[C];
-  const int gf = fwd_group_floats(d, s, r, pub_floats(c.G, c.MR, c.MC));
   if (r == 1)
-    return launch_group(fwd_sweep_group<1, c.G, c.MR, c.MC>, gf, 32 * c.G, Bn, opted[C][1],
-                        stream, H, Cb, A, Bm, rz, rnu, Bn, T, d, s, r, delta_c, LP, LS, XA, q, dz,
-                        G, LPf);
-  return launch_group(fwd_sweep_group<0, c.G, c.MR, c.MC>, gf, 32 * c.G, Bn, opted[C][0], stream,
-                      H, Cb, A, Bm, rz, rnu, Bn, T, d, s, r, delta_c, LP, LS, XA, q, dz, G, LPf);
+    return launch_group(fwd_sweep_group<1, c.G, c.MR, c.MC, false>, g.floats, g.nt, Bn,
+                        opted[C][1], stream, H, Cb, A, Bm, rz, rnu, Bn, T, d, s, r, delta_c, LP,
+                        LS, XA, q, dz, G, LPf, StepIO{});
+  return launch_group(fwd_sweep_group<0, c.G, c.MR, c.MC, false>, g.floats, g.nt, Bn, opted[C][0],
+                      stream, H, Cb, A, Bm, rz, rnu, Bn, T, d, s, r, delta_c, LP, LS, XA, q, dz, G,
+                      LPf, StepIO{});
 }
 
 template <int C>
-int launch_bwd(int r, int (*opted)[2][16], void* stream, const float* LP, const float* LS,
-               const float* XA, const float* q, const float* Cb, const float* A, const float* Bm,
-               const float* rnu, int Bn, int T, int d, int s, float* dz, float* nu) {
+int launch_bwd(GroupShape g, int r, int (*opted)[2][16], void* stream, const float* LP,
+               const float* LS, const float* XA, const float* q, const float* Cb, const float* A,
+               const float* Bm, const float* rnu, int Bn, int T, int d, int s, float* dz,
+               float* nu) {
   constexpr TileCfg c = kBwdCfg[C];
-  const int gf = bwd_group_floats(d, s, r, pub_floats(c.G, c.MR, c.MC));
   if (r == 1)
-    return launch_group(bwd_sweep_group<1, c.G, c.MR, c.MC>, gf, 32 * c.G, Bn, opted[C][1],
+    return launch_group(bwd_sweep_group<1, c.G, c.MR, c.MC>, g.floats, g.nt, Bn, opted[C][1],
                         stream, LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, r, dz, nu);
-  return launch_group(bwd_sweep_group<0, c.G, c.MR, c.MC>, gf, 32 * c.G, Bn, opted[C][0], stream,
-                      LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, r, dz, nu);
+  return launch_group(bwd_sweep_group<0, c.G, c.MR, c.MC>, g.floats, g.nt, Bn, opted[C][0],
+                      stream, LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, r, dz, nu);
+}
+
+template <int C>
+int launch_step(GroupShape g, int (*opted)[16], void* stream, const float* P, const float* qin,
+                const float* H, const float* Cb, const float* A, const float* Bm, const float* rz,
+                const float* rnu, int Bn, int T, int d, int s, int t, float delta_c, float* Pn,
+                float* qn, float* LP, float* LS, float* XA, float* qs) {
+  constexpr TileCfg c = kFwdCfg[C];
+  return launch_group(fwd_sweep_group<1, c.G, c.MR, c.MC, true>, g.floats, g.nt, Bn, opted[C],
+                      stream, H, Cb, A, Bm, rz, rnu, Bn, T, d, s, 1, delta_c, LP, LS, XA, qs,
+                      nullptr, nullptr, nullptr, StepIO{P, qin, Pn, qn, t});
 }
 
 }  // namespace
@@ -1283,18 +1305,19 @@ extern "C" int qct_kkt_fwd_sweep(const float* H, const float* C, const float* A,
                                  int r, float delta_c, float* LP, float* LS, float* XA, float* q,
                                  float* dz, float* G, float* LPf, void* stream) {
   static int opted[4][2][16] = {};
-  switch (pick_cfg(kFwdCfg, d > s ? d : s, s + d + r)) {
+  const GroupShape g = fwd_shape(d, s, r);
+  switch (g.cfg) {
     case 0:
-      return launch_fwd<0>(r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
+      return launch_fwd<0>(g, r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
                            XA, q, dz, G, LPf);
     case 1:
-      return launch_fwd<1>(r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
+      return launch_fwd<1>(g, r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
                            XA, q, dz, G, LPf);
     case 2:
-      return launch_fwd<2>(r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
+      return launch_fwd<2>(g, r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
                            XA, q, dz, G, LPf);
     case 3:
-      return launch_fwd<3>(r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
+      return launch_fwd<3>(g, r, opted, stream, H, C, A, Bm, rz, rnu, Bn, T, d, s, delta_c, LP, LS,
                            XA, q, dz, G, LPf);
   }
   return (int)cudaErrorInvalidConfiguration;
@@ -1305,34 +1328,33 @@ extern "C" int qct_kkt_bwd_sweep(const float* LP, const float* LS, const float* 
                                  const float* rnu, int Bn, int T, int d, int s, int r, float* dz,
                                  float* nu, void* stream) {
   static int opted[4][2][16] = {};
-  switch (pick_cfg(kBwdCfg, d > s ? d : s, r)) {
+  const GroupShape g = bwd_shape(d, s, r);
+  switch (g.cfg) {
     case 0:
-      return launch_bwd<0>(r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
+      return launch_bwd<0>(g, r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
     case 1:
-      return launch_bwd<1>(r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
+      return launch_bwd<1>(g, r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
     case 2:
-      return launch_bwd<2>(r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
+      return launch_bwd<2>(g, r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
     case 3:
-      return launch_bwd<3>(r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
+      return launch_bwd<3>(g, r, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, dz, nu);
   }
   return (int)cudaErrorInvalidConfiguration;
 }
 
-// The launch configuration of kernel 2 (which = 0) or 3 (which = 1) for
-// these shapes: out = {threads per instance, instances per block, shared
-// bytes per block}.  Returns 0, or cudaErrorInvalidConfiguration where the
-// launch would be refused.
+// The launch configuration of kernel 2 (which = 0), 3 (1), 4 (2) or 6 (3)
+// for these shapes (r columns; kernels 4 and 6 take one): out = {threads
+// per instance, instances per block, shared bytes per block}.  Returns 0,
+// or cudaErrorInvalidConfiguration where the launch would be refused.
 extern "C" int qct_kkt_sweep_config(int which, int Bn, int d, int s, int r, int* out) {
-  const int rows = d > s ? d : s;
-  const int i = which == 0 ? pick_cfg(kFwdCfg, rows, s + d + r) : pick_cfg(kBwdCfg, rows, r);
-  if (i < 0) return (int)cudaErrorInvalidConfiguration;
-  const TileCfg c = which == 0 ? kFwdCfg[i] : kBwdCfg[i];
-  const int pw = pub_floats(c.G, c.MR, c.MC);
-  const int gf = which == 0 ? fwd_group_floats(d, s, r, pw) : bwd_group_floats(d, s, r, pw);
+  const GroupShape g = which == 0   ? fwd_shape(d, s, r)
+                       : which == 1 ? bwd_shape(d, s, r)
+                       : which == 2 ? rhs_shape(d, s)
+                                    : step_shape(d, s);
   int smem = 0;
-  const int ipb = group_config(gf * (int)sizeof(float), 32 * c.G, Bn, &smem);
+  const int ipb = g.cfg < 0 ? 0 : group_config(g.floats * (int)sizeof(float), g.nt, Bn, &smem);
   if (ipb == 0) return (int)cudaErrorInvalidConfiguration;
-  out[0] = 32 * c.G;
+  out[0] = g.nt;
   out[1] = ipb;
   out[2] = smem;
   return 0;
@@ -1340,28 +1362,49 @@ extern "C" int qct_kkt_sweep_config(int which, int Bn, int d, int s, int r, int*
 
 // Kept factors LP, LS, G (B,T-1,s,d), LPf (B,d,d) with C and A; a new
 // single-column rhs rz, rnu.  Writes q (B,T-1,d) and dz[:, T-1] for the
-// backward sweep.
+// backward sweep.  cudaErrorInvalidConfiguration: d or s > 64, or an
+// instance's two stages exceed the shared memory of a block.
 extern "C" int qct_kkt_rhs_fwd_sweep(const float* LP, const float* LS, const float* G,
                                      const float* C, const float* A, const float* rz,
                                      const float* rnu, const float* LPf, int Bn, int T, int d,
                                      int s, float* q, float* dz, void* stream) {
-  static int opted[16] = {0};
-  return launch(rhs_fwd_sweep, bwd_warp_floats(d, s, 1), Bn, opted, stream, LP, LS, G, C, A, rz,
-                rnu, LPf, Bn, T, d, s, q, dz);
+  static int opted[2][16] = {};
+  const GroupShape g = rhs_shape(d, s);
+  if (g.cfg < 0) return (int)cudaErrorInvalidConfiguration;
+  if (g.cfg == 0)
+    return launch_group(rhs_fwd_sweep_group<4>, g.floats, g.nt, Bn, opted[0], stream, LP, LS, G, C,
+                        A, rz, rnu, LPf, Bn, T, d, s, q, dz);
+  return launch_group(rhs_fwd_sweep_group<8>, g.floats, g.nt, Bn, opted[1], stream, LP, LS, G, C,
+                      A, rz, rnu, LPf, Bn, T, d, s, q, dz);
 }
 
 // The lanes_scan steps at knot t (0 <= t < T-1), one column, the same
 // batch-first buffers as the sweeps.  Forward: the carry P (B,d,d), q (B,d)
 // in, Pn, qn out; LP, LS, XA and qs (B,T-1,d) written at knot t.
 // Backward: dz (B,T,d) read at t+1 and written at t, nu (B,T-1,s) at t.
+// cudaErrorInvalidConfiguration where kernel 2 would refuse the shapes.
 extern "C" int qct_kkt_fwd_step(const float* P, const float* qin, const float* H, const float* C,
                                 const float* A, const float* Bm, const float* rz,
                                 const float* rnu, int Bn, int T, int d, int s, int t,
                                 float delta_c, float* Pn, float* qn, float* LP, float* LS,
                                 float* XA, float* qs, void* stream) {
-  static int opted[16] = {0};
-  return launch(fwd_step, fwd_warp_floats(d, s, 1), Bn, opted, stream, P, qin, H, C, A, Bm, rz,
-                rnu, Bn, T, d, s, t, delta_c, Pn, qn, LP, LS, XA, qs);
+  static int opted[4][16] = {};
+  const GroupShape g = step_shape(d, s);
+  switch (g.cfg) {
+    case 0:
+      return launch_step<0>(g, opted, stream, P, qin, H, C, A, Bm, rz, rnu, Bn, T, d, s, t, delta_c,
+                            Pn, qn, LP, LS, XA, qs);
+    case 1:
+      return launch_step<1>(g, opted, stream, P, qin, H, C, A, Bm, rz, rnu, Bn, T, d, s, t, delta_c,
+                            Pn, qn, LP, LS, XA, qs);
+    case 2:
+      return launch_step<2>(g, opted, stream, P, qin, H, C, A, Bm, rz, rnu, Bn, T, d, s, t, delta_c,
+                            Pn, qn, LP, LS, XA, qs);
+    case 3:
+      return launch_step<3>(g, opted, stream, P, qin, H, C, A, Bm, rz, rnu, Bn, T, d, s, t, delta_c,
+                            Pn, qn, LP, LS, XA, qs);
+  }
+  return (int)cudaErrorInvalidConfiguration;
 }
 
 extern "C" int qct_kkt_bwd_step(const float* LP, const float* LS, const float* XA,

@@ -23,7 +23,8 @@ import sys
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "launch_counts", "reset_launch_counts"]
+__all__ = ["SOURCES", "build_all", "library", "build_other", "launch_counts",
+           "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -104,6 +105,19 @@ def library(name) -> ctypes.CDLL:
             _finish(name, job)
         _libs[name] = ctypes.CDLL(str(_target(name)[1]))
     return _libs[name]
+
+
+def build_other(source, tag) -> ctypes.CDLL:
+    """Another kernel source with the same C interface (another commit's,
+    say), compiled with the port's flags into build/kernels/lib<tag>_other.so
+    and loaded."""
+    out = BUILD_DIR / f"lib{tag}_other.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out))
 
 
 def check(err: int, what: str):

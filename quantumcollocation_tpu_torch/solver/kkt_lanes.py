@@ -4,12 +4,11 @@ Replaces quantumcollocation_tpu/solver/kkt_lanes.py::solve_kkt_lanes,
 resolve_kkt_lanes and solve_kkt_lanes_scan and their Pallas kernels
 _fwd_sweep_kernel, _bwd_sweep_kernel, _rhs_fwd_sweep_kernel,
 _fwd_step_kernel and _bwd_step_kernel with the CUDA kernels of
-csrc/kkt_sweeps.cu (the fused sweeps: a group of warps per instance; the
-rhs-only sweep and the steps: one warp per instance).  The fused sweeps
-loop over the knots inside the kernel, with the terminal blocks folded
-into the ends of the forward sweeps; they take a right-hand side of r
-columns, rz (B, T, d, r) and rnu (B, T-1, s, r), as the L-BFGS [rz | U]
-system needs.
+csrc/kkt_sweeps.cu (a group of warps per instance; the backward step,
+one warp per instance).  The fused sweeps loop over the knots inside the
+kernel, with the terminal blocks folded into the ends of the forward
+sweeps; kernels 2 and 3 take a right-hand side of r columns, rz
+(B, T, d, r) and rnu (B, T-1, s, r), as the L-BFGS [rz | U] system needs.
 With want_factors the solve also keeps its factors (LanesFactors), and
 resolve_kkt_lanes re-solves a new single-column right-hand side against
 them with triangular work only: the rhs-only forward sweep, then the
@@ -61,6 +60,7 @@ __all__ = [
     "fwd_step_cuda",
     "bwd_step_cuda",
     "sweep_config",
+    "set_signatures",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -137,10 +137,9 @@ def bwd_step_reference(dz_next, L_P, L_S, X_A, q, C, A, B, rnu):
     return (x - X_A @ y)[..., 0], y[..., 0]
 
 
-@functools.cache
-def _lib():
-    """The kernels' library, its C signatures set once."""
-    lib = build.library("kkt_sweeps")
+def set_signatures(lib):
+    """Sets the C signatures of a kkt_sweeps.cu library (this tree's, or
+    another build of it); returns lib."""
     lib.qct_kkt_fwd_sweep.restype = _I
     lib.qct_kkt_fwd_sweep.argtypes = [_P] * 6 + [_I] * 5 + [ctypes.c_float] + [_P] * 8
     lib.qct_kkt_bwd_sweep.restype = _I
@@ -156,12 +155,25 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _lib():
+    """The kernels' library, its C signatures set once."""
+    return set_signatures(build.library("kkt_sweeps"))
+
+
+# kernel name -> `which` of qct_kkt_sweep_config
+_CONFIG_KERNELS = {"kkt_fwd_sweep": 0, "kkt_bwd_sweep": 1, "kkt_rhs_fwd_sweep": 2,
+                   "kkt_fwd_step": 3}
+
+
 def sweep_config(kernel, Bn, d, s, r=1):
-    """Launch configuration of kernel 2 ("kkt_fwd_sweep") or 3
-    ("kkt_bwd_sweep") on the current CUDA device for these shapes:
-    threads per instance, instances per block, shared bytes per block."""
+    """Launch configuration of kernel 2 ("kkt_fwd_sweep"), 3
+    ("kkt_bwd_sweep"), 4 ("kkt_rhs_fwd_sweep", one column) or 6
+    ("kkt_fwd_step", one column) on the current CUDA device for these
+    shapes: threads per instance, instances per block, shared bytes per
+    block."""
     out = (ctypes.c_int * 3)()
-    err = _lib().qct_kkt_sweep_config(int(kernel == "kkt_bwd_sweep"), Bn, d, s, r, out)
+    err = _lib().qct_kkt_sweep_config(_CONFIG_KERNELS[kernel], Bn, d, s, r, out)
     build.check(err, kernel)
     return dict(threads_per_instance=out[0], instances_per_block=out[1],
                 shared_bytes_per_block=out[2])

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import quantumcollocation_tpu_torch as qt
+from quantumcollocation_tpu_torch.bench_util import seeded_kkt
 from quantumcollocation_tpu_torch.ops import build
 from quantumcollocation_tpu_torch.ops import dyn_assembly as da
 from quantumcollocation_tpu_torch.ops import prop_bank as pb
@@ -86,7 +87,13 @@ def test_sweep_kernel_reports_a_failed_factorization(cuda, d, s, Bt):
     args = [torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in args]
     if Bt == 400:
         assert kl.sweep_config("kkt_fwd_sweep", Bt, d, s)["instances_per_block"] > 2
+        assert kl.sweep_config("kkt_fwd_step", Bt, d, s)["instances_per_block"] > 2
     dz, nu, ok = kl.solve_kkt_lanes(*args, 1e-8)
+    torch.cuda.synchronize()
+    assert ok.tolist() == [i != 2 for i in range(Bt)]
+    assert not (torch.isfinite(dz[2]).all() and torch.isfinite(nu[2]).all())
+    # the same through the forward steps (kernel 6) of a lanes_scan solve
+    dz, nu, ok = kl.solve_kkt_lanes_scan(*args, 1e-8)
     torch.cuda.synchronize()
     assert ok.tolist() == [i != 2 for i in range(Bt)]
     assert not (torch.isfinite(dz[2]).all() and torch.isfinite(nu[2]).all())
@@ -293,17 +300,7 @@ def test_cnot_exp_path_launches_its_kernels(cuda):
 
 def _seeded_kkt(Bt, T, d, s, r, device, seed=0):
     """Definite, defect-shaped blocks (as above) with an r-column rhs."""
-    rng = np.random.default_rng(seed)
-    w = 0.3 if d <= 16 else 1.0 / np.sqrt(d)
-    H = np.eye(d) * 3 + w * rng.normal(size=(Bt, T, d, d))
-    E = np.eye(s, d)
-    cols = () if r is None else (r,)
-    args = [0.5 * (H + np.swapaxes(H, -1, -2)),
-            (0.2 if d <= 16 else 0.7 * w) * rng.normal(size=(Bt, T - 1, d, d)),
-            -E + 0.1 * rng.normal(size=(Bt, T - 1, s, d)),
-            (1.0 if d <= 16 else 0.5) * E + 0.1 * rng.normal(size=(Bt, T - 1, s, d)),
-            rng.normal(size=(Bt, T, d, *cols)), rng.normal(size=(Bt, T - 1, s, *cols))]
-    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in args]
+    return seeded_kkt(Bt, T, d, s, device, r, seed)[:6]
 
 
 @pytest.mark.parametrize("d, s", [(15, 13), (47, 42)])
@@ -361,6 +358,63 @@ def test_group_sweeps_match_plain_version(cuda, d, s, r, Bt, T):
     for kernel in ("kkt_fwd_sweep", "kkt_bwd_sweep"):
         cfg = kl.sweep_config(kernel, Bt, d, s, r)
         assert cfg["threads_per_instance"] == (128 if d <= 32 else 256), cfg
+
+
+@pytest.mark.parametrize("T", [2, 11])
+@pytest.mark.parametrize("Bt", [1, 133, 265])
+@pytest.mark.parametrize("d, s", [(15, 13), (28, 24), (47, 42)])
+def test_group_rhs_sweep_and_step_match_plain_version(cuda, d, s, Bt, T):
+    # kernel 4 (the rhs-only sweep on kept factors) and kernel 6 (a forward
+    # step), a group of warps per instance, against their plain versions,
+    # and a whole lanes_scan solve against the plain KKT solve; ragged last
+    # blocks where a block holds several groups (d <= 32)
+    args = _seeded_kkt(Bt, T, d, s, None, cuda, seed=d + T)
+    H, C, A, B, rz, rnu = args
+    rhs2 = _seeded_kkt(Bt, T, d, s, None, cuda, seed=d + T + 1)[4:]
+    ref = kl.fwd_sweep_reference(*args, 1e-8, want_factors=True)
+    L_P, L_S, G, L_Pf = [x.contiguous() for x in (ref[0], ref[1], ref[6], ref[7])]
+    q_k, dz_k = kl.rhs_fwd_sweep_cuda(L_P, L_S, G, C, A, *rhs2, L_Pf)
+    q_r, dzl_r = kl.rhs_fwd_sweep_reference(L_P, L_S, G, C, A, *rhs2, L_Pf)
+    _close_rel(q_k, q_r)
+    _close_rel(dz_k[:, -1], dzl_r)
+    new = dict(dtype=torch.float32, device=cuda)
+    bufs = [torch.empty(Bt, T - 1, d, d, **new), torch.empty(Bt, T - 1, s, s, **new),
+            torch.empty(Bt, T - 1, d, s, **new), torch.empty(Bt, T - 1, d, **new)]
+    t = T - 2
+    P, q = H[:, t].contiguous(), rz[:, t].contiguous()
+    out = kl.fwd_step_cuda(P, q, H, C, A, B, rz, rnu, t, 1e-8, *bufs)
+    r6 = kl.fwd_step_reference(P, q, H[:, t + 1], C[:, t], A[:, t], B[:, t], rz[:, t + 1],
+                               rnu[:, t], 1e-8)
+    for o, rr in zip(out + tuple(x[:, t] for x in bufs), r6[:6]):
+        _close_rel(o, rr)
+    dz, nu, ok = kl.solve_kkt_lanes_scan(*args, 1e-8)
+    dz_r, nu_r, ok_r = solve_kkt(*args, 1e-8)
+    torch.cuda.synchronize()
+    assert bool(ok.all()) and bool(ok_r.all())
+    _close_rel(dz, dz_r)
+    _close_rel(nu, nu_r)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kernel in ("kkt_rhs_fwd_sweep", "kkt_fwd_step"):
+        cfg = kl.sweep_config(kernel, Bt, d, s)
+        assert cfg["threads_per_instance"] == (128 if d <= 32 else 256), cfg
+        assert cfg["instances_per_block"] == min(-(-Bt // sms), 4 if d <= 32 else 1), cfg
+
+
+@pytest.mark.parametrize("d, s, Bt", [(15, 13, 400), (47, 42, 4)])
+def test_rhs_sweep_keeps_a_nan_factor_to_its_instance(cuda, d, s, Bt):
+    # a NaN in instance 2's kept L_P reaches its q and dz_{T-1}, and no other
+    # instance's; at d=15, B=400 it shares a block with healthy instances
+    T = 6
+    args = _seeded_kkt(Bt, T, d, s, None, cuda, seed=7)
+    ref = kl.fwd_sweep_reference(*args, 1e-8, want_factors=True)
+    L_P, L_S, G, L_Pf = [x.contiguous() for x in (ref[0], ref[1], ref[6], ref[7])]
+    L_P[2, 3, 1, 0] = float("nan")
+    if Bt == 400:
+        assert kl.sweep_config("kkt_rhs_fwd_sweep", Bt, d, s)["instances_per_block"] > 2
+    q, dz = kl.rhs_fwd_sweep_cuda(L_P, L_S, G, args[1], args[2], args[4], args[5], L_Pf)
+    torch.cuda.synchronize()
+    bad = ~(torch.isfinite(q).flatten(1).all(1) & torch.isfinite(dz[:, -1]).all(1))
+    assert bad.tolist() == [i == 2 for i in range(Bt)]
 
 
 def test_step_kernels_match_plain_version(cuda):
