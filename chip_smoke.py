@@ -76,8 +76,10 @@ Phases, one JSON object per line on stdout:
      launches (T-1) x (KKT attempts + 1) times and the fused sweeps never.
 The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
-the rows of kernels 2, 3, 4 and 6 report their launch configuration
-(threads per instance, instances per block, shared bytes per block).
+the rows of kernels 2, 3, 4, 6 and 7 report their launch configuration
+(threads per instance, instances per block, shared bytes per block), and
+kernel 1's rows its own (threads per pair, pairs per block, shared bytes
+per block).
 Then the kernels line, and last {"ok": true, "device": {...}}.  Each main
 path checks its own kernels' launch counts.  Any failed check exits
 nonzero before the last line.  Without CUDA it exits 1.
@@ -295,6 +297,7 @@ def main():
     from quantumcollocation_tpu_torch.ops import build
     from quantumcollocation_tpu_torch.ops import prop_bank as pb
     from quantumcollocation_tpu_torch.ops.dyn_assembly import (
+        assembly_config,
         dyn_assembly_cuda,
         dyn_assembly_reference,
     )
@@ -500,7 +503,7 @@ def main():
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
             ms=time_ms(lambda: dyn_assembly_cuda(analytic, Z, lam)),
             plain_ms=time_ms(lambda: dyn_assembly_reference(analytic, Z, lam)),
-            bytes=nbytes, flops=flops,
+            bytes=nbytes, flops=flops, launch=assembly_config(analytic),
         )
         # kernels 2 and 3: the first iteration's real blocks are
         # near-singular in float32, where both versions carry rounding
@@ -723,7 +726,7 @@ def main():
             ms=time_ms(lambda: dyn_assembly_cuda(ank, Zk, lamk)),
             plain_ms=time_ms(lambda: dyn_assembly_reference(ank, Zk, lamk)),
             bytes=F4 * (Zk.numel() + lamk.numel() + sum(x.numel() for x in k_out)),
-            flops=flops, cc_max_abs=float(k_out[4].abs().max()),
+            flops=flops, cc_max_abs=float(k_out[4].abs().max()), launch=assembly_config(ank),
         )}
         # the path runs the bank once per solve, first order (the multiplier
         # initialisation's Jacobian)
@@ -950,7 +953,8 @@ def main():
                 bytes=counts_[name][0] / (Tn - 1), flops=counts_[name][1] / (Tn - 1),
                 launches_per_solve=Tn - 1,
             )
-        out["kkt_fwd_step"]["launch"] = kl.sweep_config("kkt_fwd_step", Bn, d_, s_)
+        for name in out:
+            out[name]["launch"] = kl.sweep_config(name, Bn, d_, s_)
         return out, host
 
     with torch.no_grad():

@@ -19,17 +19,29 @@
 // Horner code gives the scaled N and D; then P = D^-1 N (Gauss-Jordan
 // without pivoting, the scaled denominator being diagonally dominant), its
 // derivatives dP_k = D^-1 (dN_k - dD_k P) and d2P, and nsq squarings, all
-// in place of the N family.  That branch has B = I and no Cc term; its
-// bank takes about three times the Padé flops (~3*10^4 a pair at n=4, K=3,
-// one squaring), still below the writes at the card's rates, so bytes
-// bound it too.  Both branches spill to local memory at n=4, K=3.
+// in place of the N family.  That branch has B = I and no Cc term.
 //
 // What bounds it: bytes.  Per pair it reads 2d + s floats and writes
-// s + 2sd + 2d^2 floats (853 at d=15, s=13); the bank is ~10^4 flops on
-// 4x4 matrices held in registers.  Design: one thread per pair, so
-// B*(T-1) threads fill the card; the bank lives in registers/local memory
-// and is computed once; each thread writes its own contiguous output rows
-// in the batch-first layout the solver consumes (no transpose pass after).
+// s + 2sd + 2d^2 floats (853 at d=15, s=13: 87 MB at B=512, T=51, a bound
+// of ~0.027 ms); the bank is ~2*10^4 flops on 4x4 matrices (~3*10^4 in the
+// exponential branch).  Design:
+// - A team of n^2 threads per pair, thread (i, j) owning entry (i, j) of
+//   every matrix of the N and D families in registers.  A Horner step
+//   publishes the families to the team's shared memory and each thread
+//   forms its new entries from row i of X, dX_k (its registers) and column
+//   j of the published matrices; the team syncs by __syncwarp (a team lies
+//   in one warp).  The exponential branch's Gauss-Jordan, products and
+//   squarings run the same way, so no thread holds a whole bank and
+//   nothing spills.
+// - A block takes a run of consecutive pairs m = b(T-1) + t.  In the
+//   batch-first layout they own one contiguous range of each of F, A, Bm
+//   and Cc, and of Hc too with the last knot of each instance that ends in
+//   the run.  The block zeroes that slab in shared memory, the teams
+//   scatter their nonzeros into it (the += into Hc is a shared-memory sum),
+//   and then the whole block writes each range once, neighbouring threads
+//   on neighbouring addresses, 16 bytes a store: each range's slab starts
+//   at the same offset modulo 16 bytes as its destination.  No output is
+//   zero-filled or read back in device memory.
 // The n x n size and the number K of theta directions are template
 // parameters; the problem structure comes in as an argument table, so a new
 // problem needs no rebuild.
@@ -44,235 +56,162 @@
 //          per group: dt_static, ncoef, coeffs (ncoef), G_drift (n*n),
 //                     G_drives (na*n*n) (both times 2^-nsq)
 //          per derivative row: dt_static
+// A member has ncols <= n (pack_spec checks it).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
+constexpr int kThreads = 128;            // threads per block, at most
+constexpr int kMaxBlockBytes = 64 << 10;  // shared memory per block, at most, where a block has
+                                          // more than a warp's worth of pairs
+
+__host__ __device__ constexpr int round4(long n) { return (int)((n + 3) / 4 * 4); }
+
+// Floats of one team's scratch: the N and D families (1 + K + Kp matrices
+// each), U, U' and Lambda of a member; the exponential branch adds the
+// Gauss-Jordan pair and the numerators of dP and d2P.
+__host__ __device__ constexpr int team_floats(int N, int K, bool exp) {
+  const int TP = N * N, KP = K * (K + 1) / 2, NM = 1 + K + KP;
+  return round4(2 * NM * TP + 3 * TP + (exp ? 2 * TP + KP * TP : 0));
+}
+
+// The block's slab: F, A, Bm, Cc of P pairs and Hc of at most nh knots, each
+// range padded by up to 3 floats so that it can start at its destination's
+// offset modulo 16 bytes.
+struct SlabShape {
+  int f, a, c, h;  // floats of the F, A (and Bm), Cc and Hc ranges
+};
+
+__host__ __device__ inline SlabShape slab_shape(int P, int nh, int d, int s) {
+  return {round4((long)P * s + 3), round4((long)P * s * d + 3), round4((long)P * d * d + 3),
+          round4((long)nh * d * d + 3)};
+}
+
+// Hc knots a run of P pairs can touch: its P knots, and the last knot of
+// each instance that ends in the run.
+__host__ __device__ inline int max_knots(int P, int Tm1) { return P + 1 + (P - 1 + Tm1 - 1) / Tm1; }
+
+__host__ __device__ inline long block_floats(int P, int N, int K, bool exp, int d, int s, int Tm1) {
+  const SlabShape sh = slab_shape(P, max_knots(P, Tm1), d, s);
+  return round4(d + s) + sh.f + 2L * sh.a + sh.c + sh.h + (long)P * team_floats(N, K, exp);
+}
+
+// Pairs per block: kThreads / n^2, halved while the block's shared memory
+// exceeds kMaxBlockBytes and a block keeps at least a warp.
+inline int pairs_per_block(int N, int K, bool exp, int d, int s, int Tm1) {
+  int P = kThreads / (N * N);
+  while (P * N * N > 32 && block_floats(P, N, K, exp, d, s, Tm1) * 4 > kMaxBlockBytes) P /= 2;
+  return P;
+}
+
+// sum_q x[q] y[q * N] (a row of registers against a column of a team
+// matrix in shared memory), in the order of the plain loop.
 template <int N>
-__device__ inline void mm_acc(float sgn, const float (&X)[N][N], const float (&Y)[N][N],
-                              float (&out)[N][N]) {
-  // out += sgn * X @ Y
+__device__ __forceinline__ float dot_col(const float (&x)[N], const float* y) {
+  float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < N; ++k) acc += X[i][k] * Y[k][j];
-      out[i][j] += sgn * acc;
-    }
+  for (int q = 0; q < N; ++q) acc += x[q] * y[q * N];
+  return acc;
 }
 
-// Horner recursion for q(sign*X) with first and second theta-derivatives.
-// d2X is nonzero only for pairs (k, na) with k < na (free dt): Gs[k].
-template <int N, int K>
-__device__ void horner(float sgn, const float* coeffs, int ncoef, const float (&X)[N][N],
-                       const float (&dX)[K][N][N], const float* Gs, int na, bool free_dt,
-                       float (&acc)[N][N], float (&dacc)[K][N][N],
-                       float (&d2acc)[K * (K + 1) / 2][N][N]) {
-  constexpr int KP = K * (K + 1) / 2;
+// sum_q a[i N + q] b[q N + j] over two team matrices in shared memory.
+template <int N>
+__device__ __forceinline__ float dot_mm(const float* a, const float* b, int i, int j) {
+  float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      acc[i][j] = (i == j) ? coeffs[ncoef - 1] : 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) dacc[k][i][j] = 0.f;
-#pragma unroll
-      for (int p = 0; p < KP; ++p) d2acc[p][i][j] = 0.f;
-    }
-  for (int ci = ncoef - 2; ci >= 0; --ci) {
-    // second derivatives first: they read the previous dacc and acc
-    {
-      int p = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-#pragma unroll
-        for (int l = k; l < K; ++l, ++p) {
-          float nw[N][N];
-#pragma unroll
-          for (int i = 0; i < N; ++i)
-#pragma unroll
-            for (int j = 0; j < N; ++j) nw[i][j] = 0.f;
-          mm_acc<N>(sgn, X, d2acc[p], nw);
-          mm_acc<N>(sgn, dX[k], dacc[l], nw);
-          mm_acc<N>(sgn, dX[l], dacc[k], nw);
-          if (free_dt && k < na && l == na) {
-            float g[N][N];
-#pragma unroll
-            for (int i = 0; i < N; ++i)
-#pragma unroll
-              for (int j = 0; j < N; ++j) g[i][j] = Gs[(k * N + i) * N + j];
-            mm_acc<N>(sgn, g, acc, nw);
-          }
-#pragma unroll
-          for (int i = 0; i < N; ++i)
-#pragma unroll
-            for (int j = 0; j < N; ++j) d2acc[p][i][j] = nw[i][j];
-        }
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float nw[N][N];
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j) nw[i][j] = 0.f;
-      mm_acc<N>(sgn, dX[k], acc, nw);
-      mm_acc<N>(sgn, X, dacc[k], nw);
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j) dacc[k][i][j] = nw[i][j];
-    }
-    float nw[N][N];
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) nw[i][j] = (i == j) ? coeffs[ci] : 0.f;
-    mm_acc<N>(sgn, X, acc, nw);
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[i][j] = nw[i][j];
-  }
+  for (int q = 0; q < N; ++q) acc += a[i * N + q] * b[q * N + j];
+  return acc;
 }
 
-// In place of the N family (acc, dacc, d2acc of q(X) on the scaled X):
-// P = D^-1 N with first and second derivatives, then nsq squarings.  The
-// order is that of pallas_dyn_assembly.py::_group_bank: dP before d2P (which
-// reads it); in each squaring d2P first (it reads the old dP and P), then
-// dP (the old P), then P.
-template <int N, int K>
-__device__ void to_exponential(int nsq, float (&Pm)[N][N], float (&dP)[K][N][N],
-                               float (&d2P)[K * (K + 1) / 2][N][N], const float (&Dm)[N][N],
-                               const float (&dD)[K][N][N],
-                               const float (&d2D)[K * (K + 1) / 2][N][N]) {
-  float Mw[N][N], R[N][N];  // Gauss-Jordan: Mw -> I, R -> D^-1
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      Mw[i][j] = Dm[i][j];
-      R[i][j] = (i == j) ? 1.f : 0.f;
-    }
-#pragma unroll
-  for (int c = 0; c < N; ++c) {
-    const float inv = 1.f / Mw[c][c];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      Mw[c][j] *= inv;
-      R[c][j] *= inv;
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      if (r == c) continue;
-      const float f = Mw[r][c];
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        Mw[r][j] -= f * Mw[c][j];
-        R[r][j] -= f * R[c][j];
-      }
-    }
-  }
-  float tw[N][N], nw[N][N];
-  auto zero = [](float (&x)[N][N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) x[i][j] = 0.f;
-  };
-  auto copy = [](const float (&x)[N][N], float (&y)[N][N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) y[i][j] = x[i][j];
-  };
-  zero(nw);
-  mm_acc<N>(1.f, R, Pm, nw);  // P = D^-1 N
-  copy(nw, Pm);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {  // dP_k = D^-1 (dN_k - dD_k P)
-    copy(dP[k], tw);
-    mm_acc<N>(-1.f, dD[k], Pm, tw);
-    zero(nw);
-    mm_acc<N>(1.f, R, tw, nw);
-    copy(nw, dP[k]);
-  }
-  {
-    int p = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int l = k; l < K; ++l, ++p) {  // d2P = D^-1 (d2N - d2D P - dD_k dP_l - dD_l dP_k)
-        copy(d2P[p], tw);
-        mm_acc<N>(-1.f, d2D[p], Pm, tw);
-        mm_acc<N>(-1.f, dD[k], dP[l], tw);
-        mm_acc<N>(-1.f, dD[l], dP[k], tw);
-        zero(nw);
-        mm_acc<N>(1.f, R, tw, nw);
-        copy(nw, d2P[p]);
-      }
-  }
-  for (int sq = 0; sq < nsq; ++sq) {
-    int p = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int l = k; l < K; ++l, ++p) {
-        zero(nw);
-        mm_acc<N>(1.f, d2P[p], Pm, nw);
-        mm_acc<N>(1.f, Pm, d2P[p], nw);
-        mm_acc<N>(1.f, dP[k], dP[l], nw);
-        mm_acc<N>(1.f, dP[l], dP[k], nw);
-        copy(nw, d2P[p]);
-      }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      zero(nw);
-      mm_acc<N>(1.f, dP[k], Pm, nw);
-      mm_acc<N>(1.f, Pm, dP[k], nw);
-      copy(nw, dP[k]);
-    }
-    zero(nw);
-    mm_acc<N>(1.f, Pm, Pm, nw);
-    copy(nw, Pm);
-  }
+// n floats from shared src to global dst by the block, dst and src
+// congruent modulo 16 bytes: scalars up to dst's next 16-byte boundary,
+// then 16-byte stores with neighbouring threads on neighbouring addresses.
+__device__ __forceinline__ void copy_out(float* __restrict__ dst, const float* src, int n,
+                                         int tid, int nt) {
+  const int head = (4 - (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3;
+  const int h = head < n ? head : n;
+  if (tid < h) dst[tid] = src[tid];
+  const int n4 = (n - h) / 4;
+  const float4* s4 = reinterpret_cast<const float4*>(src + h);
+  float4* d4 = reinterpret_cast<float4*>(dst + h);
+  for (int v = tid; v < n4; v += nt) d4[v] = s4[v];
+  for (int k = h + 4 * n4 + tid; k < n; k += nt) dst[k] = src[k];
 }
 
+__device__ __forceinline__ int shift4(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// At most 128 registers a thread (4 blocks an SM, about what the shared
+// memory allows): ptxas then spills nothing at any instantiation, where
+// without the minimum it picked occupancy-tier register counts and spilled.
 template <int N, int K, bool EXP>
-__global__ void assembly_kernel(const float* __restrict__ Z, const float* __restrict__ lam,
-                                int Bt, int T, int d, int s, const int* __restrict__ ispec,
-                                const float* __restrict__ fspec, float* __restrict__ F,
-                                float* __restrict__ A, float* __restrict__ Bm,
-                                float* __restrict__ Hc, float* __restrict__ Cc) {
-  constexpr int KP = K * (K + 1) / 2;
-  const int Tm1 = T - 1;
-  const long m = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= (long)Bt * Tm1) return;
-  const long b = m / Tm1;
-  const int t = (int)(m % Tm1);
+__global__ void __launch_bounds__(kThreads, 4)
+    assembly_kernel(const float* __restrict__ Z, const float* __restrict__ lam, int Bt, int T,
+                    int d, int s, const int* __restrict__ ispec, const float* __restrict__ fspec,
+                    float* __restrict__ F, float* __restrict__ A, float* __restrict__ Bm,
+                    float* __restrict__ Hc, float* __restrict__ Cc, int P) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int TP = N * N, KP = K * (K + 1) / 2, NM = 1 + K + KP;
+  // pair and knot indices in 32 bits (a 64-bit division is a call, whose
+  // saved registers ptxas counts as spills); offsets into the outputs in 64
+  const int Tm1 = T - 1, nt = blockDim.x, tid = threadIdx.x;
+  const int npairs = Bt * Tm1, m0 = blockIdx.x * P;
+  const int np = npairs - m0 < P ? npairs - m0 : P;  // pairs of this block
+  const int mL = m0 + np - 1;
+  const int hk0 = m0 + m0 / Tm1;  // Hc knot b T + t of pair m = m + b
+  const int nh = mL + mL / Tm1 + 1 + (mL % Tm1 == Tm1 - 1 ? 1 : 0) - hk0;
 
-  const float* zt = Z + (b * T + t) * d;
-  const float* ztp1 = zt + d;
-  const float* lm = lam + m * s;
-  float* Fm = F + m * s;
-  float* Am = A + m * s * d;
-  float* Bmm = Bm + m * s * d;
-  float* Hm = Hc + (b * T + t) * d * d;
-  float* Cm = Cc + m * d * d;
-
-  for (int i = 0; i < s; ++i) Fm[i] = 0.f;
-  for (int i = 0; i < s * d; ++i) { Am[i] = 0.f; Bmm[i] = 0.f; }
-  for (int i = 0; i < d * d; ++i) { Hm[i] = 0.f; Cm[i] = 0.f; }
-  if (t == Tm1 - 1) {
-    float* Hlast = Hc + (b * T + Tm1) * d * d;
-    for (int i = 0; i < d * d; ++i) Hlast[i] = 0.f;
+  // shared memory: vs, ds; the slab; the teams' scratch
+  float* vs = smem;
+  float* ds = vs + d;
+  const SlabShape sh = slab_shape(P, max_knots(P, Tm1), d, s);
+  float* slab = smem + round4(d + s);
+  const int slab_n = sh.f + 2 * sh.a + sh.c + sh.h;
+  float* const gF = F + (long)m0 * s;  // the block's ranges of the outputs
+  float* const gA = A + (long)m0 * s * d;
+  float* const gB = Bm + (long)m0 * s * d;
+  float* const gC = Cc + (long)m0 * d * d;
+  float* const gH = Hc + (long)hk0 * d * d;
+  float* sF = slab + shift4(gF);
+  float* sA = slab + sh.f + shift4(gA);
+  float* sB = slab + sh.f + sh.a + shift4(gB);
+  float* sC = slab + sh.f + 2 * sh.a + shift4(gC);
+  float* sH = slab + sh.f + 2 * sh.a + sh.c + shift4(gH);
+  {
+    float4* z4 = reinterpret_cast<float4*>(slab);
+    for (int v = tid; v < slab_n / 4; v += nt) z4[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = tid; k < d; k += nt) vs[k] = fspec[k];
+    for (int k = tid; k < s; k += nt) ds[k] = fspec[d + k];
   }
+  __syncthreads();
 
-  const float* vs = fspec;
-  const float* ds = fspec + d;
+  const int team = tid / TP, lane = tid % TP, i = lane / N, j = lane % N;
+  const bool live = team < np;  // a team past the last pair computes pair mL and writes nothing
+  const int m = live ? m0 + team : mL;
+  const int b = m / Tm1, t = m % Tm1;
+  const float* zt = Z + ((long)b * T + t) * d;
+  const float* ztp1 = zt + d;
+  const float* lm = lam + (long)m * s;
+  float* Fm = sF + team * s;
+  float* Am = sA + team * s * d;
+  float* Bmm = sB + team * s * d;
+  float* Cm = sC + team * d * d;
+  float* Hm = sH + (m + b - hk0) * d * d;  // the slab holds at most max_knots knots
+  float* fam = slab + slab_n + team * team_floats(N, K, EXP);
+  float* famN = fam;  // N, dN_k, d2N_p; P and its derivatives in the exponential branch
+  float* famD = famN + NM * TP;
+  float* U0s = famD + NM * TP;  // U (r, c) at r N + c
+  float* U1s = U0s + TP;
+  float* Ls = U1s + TP;
+  float* GM = Ls + TP;  // exponential branch: Gauss-Jordan working matrix, D^-1
+  float* GR = GM + TP;
+  float* TW = GR + TP;  // numerators of dP_k, d2P_p
+
   const float* fp = fspec + d + s;
   const int* ip = ispec + 3;
   const int ng = ispec[0], nderiv = ispec[1], ndteq = ispec[2];
@@ -290,178 +229,351 @@ __global__ void assembly_kernel(const float* __restrict__ Z, const float* __rest
     const bool free_dt = dt_col >= 0;
     const float dt = free_dt ? zt[dt_col] * vs[dt_col] : dt_static;
 
-    float G[N][N], X[N][N], dX[K][N][N];
+    // row i of X, of the directions dX_k and of the drives G_k
+    float Xr[N], dXr[K][N], Gr[K][N];
 #pragma unroll
-    for (int i = 0; i < N; ++i)
+    for (int q = 0; q < N; ++q) {
+      float g = Gd[i * N + q];
+      for (int k = 0; k < na; ++k) g += zt[a0 + k] * vs[a0 + k] * Gs[(k * N + i) * N + q];
+      Xr[q] = g * dt;
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        float g = Gd[i * N + j];
-        for (int k = 0; k < na; ++k) g += zt[a0 + k] * vs[a0 + k] * Gs[(k * N + i) * N + j];
-        G[i][j] = g;
-        X[i][j] = g * dt;
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          dX[k][i][j] = (k < na) ? Gs[(k * N + i) * N + j] * dt : G[i][j];
+      for (int k = 0; k < K; ++k) {
+        Gr[k][q] = k < na ? Gs[(k * N + i) * N + q] : 0.f;
+        dXr[k][q] = k < na ? Gr[k][q] * dt : g;
       }
-    float Nm[N][N], dN[K][N][N], d2N[KP][N][N];
-    float Dm[N][N], dD[K][N][N], d2D[KP][N][N];
-    horner<N, K>(1.f, coeffs, ncoef, X, dX, Gs, na, free_dt, Nm, dN, d2N);
-    horner<N, K>(-1.f, coeffs, ncoef, X, dX, Gs, na, free_dt, Dm, dD, d2D);
-    if constexpr (EXP) to_exponential<N, K>(nsq, Nm, dN, d2N, Dm, dD, d2D);  // N family := P
-
+    }
     int theta[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) theta[k] = (k < na) ? a0 + k : dt_col;
+    for (int k = 0; k < K; ++k) theta[k] = k < na ? a0 + k : dt_col;
 
-    for (int mi = 0; mi < nmem; ++mi) {
-      const int u0 = mem[5 * mi], r0 = mem[5 * mi + 2], ncols = mem[5 * mi + 4];
-      float U0[N][N], U1[N][N], Lam[N][N];
-      for (int c = 0; c < ncols; ++c)
+    // Horner for q(+X) (family 0, N) and q(-X) (family 1, D) with first and
+    // second theta-derivatives; d2X is nonzero only for (k < na, l = na)
+    // with a free dt, where it is G_k.  Entry (i, j) of each in registers.
+    float acc[2], dacc[2][K], d2acc[2][KP];
 #pragma unroll
-        for (int r = 0; r < N; ++r) {
-          const int zi = u0 + c * N + r;
-          U0[r][c] = zt[zi] * vs[zi];
-          U1[r][c] = ztp1[zi] * vs[zi];
-          Lam[r][c] = lm[r0 + c * N + r] * ds[r0 + c * N + r];
-        }
-      for (int c = 0; c < ncols; ++c)
+    for (int f = 0; f < 2; ++f) {
+      acc[f] = i == j ? coeffs[ncoef - 1] : 0.f;
 #pragma unroll
-        for (int r = 0; r < N; ++r) {
-          const int row = r0 + c * N + r;
-          float res = 0.f;
-          if constexpr (EXP) {  // u' - P u
-            float pu = 0.f;
+      for (int k = 0; k < K; ++k) dacc[f][k] = 0.f;
 #pragma unroll
-            for (int j = 0; j < N; ++j) pu += Nm[r][j] * U0[j][c];
-            res = U1[r][c] - pu;
-          } else {
+      for (int p = 0; p < KP; ++p) d2acc[f][p] = 0.f;
+    }
+    for (int ci = ncoef - 1; ci >= 0; --ci) {
 #pragma unroll
-            for (int j = 0; j < N; ++j) res += Dm[r][j] * U1[j][c] - Nm[r][j] * U0[j][c];
-          }
-          Fm[row] = res * ds[row];
+      for (int f = 0; f < 2; ++f) {
+        float* Mf = f ? famD : famN;
+        Mf[lane] = acc[f];
 #pragma unroll
-          for (int rp = 0; rp < N; ++rp) {
-            const int col = u0 + c * N + rp;
-            Am[row * d + col] = -Nm[r][rp] * (ds[row] * vs[col]);
-            if constexpr (EXP)
-              Bmm[row * d + col] = (rp == r) ? ds[row] * vs[col] : 0.f;
-            else
-              Bmm[row * d + col] = Dm[r][rp] * (ds[row] * vs[col]);
-          }
+        for (int k = 0; k < K; ++k) Mf[(1 + k) * TP + lane] = dacc[f][k];
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
-            float dc = 0.f;
-            if constexpr (EXP) {
+        for (int p = 0; p < KP; ++p) Mf[(1 + K + p) * TP + lane] = d2acc[f][p];
+      }
+      __syncwarp();
+      if (ci == 0) break;  // the families stay published
 #pragma unroll
-              for (int j = 0; j < N; ++j) dc -= dN[k][r][j] * U0[j][c];
-            } else {
+      for (int f = 0; f < 2; ++f) {
+        const float sgn = f ? -1.f : 1.f;
+        const float* Mc = (f ? famD : famN) + j;  // column j
+        {
+          int p = 0;
 #pragma unroll
-              for (int j = 0; j < N; ++j) dc += dD[k][r][j] * U1[j][c] - dN[k][r][j] * U0[j][c];
+          for (int k = 0; k < K; ++k)
+#pragma unroll
+            for (int l = k; l < K; ++l, ++p) {
+              float nw = 0.f;
+              nw += sgn * dot_col<N>(Xr, Mc + (1 + K + p) * TP);
+              nw += sgn * dot_col<N>(dXr[k], Mc + (1 + l) * TP);
+              nw += sgn * dot_col<N>(dXr[l], Mc + (1 + k) * TP);
+              if (free_dt && k < na && l == na) nw += sgn * dot_col<N>(Gr[k], Mc);
+              d2acc[f][p] = nw;
             }
-            Am[row * d + theta[k]] = dc * (ds[row] * vs[theta[k]]);
-          }
         }
-      // curvature of -lam.F: W = Lam U^T
-      float W0[N][N], W1[N][N];
 #pragma unroll
-      for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          float w0 = 0.f, w1 = 0.f;
-          for (int c = 0; c < ncols; ++c) {
-            w0 += Lam[i][c] * U0[j][c];
-            w1 += Lam[i][c] * U1[j][c];
-          }
-          W0[i][j] = w0;
-          W1[i][j] = w1;
+        for (int k = 0; k < K; ++k) {
+          float nw = 0.f;
+          nw += sgn * dot_col<N>(dXr[k], Mc);
+          nw += sgn * dot_col<N>(Xr, Mc + (1 + k) * TP);
+          dacc[f][k] = nw;
         }
+        acc[f] = (i == j ? coeffs[ci - 1] : 0.f) + sgn * dot_col<N>(Xr, Mc);
+      }
+      __syncwarp();
+    }
+
+    if constexpr (EXP) {
+      // D^-1 by Gauss-Jordan without pivoting: this thread's entries of the
+      // working matrix (mw) and of the inverse (rw), published a column a step
+      float mw = acc[1], rw = i == j ? 1.f : 0.f;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        GM[lane] = mw;
+        GR[lane] = rw;
+        __syncwarp();
+        const float inv = 1.f / GM[c * N + c];
+        const float mcj = GM[c * N + j] * inv, rcj = GR[c * N + j] * inv, f = GM[i * N + c];
+        __syncwarp();
+        if (i == c) {
+          mw = mcj;
+          rw = rcj;
+        } else {
+          mw -= f * mcj;
+          rw -= f * rcj;
+        }
+      }
+      GR[lane] = rw;
+      __syncwarp();
+      // P = D^-1 N
+      const float pij = dot_mm<N>(GR, famN, i, j);
+      __syncwarp();
+      famN[lane] = pij;
+      __syncwarp();
+      // dP_k = D^-1 (dN_k - dD_k P)
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        TW[k * TP + lane] = dacc[0][k] + -1.f * dot_mm<N>(famD + (1 + k) * TP, famN, i, j);
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < K; ++k) dacc[0][k] = dot_mm<N>(GR, TW + k * TP, i, j);
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < K; ++k) famN[(1 + k) * TP + lane] = dacc[0][k];
+      __syncwarp();
+      // d2P = D^-1 (d2N - d2D P - dD_k dP_l - dD_l dP_k)
       {
         int p = 0;
 #pragma unroll
         for (int k = 0; k < K; ++k)
 #pragma unroll
           for (int l = k; l < K; ++l, ++p) {
-            float h = 0.f;
-#pragma unroll
-            for (int i = 0; i < N; ++i)
-#pragma unroll
-              for (int j = 0; j < N; ++j) {
-                if constexpr (EXP)
-                  h += d2N[p][i][j] * W0[i][j];
-                else
-                  h += d2N[p][i][j] * W0[i][j] - d2D[p][i][j] * W1[i][j];
-              }
-            const int ck = theta[k], cl = theta[l];
-            const float hv = h * (vs[ck] * vs[cl]);
-            Hm[ck * d + cl] += hv;
-            if (ck != cl) Hm[cl * d + ck] += hv;
+            float tw = d2acc[0][p];
+            tw += -1.f * dot_mm<N>(famD + (1 + K + p) * TP, famN, i, j);
+            tw += -1.f * dot_mm<N>(famD + (1 + k) * TP, famN + (1 + l) * TP, i, j);
+            tw += -1.f * dot_mm<N>(famD + (1 + l) * TP, famN + (1 + k) * TP, i, j);
+            TW[p * TP + lane] = tw;
           }
       }
+      __syncwarp();
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int ck = theta[k];
-        for (int c = 0; c < ncols; ++c)
+      for (int p = 0; p < KP; ++p) d2acc[0][p] = dot_mm<N>(GR, TW + p * TP, i, j);
+      __syncwarp();
 #pragma unroll
-          for (int r = 0; r < N; ++r) {
-            float mt = 0.f, mp = 0.f;
+      for (int p = 0; p < KP; ++p) famN[(1 + K + p) * TP + lane] = d2acc[0][p];
+      __syncwarp();
+      // squarings: d2P first (it reads the old dP and P), then dP, then P
+      for (int sq = 0; sq < nsq; ++sq) {
+        {
+          int p = 0;
 #pragma unroll
-            for (int i = 0; i < N; ++i) {
-              mt += dN[k][i][r] * Lam[i][c];
-              if constexpr (!EXP) mp += dD[k][i][r] * Lam[i][c];
+          for (int k = 0; k < K; ++k)
+#pragma unroll
+            for (int l = k; l < K; ++l, ++p) {
+              const float* D2 = famN + (1 + K + p) * TP;
+              float nw = 0.f;
+              nw += dot_mm<N>(D2, famN, i, j);
+              nw += dot_mm<N>(famN, D2, i, j);
+              nw += dot_mm<N>(famN + (1 + k) * TP, famN + (1 + l) * TP, i, j);
+              nw += dot_mm<N>(famN + (1 + l) * TP, famN + (1 + k) * TP, i, j);
+              d2acc[0][p] = nw;
             }
-            const int ui = u0 + c * N + r;
-            const float sc = vs[ui] * vs[ck];
-            Hm[ui * d + ck] += mt * sc;
-            Hm[ck * d + ui] += mt * sc;
-            if constexpr (!EXP) Cm[ck * d + ui] += -mp * sc;  // D' u' has no exp counterpart
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float* D1 = famN + (1 + k) * TP;
+          float nw = 0.f;
+          nw += dot_mm<N>(D1, famN, i, j);
+          nw += dot_mm<N>(famN, D1, i, j);
+          dacc[0][k] = nw;
+        }
+        acc[0] = 0.f + dot_mm<N>(famN, famN, i, j);
+        __syncwarp();
+        famN[lane] = acc[0];
+#pragma unroll
+        for (int k = 0; k < K; ++k) famN[(1 + k) * TP + lane] = dacc[0][k];
+#pragma unroll
+        for (int p = 0; p < KP; ++p) famN[(1 + K + p) * TP + lane] = d2acc[0][p];
+        __syncwarp();
+      }
+    }
+
+    for (int mi = 0; mi < nmem; ++mi) {
+      const int u0 = mem[5 * mi], r0 = mem[5 * mi + 2], ncols = mem[5 * mi + 4];
+      if (j < ncols) {  // (r, c) = (i, j)
+        const int zi = u0 + j * N + i, li = r0 + j * N + i;
+        U0s[lane] = zt[zi] * vs[zi];
+        U1s[lane] = ztp1[zi] * vs[zi];
+        Ls[lane] = lm[li] * ds[li];
+      }
+      __syncwarp();
+      if (live) {
+        if (j < ncols) {  // the defect and its theta-columns, (r, c) = (i, j)
+          const int row = r0 + j * N + i;
+          float res = 0.f;
+          if constexpr (EXP) {  // u' - P u
+            float pu = 0.f;
+#pragma unroll
+            for (int q = 0; q < N; ++q) pu += famN[i * N + q] * U0s[q * N + j];
+            res = U1s[lane] - pu;
+          } else {
+#pragma unroll
+            for (int q = 0; q < N; ++q)
+              res += famD[i * N + q] * U1s[q * N + j] - famN[i * N + q] * U0s[q * N + j];
+          }
+          Fm[row] = res * ds[row];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float* dN = famN + (1 + k) * TP + i * N;
+            const float* dD = famD + (1 + k) * TP + i * N;
+            float dc = 0.f;
+            if constexpr (EXP) {
+#pragma unroll
+              for (int q = 0; q < N; ++q) dc -= dN[q] * U0s[q * N + j];
+            } else {
+#pragma unroll
+              for (int q = 0; q < N; ++q) dc += dD[q] * U1s[q * N + j] - dN[q] * U0s[q * N + j];
+            }
+            Am[row * d + theta[k]] = dc * (ds[row] * vs[theta[k]]);
+          }
+        }
+        for (int c = 0; c < ncols; ++c) {  // the u-columns, (r, rp) = (i, j)
+          const int row = r0 + c * N + i, col = u0 + c * N + j;
+          Am[row * d + col] = -famN[lane] * (ds[row] * vs[col]);
+          if constexpr (EXP) {
+            if (i == j) Bmm[row * d + col] = ds[row] * vs[col];
+          } else {
+            Bmm[row * d + col] = famD[lane] * (ds[row] * vs[col]);
+          }
+        }
+      }
+      // curvature of -lam.F: W = Lam U^T, entry (i, j); its sums against
+      // d2N (and d2D) reduced over the team
+      float w0 = 0.f, w1 = 0.f;
+      for (int c = 0; c < ncols; ++c) {
+        w0 += Ls[i * N + c] * U0s[j * N + c];
+        w1 += Ls[i * N + c] * U1s[j * N + c];
+      }
+      {
+        int p = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int l = k; l < K; ++l, ++p) {
+            float h;
+            if constexpr (EXP)
+              h = famN[(1 + K + p) * TP + lane] * w0;
+            else
+              h = famN[(1 + K + p) * TP + lane] * w0 - famD[(1 + K + p) * TP + lane] * w1;
+#pragma unroll
+            for (int o = TP / 2; o > 0; o /= 2) h += __shfl_xor_sync(0xffffffffu, h, o);
+            if (live && lane == p % TP) {
+              const int ck = theta[k], cl = theta[l];
+              const float hv = h * (vs[ck] * vs[cl]);
+              Hm[ck * d + cl] += hv;
+              if (ck != cl) Hm[cl * d + ck] += hv;
+            }
           }
       }
+      __syncwarp();
+      if (live && j < ncols) {  // the (u, theta) curvature, (r, c) = (i, j)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int ck = theta[k];
+          float mt = 0.f, mp = 0.f;
+#pragma unroll
+          for (int q = 0; q < N; ++q) {
+            mt += famN[(1 + k) * TP + q * N + i] * Ls[q * N + j];
+            if constexpr (!EXP) mp += famD[(1 + k) * TP + q * N + i] * Ls[q * N + j];
+          }
+          const int ui = u0 + j * N + i;
+          const float sc = vs[ui] * vs[ck];
+          Hm[ui * d + ck] += mt * sc;
+          Hm[ck * d + ui] += mt * sc;
+          if constexpr (!EXP) Cm[ck * d + ui] += -mp * sc;  // D' u' has no exp counterpart
+        }
+      }
+      __syncwarp();
     }
   }
 
   for (int ri = 0; ri < nderiv; ++ri, ip += 7, fp += 1) {
     const int x0 = ip[0], x1 = ip[1], dx0 = ip[2], r0 = ip[4], dt_col = ip[6];
     const float dt = dt_col >= 0 ? zt[dt_col] * vs[dt_col] : fp[0];
-    for (int i = 0; i < x1 - x0; ++i) {
-      const int row = r0 + i, xi = x0 + i, dxi = dx0 + i;
-      const float dxv = zt[dxi] * vs[dxi];
-      Fm[row] = (ztp1[xi] * vs[xi] - zt[xi] * vs[xi] - dxv * dt) * ds[row];
-      Am[row * d + xi] = -ds[row] * vs[xi];
-      Am[row * d + dxi] = -dt * (ds[row] * vs[dxi]);
-      Bmm[row * d + xi] = ds[row] * vs[xi];
-      if (dt_col >= 0) {
-        Am[row * d + dt_col] = -dxv * (ds[row] * vs[dt_col]);
-        const float lv = lm[row] * ds[row] * (vs[dxi] * vs[dt_col]);
-        Hm[dxi * d + dt_col] += lv;
-        Hm[dt_col * d + dxi] += lv;
+    if (live)
+      for (int e = lane; e < x1 - x0; e += TP) {
+        const int row = r0 + e, xi = x0 + e, dxi = dx0 + e;
+        const float dxv = zt[dxi] * vs[dxi];
+        Fm[row] = (ztp1[xi] * vs[xi] - zt[xi] * vs[xi] - dxv * dt) * ds[row];
+        Am[row * d + xi] = -ds[row] * vs[xi];
+        Am[row * d + dxi] = -dt * (ds[row] * vs[dxi]);
+        Bmm[row * d + xi] = ds[row] * vs[xi];
+        if (dt_col >= 0) {
+          Am[row * d + dt_col] = -dxv * (ds[row] * vs[dt_col]);
+          const float lv = lm[row] * ds[row] * (vs[dxi] * vs[dt_col]);
+          Hm[dxi * d + dt_col] += lv;
+          Hm[dt_col * d + dxi] += lv;
+        }
       }
-    }
+    __syncwarp();
   }
 
   for (int ri = 0; ri < ndteq; ++ri, ip += 4) {
     const int c0 = ip[0], c1 = ip[1], r0 = ip[2];
-    for (int i = 0; i < c1 - c0; ++i) {
-      const int row = r0 + i, ci = c0 + i;
-      Fm[row] = (ztp1[ci] * vs[ci] - zt[ci] * vs[ci]) * ds[row];
-      Am[row * d + ci] = -ds[row] * vs[ci];
-      Bmm[row * d + ci] = ds[row] * vs[ci];
-    }
+    if (live)
+      for (int e = lane; e < c1 - c0; e += TP) {
+        const int row = r0 + e, ci = c0 + e;
+        Fm[row] = (ztp1[ci] * vs[ci] - zt[ci] * vs[ci]) * ds[row];
+        Am[row * d + ci] = -ds[row] * vs[ci];
+        Bmm[row * d + ci] = ds[row] * vs[ci];
+      }
   }
+
+  __syncthreads();
+  copy_out(gF, sF, np * s, tid, nt);
+  copy_out(gA, sA, np * s * d, tid, nt);
+  copy_out(gB, sB, np * s * d, tid, nt);
+  copy_out(gC, sC, np * d * d, tid, nt);
+  copy_out(gH, sH, nh * d * d, tid, nt);
+}
+
+// The launch configuration for these shapes: pairs per block and shared
+// bytes per block.
+struct Config {
+  int pairs, bytes;
+};
+
+template <int N, int K, bool EXP>
+Config config(int T, int d, int s) {
+  const int P = pairs_per_block(N, K, EXP, d, s, T - 1);
+  return {P, (int)(block_floats(P, N, K, EXP, d, s, T - 1) * 4)};
 }
 
 template <int N, int K, bool EXP>
 int launch(const float* Z, const float* lam, int Bt, int T, int d, int s, const int* ispec,
            const float* fspec, float* F, float* A, float* Bm, float* Hc, float* Cc,
            cudaStream_t stream) {
+  static int opted[16] = {};  // per device: the largest opt-in so far
+  const Config c = config<N, K, EXP>(T, d, s);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& set = opted[dev & 15];
+  if (c.bytes > 48 * 1024 && c.bytes > set) {
+    if (cudaFuncSetAttribute(assembly_kernel<N, K, EXP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             c.bytes) != cudaSuccess)
+      return (int)cudaErrorInvalidConfiguration;
+    set = c.bytes;
+  }
   const long M = (long)Bt * (T - 1);
-  const int threads = 128;
-  const int blocks = (int)((M + threads - 1) / threads);
-  assembly_kernel<N, K, EXP><<<blocks, threads, 0, stream>>>(Z, lam, Bt, T, d, s, ispec, fspec,
-                                                             F, A, Bm, Hc, Cc);
+  const int blocks = (int)((M + c.pairs - 1) / c.pairs);
+  assembly_kernel<N, K, EXP><<<blocks, c.pairs * N * N, c.bytes, stream>>>(
+      Z, lam, Bt, T, d, s, ispec, fspec, F, A, Bm, Hc, Cc, c.pairs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+#define QCT_CASES                                 \
+  QCT_CASE(2, 1) QCT_CASE(2, 2) QCT_CASE(2, 3) \
+  QCT_CASE(4, 1) QCT_CASE(4, 2) QCT_CASE(4, 3)
 
 // exp_kind = 0: every group is Padé; 1: every group is exponential.
 extern "C" int qct_dyn_assembly(const float* Z, const float* lam, int Bt, int T, int d, int s,
@@ -473,8 +585,23 @@ extern "C" int qct_dyn_assembly(const float* Z, const float* lam, int Bt, int T,
   if (n == NN && K == KK)                                                                   \
     return exp_kind ? launch<NN, KK, true>(Z, lam, Bt, T, d, s, ispec, fspec, F, A, Bm, Hc, Cc, st) \
                     : launch<NN, KK, false>(Z, lam, Bt, T, d, s, ispec, fspec, F, A, Bm, Hc, Cc, st);
-  QCT_CASE(2, 1) QCT_CASE(2, 2) QCT_CASE(2, 3)
-  QCT_CASE(4, 1) QCT_CASE(4, 2) QCT_CASE(4, 3)
+  QCT_CASES
 #undef QCT_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch configuration of qct_dyn_assembly for these shapes: out =
+// {threads per pair, pairs per block, shared bytes per block}.  Returns 0,
+// or cudaErrorInvalidValue for an (n, K) without an instantiation.
+extern "C" int qct_dyn_assembly_config(int T, int d, int s, int n, int K, int exp_kind, int* out) {
+  Config c{0, 0};
+#define QCT_CASE(NN, KK) \
+  if (n == NN && K == KK) c = exp_kind ? config<NN, KK, true>(T, d, s) : config<NN, KK, false>(T, d, s);
+  QCT_CASES
+#undef QCT_CASE
+  if (c.pairs == 0) return (int)cudaErrorInvalidValue;
+  out[0] = n * n;
+  out[1] = c.pairs;
+  out[2] = c.bytes;
+  return 0;
 }

@@ -94,108 +94,20 @@
 // B=512, d=15 is ~1 us of bytes a launch; a launch is one knot's chain of
 // ~2(d + s) barrier steps, and the carry's round trip through global memory.
 //
-// Kernel 7 keeps the one-warp-per-instance design (warp_chol_solve_vec,
-// bwd_knot): lanes own the rows of the triangular solves' column updates
-// and of the products; it is a later PR's redesign.
+// Kernel 7 (one knot of the lanes_scan back substitution, JAX
+// _bwd_step_kernel) is kernel 3's kernel instantiated for one knot
+// (bwd_sweep_group<1, ..., STEP = true>), as kernel 6 is kernel 2's: it
+// reads dz_{t+1} from dz[:, t+1], cp.asyncs knot t's blocks into stage 0
+// (prefetching nothing), runs the one-column knot body once and writes
+// dz[:, t] and nu[:, t].  Its bound at B=512, d=15 is ~1 us of bytes a
+// launch; a launch is one knot's chain: two one-warp solve pairs and three
+// group products.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxWarps = 4;  // instances per block of kernel 7, at most
-
 __host__ __device__ __forceinline__ int odd(int n) { return n | 1; }  // bank-conflict-free stride
-
-// In place y <- (L L^T)^-1 y for one column y of length n; lanes own the
-// rows of each column update, so the chain is n steps, not n^2.
-__device__ void warp_chol_solve_vec(const float* L, int ldl, float* y, int n, int lane) {
-  for (int i = 0; i < n; ++i) {
-    const float xi = y[i] / L[i * ldl + i];
-    __syncwarp();
-    if (lane == (i & 31)) y[i] = xi;
-    for (int r = i + 1 + lane; r < n; r += 32) y[r] -= L[r * ldl + i] * xi;
-    __syncwarp();
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    const float xi = y[i] / L[i * ldl + i];
-    __syncwarp();
-    if (lane == (i & 31)) y[i] = xi;
-    for (int r = lane; r < i; r += 32) y[r] -= L[i * ldl + r] * xi;
-    __syncwarp();
-  }
-}
-
-__host__ __device__ inline int bwd_warp_floats(int d, int s, int r) {
-  return d * d + s * s + (2 * d + s) * r;
-}
-
-// Back substitution of one knot by one warp, one column (the per-knot
-// step, kernel 7): from dz_{t+1} in dzn (shared),
-//   u = q_t - C dz_{t+1};  v = rnu_t - B dz_{t+1};  x = P^-1 u;
-//   y = S^-1 (A x - v);    dz_t = x - X_A y;       nu_t = y,
-// written to dzo and nuo; dzn then holds dz_t.
-__device__ void bwd_knot(float* Lp, float* Ls, float* dzn, float* xv, float* yv,
-                         const float* __restrict__ LPt, const float* __restrict__ LSt,
-                         const float* __restrict__ XAt, const float* __restrict__ qt,
-                         const float* __restrict__ Ct, const float* __restrict__ At,
-                         const float* __restrict__ Bt, const float* __restrict__ rnut, int d,
-                         int s, int lane, float* __restrict__ dzo, float* __restrict__ nuo) {
-  constexpr int r = 1;
-  for (int idx = lane; idx < d * d; idx += 32) Lp[idx] = LPt[idx];
-  for (int idx = lane; idx < s * s; idx += 32) Ls[idx] = LSt[idx];
-  for (int idx = lane; idx < d * r; idx += 32) {
-    const int i = idx / r, c = idx % r;
-    float v = qt[idx];
-    for (int j = 0; j < d; ++j) v -= Ct[i * d + j] * dzn[j * r + c];
-    xv[idx] = v;
-  }
-  __syncwarp();
-  warp_chol_solve_vec(Lp, d, xv, d, lane);
-  for (int idx = lane; idx < s * r; idx += 32) {
-    const int k = idx / r, c = idx % r;
-    float v = -rnut[idx];
-    for (int j = 0; j < d; ++j) v += Bt[k * d + j] * dzn[j * r + c] + At[k * d + j] * xv[j * r + c];
-    yv[idx] = v;
-  }
-  __syncwarp();
-  warp_chol_solve_vec(Ls, s, yv, s, lane);
-  for (int idx = lane; idx < d * r; idx += 32) {
-    const int i = idx / r, c = idx % r;
-    float v = xv[idx];
-    for (int k = 0; k < s; ++k) v -= XAt[i * s + k] * yv[k * r + c];
-    dzo[idx] = v;
-  }
-  for (int idx = lane; idx < s * r; idx += 32) nuo[idx] = yv[idx];
-  __syncwarp();
-  for (int idx = lane; idx < d * r; idx += 32) dzn[idx] = dzo[idx];
-  __syncwarp();
-}
-
-// One knot of the lanes_scan back substitution (kernel 7), one column,
-// every instance: dz_{t+1} read from dz (B,T,d), dz_t and nu_t written.
-__global__ void bwd_step(const float* __restrict__ LP, const float* __restrict__ LS,
-                         const float* __restrict__ XA, const float* __restrict__ q,
-                         const float* __restrict__ C, const float* __restrict__ A,
-                         const float* __restrict__ Bm, const float* __restrict__ rnu, int Bn,
-                         int T, int d, int s, int t, float* __restrict__ dz,
-                         float* __restrict__ nu) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long b = (long)blockIdx.x * (blockDim.x / 32) + warp;
-  if (b >= Bn) return;
-  float* Lp = smem + warp * bwd_warp_floats(d, s, 1);
-  float* Ls = Lp + d * d;
-  float* dzn = Ls + s * s;
-  float* xv = dzn + d;
-  float* yv = xv + d;
-  const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
-  const long kt = b * (T - 1) + t;
-  for (int i = lane; i < d; i += 32) dzn[i] = dz[(b * T + t + 1) * d + i];
-  __syncwarp();
-  bwd_knot(Lp, Ls, dzn, xv, yv, LP + kt * dd, LS + kt * ss, XA + kt * sd, q + kt * d,
-           C + kt * dd, A + kt * sd, Bm + kt * sd, rnu + kt * s, d, s, lane,
-           dz + (b * T + t) * d, nu + kt * s);
-}
 
 // ---- Kernels 2 and 3: a group of G warps per instance ------------------ //
 
@@ -846,13 +758,18 @@ __device__ void bwd_prefetch(float* st, const float* __restrict__ LP,
 // solves run on one warp (warp_solve_vec), the matrix-vector products on
 // the group (kParts lanes per output); r columns: group_llt_solve and
 // tiled products.
-template <int R, int G, int MR_, int MC_>
+// Kernel 7 (STEP = true, one column): the same kernel for the one knot
+// step_t of the lanes_scan back substitution, dz_{t+1} read from dz[:, t+1]
+// and nothing prefetched, so both run one knot body (kernel 3 passes
+// step_t = 0, unread).
+template <int R, int G, int MR_, int MC_, bool STEP>
 __global__ void __launch_bounds__(max_block_threads(G), 1)
     bwd_sweep_group(const float* __restrict__ LP, const float* __restrict__ LS,
                     const float* __restrict__ XA, const float* __restrict__ q,
                     const float* __restrict__ C, const float* __restrict__ A,
                     const float* __restrict__ Bm, const float* __restrict__ rnu, int Bn, int T,
-                    int d, int s, int r_arg, float* __restrict__ dz, float* __restrict__ nu) {
+                    int d, int s, int r_arg, float* __restrict__ dz, float* __restrict__ nu,
+                    int step_t) {
   extern __shared__ float smem[];
   using Cf = Grp<G, MR_, MC_>;
   constexpr int NT = Cf::NT, TR = Cf::TR, MR = Cf::MR, MC = Cf::MC;
@@ -874,13 +791,19 @@ __global__ void __launch_bounds__(max_block_threads(G), 1)
   const long dd = (long)d * d, sd = (long)s * d, ss = (long)s * s;
   const long dr = (long)d * r, sr = (long)s * r;
 
-  for (int i = tid; i < d * r; i += NT) dzn[i] = dz[(b * T + T - 1) * dr + i];
-  bwd_prefetch<NT>(stage0, LP, LS, XA, q, C, A, Bm, rnu, b * (T - 1) + T - 2, d, s, r, tid);
-  for (int t = T - 2, st = 0; t >= 0; --t, ++st) {
+  if constexpr (STEP) {
+    for (int i = tid; i < d * r; i += NT) dzn[i] = dz[(b * T + step_t + 1) * dr + i];
+    bwd_prefetch<NT>(stage0, LP, LS, XA, q, C, A, Bm, rnu, b * (T - 1) + step_t, d, s, r, tid);
+  } else {
+    for (int i = tid; i < d * r; i += NT) dzn[i] = dz[(b * T + T - 1) * dr + i];
+    bwd_prefetch<NT>(stage0, LP, LS, XA, q, C, A, Bm, rnu, b * (T - 1) + T - 2, d, s, r, tid);
+  }
+  // the knots this launch substitutes, downward: T-2 .. 0, or step_t alone
+  for (int t = STEP ? step_t : T - 2, st = 0; t >= (STEP ? step_t : 0); --t, ++st) {
     cp_async_wait_all();
     group_sync(bar, NT);
     const long kt = b * (T - 1) + t;
-    if (t > 0)
+    if (t > (STEP ? step_t : 0))
       bwd_prefetch<NT>(stage0 + ((st + 1) & 1) * stf, LP, LS, XA, q, C, A, Bm, rnu, kt - 1, d, s,
                        r, tid);
     const float* Lp = stage0 + (st & 1) * stf;
@@ -1150,38 +1073,7 @@ bool opt_in(Kernel kernel, int smem, int* opted) {
   return true;
 }
 
-// Warps per block for a kernel needing `warp_bytes` of shared memory per
-// warp: as many as fit, at most kMaxWarps, and no more than it takes to
-// give every SM one warp first.  Returns 0 when not even one fits.
-template <typename Kernel>
-int configure(Kernel kernel, int warp_bytes, int Bn, int* smem, int* opted) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const DevInfo di = dev_info(dev);
-  const int fit = di.cap / warp_bytes;
-  if (fit < 1) return 0;
-  int w = (Bn + di.sms - 1) / di.sms;
-  w = w < 1 ? 1 : w;
-  w = w < fit ? w : fit;
-  w = w < kMaxWarps ? w : kMaxWarps;
-  *smem = w * warp_bytes;
-  return opt_in(kernel, *smem, opted) ? w : 0;
-}
-
-// Launches `kernel` with one warp per instance and `warp_floats` floats of
-// shared memory per warp; returns a CUDA error code, and
-// cudaErrorInvalidConfiguration when one warp's blocks exceed the shared
-// memory a block may use.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int warp_floats, int Bn, int* opted, void* stream, Args... args) {
-  int smem = 0;
-  const int w = configure(kernel, warp_floats * (int)sizeof(float), Bn, &smem, opted);
-  if (w == 0) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(Bn + w - 1) / w, 32 * w, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// Instances per block for the group kernels 2, 3, 4, 6 (a group of nt threads and
+// Instances per block for the group kernels (a group of nt threads and
 // `group_bytes` of shared memory each): as many as fit the block's shared
 // memory, at most max_block_threads and 15 groups (named barriers 1..15), and no
 // more than it takes to give every SM one group first.  Returns 0 when
@@ -1229,7 +1121,7 @@ GroupShape fwd_shape(int d, int s, int r) {  // kernel 2
   return {i, 32 * c.G, fwd_group_floats(d, s, r, pub_floats(c.G, c.MR, c.MC))};
 }
 
-GroupShape bwd_shape(int d, int s, int r) {  // kernel 3
+GroupShape bwd_shape(int d, int s, int r) {  // kernels 3 and 7 (r = 1)
   const int i = pick_cfg(kBwdCfg, d > s ? d : s, r);
   if (i < 0) return {-1, 0, 0};
   const TileCfg c = kBwdCfg[i];
@@ -1273,10 +1165,22 @@ int launch_bwd(GroupShape g, int r, int (*opted)[2][16], void* stream, const flo
                float* nu) {
   constexpr TileCfg c = kBwdCfg[C];
   if (r == 1)
-    return launch_group(bwd_sweep_group<1, c.G, c.MR, c.MC>, g.floats, g.nt, Bn, opted[C][1],
-                        stream, LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, r, dz, nu);
-  return launch_group(bwd_sweep_group<0, c.G, c.MR, c.MC>, g.floats, g.nt, Bn, opted[C][0],
-                      stream, LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, r, dz, nu);
+    return launch_group(bwd_sweep_group<1, c.G, c.MR, c.MC, false>, g.floats, g.nt, Bn,
+                        opted[C][1], stream, LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, r, dz, nu,
+                        0);
+  return launch_group(bwd_sweep_group<0, c.G, c.MR, c.MC, false>, g.floats, g.nt, Bn, opted[C][0],
+                      stream, LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, r, dz, nu, 0);
+}
+
+// Kernel 7: kernel 3's one-column instantiation C for the one knot t.
+template <int C>
+int launch_bwd_step(GroupShape g, int (*opted)[16], void* stream, const float* LP,
+                    const float* LS, const float* XA, const float* q, const float* Cb,
+                    const float* A, const float* Bm, const float* rnu, int Bn, int T, int d, int s,
+                    int t, float* dz, float* nu) {
+  constexpr TileCfg c = kBwdCfg[C];
+  return launch_group(bwd_sweep_group<1, c.G, c.MR, c.MC, true>, g.floats, g.nt, Bn, opted[C],
+                      stream, LP, LS, XA, q, Cb, A, Bm, rnu, Bn, T, d, s, 1, dz, nu, t);
 }
 
 template <int C>
@@ -1342,15 +1246,17 @@ extern "C" int qct_kkt_bwd_sweep(const float* LP, const float* LS, const float* 
   return (int)cudaErrorInvalidConfiguration;
 }
 
-// The launch configuration of kernel 2 (which = 0), 3 (1), 4 (2) or 6 (3)
-// for these shapes (r columns; kernels 4 and 6 take one): out = {threads
-// per instance, instances per block, shared bytes per block}.  Returns 0,
-// or cudaErrorInvalidConfiguration where the launch would be refused.
+// The launch configuration of kernel 2 (which = 0), 3 (1), 4 (2), 6 (3) or
+// 7 (4) for these shapes (r columns; kernels 4, 6 and 7 take one): out =
+// {threads per instance, instances per block, shared bytes per block}.
+// Returns 0, or cudaErrorInvalidConfiguration where the launch would be
+// refused.
 extern "C" int qct_kkt_sweep_config(int which, int Bn, int d, int s, int r, int* out) {
   const GroupShape g = which == 0   ? fwd_shape(d, s, r)
                        : which == 1 ? bwd_shape(d, s, r)
                        : which == 2 ? rhs_shape(d, s)
-                                    : step_shape(d, s);
+                       : which == 3 ? step_shape(d, s)
+                                    : bwd_shape(d, s, 1);
   int smem = 0;
   const int ipb = g.cfg < 0 ? 0 : group_config(g.floats * (int)sizeof(float), g.nt, Bn, &smem);
   if (ipb == 0) return (int)cudaErrorInvalidConfiguration;
@@ -1382,7 +1288,8 @@ extern "C" int qct_kkt_rhs_fwd_sweep(const float* LP, const float* LS, const flo
 // batch-first buffers as the sweeps.  Forward: the carry P (B,d,d), q (B,d)
 // in, Pn, qn out; LP, LS, XA and qs (B,T-1,d) written at knot t.
 // Backward: dz (B,T,d) read at t+1 and written at t, nu (B,T-1,s) at t.
-// cudaErrorInvalidConfiguration where kernel 2 would refuse the shapes.
+// cudaErrorInvalidConfiguration where kernel 2 (forward) or kernel 3
+// (backward) would refuse the shapes.
 extern "C" int qct_kkt_fwd_step(const float* P, const float* qin, const float* H, const float* C,
                                 const float* A, const float* Bm, const float* rz,
                                 const float* rnu, int Bn, int T, int d, int s, int t,
@@ -1411,7 +1318,21 @@ extern "C" int qct_kkt_bwd_step(const float* LP, const float* LS, const float* X
                                 const float* q, const float* C, const float* A, const float* Bm,
                                 const float* rnu, int Bn, int T, int d, int s, int t, float* dz,
                                 float* nu, void* stream) {
-  static int opted[16] = {0};
-  return launch(bwd_step, bwd_warp_floats(d, s, 1), Bn, opted, stream, LP, LS, XA, q, C, A, Bm,
-                rnu, Bn, T, d, s, t, dz, nu);
+  static int opted[4][16] = {};
+  const GroupShape g = bwd_shape(d, s, 1);
+  switch (g.cfg) {
+    case 0:
+      return launch_bwd_step<0>(g, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, t, dz,
+                                nu);
+    case 1:
+      return launch_bwd_step<1>(g, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, t, dz,
+                                nu);
+    case 2:
+      return launch_bwd_step<2>(g, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, t, dz,
+                                nu);
+    case 3:
+      return launch_bwd_step<3>(g, opted, stream, LP, LS, XA, q, C, A, Bm, rnu, Bn, T, d, s, t, dz,
+                                nu);
+  }
+  return (int)cudaErrorInvalidConfiguration;
 }

@@ -2,9 +2,11 @@
 
 Replaces the Pallas kernel quantumcollocation_tpu/ops/pallas_dyn_assembly.py
 ::_assembly_kernel (with _group_bank) by a hand-written CUDA kernel,
-csrc/dyn_assembly.cu: one thread per (instance, knot) pair evaluates the
-Padé bank N = q(X), D = q(-X) with first and second θ-derivatives by Horner
-and writes the defects, the Jacobian blocks and the curvature of -λ·F.  For
+csrc/dyn_assembly.cu: a team of n² threads per (instance, knot) pair
+evaluates the Padé bank N = q(X), D = q(-X) with first and second
+θ-derivatives by Horner, a thread per matrix entry, and scatters the
+defects, the Jacobian blocks and the curvature of -λ·F into a block's
+shared-memory slab, which the block then writes out once, coalesced.  For
 exponential groups it turns the bank into P = exp(X) = (D⁻¹N)^(2^s) with its
 derivatives (Gauss-Jordan inverse, then s squarings) before the writes.
 
@@ -25,6 +27,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -32,7 +35,8 @@ import torch
 from ..dynamics.expm import pade_coefficients
 from . import build
 
-__all__ = ["dyn_assembly", "dyn_assembly_reference", "dyn_assembly_cuda", "pack_spec"]
+__all__ = ["dyn_assembly", "dyn_assembly_reference", "dyn_assembly_cuda", "pack_spec",
+           "assembly_config", "set_signatures"]
 
 # (n, K) combinations the kernel is instantiated for (csrc/dyn_assembly.cu)
 SUPPORTED_NK = {(2, 1), (2, 2), (2, 3), (4, 1), (4, 2), (4, 3)}
@@ -64,6 +68,8 @@ def pack_spec(analytic):
         nsq = g.num_squarings if g.kind == "exp" else 0
         ispec += [n, na, g.a_slice[0], g.dt_col if free else -1, nsq, len(g.members)]
         for m in g.members:
+            if m[4] > n:  # a team holds a member's n x ncols block
+                raise NotImplementedError(f"a member of {m[4]} columns > n={n}")
             ispec += list(m)
         coeffs = pade_coefficients(g.order)
         scale = 2.0 ** -nsq  # exact: X = G dt 2^-s from scaled generators
@@ -100,6 +106,35 @@ def _device_spec(analytic, device):
     return analytic._consts[key]
 
 
+def set_signatures(lib):
+    """Sets the C signature of qct_dyn_assembly in a dyn_assembly.cu
+    library (this tree's, or another build of it); returns lib."""
+    lib.qct_dyn_assembly.restype = ctypes.c_int
+    lib.qct_dyn_assembly.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
+def _lib():
+    """This tree's library, its C signatures set once."""
+    lib = set_signatures(build.library("dyn_assembly"))
+    lib.qct_dyn_assembly_config.restype = ctypes.c_int
+    lib.qct_dyn_assembly_config.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return lib
+
+
+def assembly_config(analytic):
+    """Launch configuration of the kernel for this problem: threads per
+    pair, pairs per block, shared bytes per block."""
+    _, _, (n, K), kind = pack_spec(analytic)
+    out = (ctypes.c_int * 3)()
+    err = _lib().qct_dyn_assembly_config(analytic.T, analytic.d, analytic.s, n, K,
+                                         int(kind == "exp"), out)
+    build.check(err, "dyn_assembly")
+    return dict(threads_per_pair=out[0], pairs_per_block=out[1], shared_bytes_per_block=out[2])
+
+
 def dyn_assembly_cuda(analytic, Z, lam):
     """Launch csrc/dyn_assembly.cu on CUDA float32 tensors."""
     Bt, T, d = Z.shape
@@ -118,11 +153,7 @@ def dyn_assembly_cuda(analytic, Z, lam):
     Bj = torch.empty_like(A)
     Hc = torch.empty(Bt, T, d, d, dtype=Z.dtype, device=Z.device)
     Cc = torch.empty(Bt, T - 1, d, d, dtype=Z.dtype, device=Z.device)
-    fn = build.library("dyn_assembly").qct_dyn_assembly
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    err = fn(
+    err = _lib().qct_dyn_assembly(
         Z.data_ptr(), lam.data_ptr(), Bt, T, d, s,
         ispec.data_ptr(), fspec.data_ptr(),
         F.data_ptr(), A.data_ptr(), Bj.data_ptr(), Hc.data_ptr(), Cc.data_ptr(),

@@ -4,8 +4,8 @@ Replaces quantumcollocation_tpu/solver/kkt_lanes.py::solve_kkt_lanes,
 resolve_kkt_lanes and solve_kkt_lanes_scan and their Pallas kernels
 _fwd_sweep_kernel, _bwd_sweep_kernel, _rhs_fwd_sweep_kernel,
 _fwd_step_kernel and _bwd_step_kernel with the CUDA kernels of
-csrc/kkt_sweeps.cu (a group of warps per instance; the backward step,
-one warp per instance).  The fused sweeps loop over the knots inside the
+csrc/kkt_sweeps.cu (a group of warps per instance; the steps are the
+sweeps' kernels instantiated for one knot).  The fused sweeps loop over the knots inside the
 kernel, with the terminal blocks folded into the ends of the forward
 sweeps; kernels 2 and 3 take a right-hand side of r columns, rz
 (B, T, d, r) and rnu (B, T-1, s, r), as the L-BFGS [rz | U] system needs.
@@ -163,15 +163,15 @@ def _lib():
 
 # kernel name -> `which` of qct_kkt_sweep_config
 _CONFIG_KERNELS = {"kkt_fwd_sweep": 0, "kkt_bwd_sweep": 1, "kkt_rhs_fwd_sweep": 2,
-                   "kkt_fwd_step": 3}
+                   "kkt_fwd_step": 3, "kkt_bwd_step": 4}
 
 
 def sweep_config(kernel, Bn, d, s, r=1):
     """Launch configuration of kernel 2 ("kkt_fwd_sweep"), 3
-    ("kkt_bwd_sweep"), 4 ("kkt_rhs_fwd_sweep", one column) or 6
-    ("kkt_fwd_step", one column) on the current CUDA device for these
-    shapes: threads per instance, instances per block, shared bytes per
-    block."""
+    ("kkt_bwd_sweep"), 4 ("kkt_rhs_fwd_sweep", one column), 6
+    ("kkt_fwd_step", one column) or 7 ("kkt_bwd_step", one column) on the
+    current CUDA device for these shapes: threads per instance, instances
+    per block, shared bytes per block."""
     out = (ctypes.c_int * 3)()
     err = _lib().qct_kkt_sweep_config(_CONFIG_KERNELS[kernel], Bn, d, s, r, out)
     build.check(err, kernel)

@@ -1,11 +1,13 @@
-"""Times builds of the sweep kernels against each other, and checks that
-their outputs agree.
+"""Times builds of the sweep kernels and of the fused assembly against each
+other, and checks that their outputs agree.
 
     python -m quantumcollocation_tpu_torch.sweep_builds
-        [--build NAME=SOURCE ...] [--repeat 20]
+        [--build NAME=SOURCE ...] [--assembly-build NAME=SOURCE ...]
+        [--repeat 20]
 
 Builds each --build, a kkt_sweeps.cu with the port's C interface (an
-earlier commit's, or a variant of this one), beside this tree's own build
+earlier commit's, or a variant of this one), and each --assembly-build, a
+dyn_assembly.cu with the port's C interface, beside this tree's own builds
 ("this").  On seeded blocks (bench_util.seeded_kkt) at the main paths'
 shapes, the hadamard shape (B=512, T=51, d=15, s=13) and the cnot shape
 (B=128, T=40, d=47, s=42), and on the hadamard path's first IPM
@@ -14,14 +16,20 @@ it: near-singular blocks), it times, build after build and then again in
 reverse order:
   - kernel 2, the forward sweep (kept factors at the cnot shape; also
     with the 13 columns of hadamard_lbfgs's [rz | U] at the hadamard shape);
+  - kernel 3, the backward sweep, one column, at both shapes (on this
+    tree's kernel-2 factors);
   - kernel 4, the rhs-only forward sweep (cnot shape);
-  - kernel 6, the forward step (hadamard shape): device time per launch,
-    the T-1 launches of a solve captured in one CUDA graph and replayed
-    between two events;
+  - kernels 6 and 7, the forward and backward steps (hadamard shape):
+    device time per launch, the T-1 launches of a solve captured in one
+    CUDA graph and replayed between two events;
+  - kernel 1, the fused assembly, on the first IPM iteration's Z and
+    multipliers of the hadamard (Padé) and ket_exp (exponential) paths
+    (profile_step's problems and seeds);
 each as the median of --repeat calls after warm-up, and reports each
-build's largest difference from this tree's outputs of the three kernels
-(0.0: bit for bit).  Prints the card's name and power limit, then one JSON
-line per build.  Needs a CUDA GPU.
+build's largest difference from this tree's outputs of each case (0.0:
+bit for bit).  A NAME given to both --build and --assembly-build is one
+build.  Prints the card's name and power limit, then one JSON line per
+build.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -33,9 +41,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from . import profile_step
 from .bench_util import graph_ms, seeded_kkt, time_ms
 from .kkt_accuracy_probe import first_system
 from .ops import build as kbuild
+from .ops import dyn_assembly as da
 from .solver import kkt_lanes as kl
 
 HAD = (512, 51, 15, 13)
@@ -44,10 +54,59 @@ DELTA_C = 1e-8
 
 
 class Build:
-    """The kernels 2, 4 and 6 of one library, on preallocated outputs."""
+    """The sweep kernels of one kkt_sweeps.cu library and the fused assembly
+    of one dyn_assembly.cu library (either may be None)."""
 
-    def __init__(self, lib):
+    def __init__(self, lib, asm=None):
         self.lib = lib
+        self.asm = asm
+
+    def assembly(self, an, Z, lam):
+        """Kernel 1 on the problem `an`'s Z (B, T, d) and lam (B, T-1, s)."""
+        Bn, T, d = Z.shape
+        s = an.s
+        ispec, fspec, (n, K), kind = da._device_spec(an, Z.device)
+        new = dict(dtype=torch.float32, device=Z.device)
+        out = [torch.empty(Bn, T - 1, s, **new), torch.empty(Bn, T - 1, s, d, **new),
+               torch.empty(Bn, T - 1, s, d, **new), torch.empty(Bn, T, d, d, **new),
+               torch.empty(Bn, T - 1, d, d, **new)]
+        kbuild.check(self.asm.qct_dyn_assembly(
+            Z.data_ptr(), lam.data_ptr(), Bn, T, d, s, ispec.data_ptr(), fspec.data_ptr(),
+            *[x.data_ptr() for x in out], n, K, int(kind == "exp"),
+            torch.cuda.current_stream().cuda_stream), "dyn_assembly")
+        return out
+
+    def bwd(self, LP, LS, XA, q, C, A, B, rnu, dz_last):
+        """Kernel 3, one column: (dz (B, T, d), nu)."""
+        Bn, Tm1, d, _ = LP.shape
+        s = LS.shape[2]
+        dz = torch.empty(Bn, Tm1 + 1, d, dtype=torch.float32, device=LP.device)
+        dz[:, -1] = dz_last
+        nu = torch.empty(Bn, Tm1, s, dtype=torch.float32, device=LP.device)
+        kbuild.check(self.lib.qct_kkt_bwd_sweep(
+            *[x.data_ptr() for x in (LP, LS, XA, q, C, A, B, rnu)], Bn, Tm1 + 1, d, s, 1,
+            dz.data_ptr(), nu.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "kkt_bwd_sweep")
+        return dz, nu
+
+    def bwd_scan(self, LP, LS, XA, q, C, A, B, rnu, dz_last):
+        """A callable running the T-1 backward steps (kernel 7) of one solve
+        on fixed buffers, and its outputs (dz, nu)."""
+        Bn, Tm1, d, _ = LP.shape
+        s = LS.shape[2]
+        dz = torch.empty(Bn, Tm1 + 1, d, dtype=torch.float32, device=LP.device)
+        dz[:, -1] = dz_last
+        nu = torch.empty(Bn, Tm1, s, dtype=torch.float32, device=LP.device)
+        blocks = [x.data_ptr() for x in (LP, LS, XA, q, C, A, B, rnu)]
+
+        def run():
+            stream = torch.cuda.current_stream().cuda_stream
+            for t in reversed(range(Tm1)):
+                kbuild.check(self.lib.qct_kkt_bwd_step(*blocks, Bn, Tm1 + 1, d, s, t,
+                                                       dz.data_ptr(), nu.data_ptr(), stream),
+                             "kkt_bwd_step")
+
+        return run, (dz, nu)
 
     def fwd(self, H, C, A, B, rz, rnu, factors):
         """Kernel 2; rz (B, T, d) for one column, (B, T, d, r) for r."""
@@ -110,7 +169,9 @@ def max_diff(outs, refs):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--build", action="append", default=[],
-                    help="NAME=SOURCE, another build to set beside this tree's")
+                    help="NAME=SOURCE, another kkt_sweeps.cu build to set beside this tree's")
+    ap.add_argument("--assembly-build", action="append", default=[],
+                    help="NAME=SOURCE, another dyn_assembly.cu build to set beside this tree's")
     ap.add_argument("--repeat", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -118,13 +179,19 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     specs = [spec.split("=", 1) for spec in args.build]
-    with ThreadPoolExecutor(len(specs) + 1) as ex:  # one nvcc per source, all at once
+    asm_specs = [spec.split("=", 1) for spec in args.assembly_build]
+    with ThreadPoolExecutor(len(specs) + len(asm_specs) + 2) as ex:  # one nvcc per source
         this = ex.submit(kl._lib)
+        this_asm = ex.submit(da._lib)
         others = [ex.submit(kbuild.build_other, source, f"kkt_sweeps_{name}")
                   for name, source in specs]
-        builds = {"this": Build(this.result())}
+        asm_others = [ex.submit(kbuild.build_other, source, f"dyn_assembly_{name}")
+                      for name, source in asm_specs]
+        builds = {"this": Build(this.result(), this_asm.result())}
         for (name, _), lib in zip(specs, others):
             builds[name] = Build(kl.set_signatures(lib.result()))
+        for (name, _), lib in zip(asm_specs, asm_others):
+            builds.setdefault(name, Build(None)).asm = da.set_signatures(lib.result())
 
     had = seeded_kkt(*HAD, "cuda", seed=0)[:6]
     had13 = seeded_kkt(*HAD, "cuda", r=13, seed=2)[:6]  # hadamard_lbfgs's [rz | U]
@@ -134,18 +201,33 @@ def main():
     ref = builds["this"]
     fac = ref.fwd(*cx, True)
     rhs_in = (fac[0], fac[1], fac[5], cx[1], cx[2], *rhs2, fac[6])
-    cases = {
-        "kkt_fwd_sweep_hadamard": (lambda b: b.fwd(*had, False), False),
-        "kkt_fwd_sweep_hadamard_real": (lambda b: b.fwd(*had_real, False), False),
-        "kkt_fwd_sweep_hadamard_r13": (lambda b: b.fwd(*had13, False), False),
-        "kkt_fwd_sweep_cnot": (lambda b: b.fwd(*cx, True), False),
-        "kkt_rhs_fwd_sweep_cnot": (lambda b: b.rhs(*rhs_in), False),
-        "kkt_fwd_step_hadamard": (lambda b: b.scan(*had), True),
+    with torch.no_grad():
+        fh = ref.fwd(*had, False)
+    bwd_had = (*fh[:4], *had[1:4], had[5], fh[4])
+    bwd_cx = (*fac[:4], *cx[1:4], cx[5], fac[4])
+    asm_in = {}
+    for config in ("hadamard", "ket_exp"):
+        solver, Z0 = profile_step.build(config, None)
+        with torch.no_grad():
+            st = solver.init_state(Z0)
+        asm_in[config] = (solver.nlp.analytic, st.Z.contiguous(), st.lam.contiguous())
+    cases = {  # name: (run, is_scan, library)
+        "kkt_fwd_sweep_hadamard": (lambda b: b.fwd(*had, False), False, "lib"),
+        "kkt_fwd_sweep_hadamard_real": (lambda b: b.fwd(*had_real, False), False, "lib"),
+        "kkt_fwd_sweep_hadamard_r13": (lambda b: b.fwd(*had13, False), False, "lib"),
+        "kkt_fwd_sweep_cnot": (lambda b: b.fwd(*cx, True), False, "lib"),
+        "kkt_bwd_sweep_hadamard": (lambda b: b.bwd(*bwd_had), False, "lib"),
+        "kkt_bwd_sweep_cnot": (lambda b: b.bwd(*bwd_cx), False, "lib"),
+        "kkt_rhs_fwd_sweep_cnot": (lambda b: b.rhs(*rhs_in), False, "lib"),
+        "kkt_fwd_step_hadamard": (lambda b: b.scan(*had), True, "lib"),
+        "kkt_bwd_step_hadamard": (lambda b: b.bwd_scan(*bwd_had), True, "lib"),
+        "dyn_assembly_hadamard": (lambda b: b.assembly(*asm_in["hadamard"]), False, "asm"),
+        "dyn_assembly_ket_exp": (lambda b: b.assembly(*asm_in["ket_exp"]), False, "asm"),
     }
     results = {name: {} for name in builds}
     with torch.no_grad():
         refs = {}
-        for case, (make, is_scan) in cases.items():
+        for case, (make, is_scan, _) in cases.items():
             if is_scan:
                 run, outs = make(ref)
                 run()
@@ -155,7 +237,9 @@ def main():
         order = list(builds) + list(reversed(builds))
         for name in order:
             b = builds[name]
-            for case, (make, is_scan) in cases.items():
+            for case, (make, is_scan, which) in cases.items():
+                if getattr(b, which) is None:
+                    continue
                 if is_scan:
                     run, outs = make(b)
                     ms = graph_ms(run, args.repeat) / (HAD[1] - 1)

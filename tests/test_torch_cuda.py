@@ -475,3 +475,122 @@ def test_lbfgs_and_scan_paths_launch_their_kernels(cuda, mode):
         assert c["dyn_assembly"] == n and c["prop_bank"] == 1, c
         assert c["kkt_fwd_sweep"] == c["kkt_bwd_sweep"] == 0, c
         assert c["kkt_fwd_step"] == c["kkt_bwd_step"] == 10 * (att + 1), c
+
+
+@pytest.mark.parametrize("t_at", ["first", "last"])
+@pytest.mark.parametrize("Bt", [1, 5, 265])
+@pytest.mark.parametrize("d, s", [(15, 13), (28, 24), (47, 42)])
+def test_bwd_step_matches_plain_version(cuda, d, s, Bt, t_at):
+    # kernel 7 (kernel 3's group kernel for one knot) against its plain
+    # version at knot 0 and T-2: it reads dz_{t+1} and writes dz_t and nu_t
+    # only; at d <= 32 a block holds several groups, so B = 5 and 265 leave
+    # the last block ragged.  At t = T-2, a whole lanes_scan solve against
+    # the plain KKT solve as well.
+    T = 6
+    H, C, A, B, rz, rnu = _seeded_kkt(Bt, T, d, s, None, cuda, seed=d + Bt)
+    L_P, L_S, X_A, qs = [x.contiguous() for x in kl.fwd_sweep_reference(H, C, A, B, rz, rnu,
+                                                                         1e-8)[:4]]
+    t = 0 if t_at == "first" else T - 2
+    nan = float("nan")
+    dz = torch.full((Bt, T, d), nan, device=cuda)
+    nu = torch.full((Bt, T - 1, s), nan, device=cuda)
+    dz[:, t + 1] = rz[:, t + 1]
+    before = build.launch_counts["kkt_bwd_step"]
+    kl.bwd_step_cuda(L_P, L_S, X_A, qs, C, A, B, rnu, dz, nu, t)
+    torch.cuda.synchronize()
+    assert build.launch_counts["kkt_bwd_step"] == before + 1
+    dz_r, nu_r = kl.bwd_step_reference(dz[:, t + 1], L_P[:, t], L_S[:, t], X_A[:, t], qs[:, t],
+                                       C[:, t], A[:, t], B[:, t], rnu[:, t])
+    _close_rel(dz[:, t], dz_r)
+    _close_rel(nu[:, t], nu_r)
+    others = [k for k in range(T) if k not in (t, t + 1)]
+    assert torch.isnan(dz[:, others]).all() and torch.isnan(nu[:, [k != t for k in range(T - 1)]]).all()
+    assert kl.sweep_config("kkt_bwd_step", Bt, d, s) == kl.sweep_config("kkt_bwd_sweep", Bt, d, s)
+    if t_at == "last":
+        dz, nu, ok = kl.solve_kkt_lanes_scan(H, C, A, B, rz, rnu, 1e-8)
+        dz_p, nu_p, ok_p = solve_kkt(H, C, A, B, rz, rnu, 1e-8)
+        torch.cuda.synchronize()
+        assert bool(ok.all()) and bool(ok_p.all())
+        _close_rel(dz, dz_p)
+        _close_rel(nu, nu_p)
+
+
+@pytest.mark.parametrize("d, s, Bt", [(15, 13, 400), (47, 42, 4)])
+def test_bwd_step_keeps_a_nan_factor_to_its_instance(cuda, d, s, Bt):
+    # a NaN in instance 2's L_P at knot t reaches its dz_t and nu_t, and no
+    # other instance's; at d=15, B=400 it shares a block with healthy ones
+    T, t = 6, 3
+    H, C, A, B, rz, rnu = _seeded_kkt(Bt, T, d, s, None, cuda, seed=11)
+    L_P, L_S, X_A, qs = [x.contiguous() for x in kl.fwd_sweep_reference(H, C, A, B, rz, rnu,
+                                                                         1e-8)[:4]]
+    L_P[2, t, 1, 0] = float("nan")
+    if Bt == 400:
+        assert kl.sweep_config("kkt_bwd_step", Bt, d, s)["instances_per_block"] > 2
+    dz = torch.zeros(Bt, T, d, device=cuda)
+    nu = torch.zeros(Bt, T - 1, s, device=cuda)
+    dz[:, t + 1] = rz[:, t + 1]
+    kl.bwd_step_cuda(L_P, L_S, X_A, qs, C, A, B, rnu, dz, nu, t)
+    torch.cuda.synchronize()
+    bad = ~(torch.isfinite(dz[:, t]).all(1) & torch.isfinite(nu[:, t]).all(1))
+    assert bad.tolist() == [i == 2 for i in range(Bt)]
+
+
+_ASSEMBLY_CASES = {  # problem, options: one member (a unitary) or two (ket_exp's kets)
+    "pade_free": ("unitary", {}),
+    "pade_fixed": ("unitary", dict(free_time=False)),
+    "exp_free": ("unitary", dict(integrator="exponential")),
+    "exp_fixed": ("unitary", dict(integrator="exponential", free_time=False)),
+    "ket_exp_free": ("kets", {}),
+    "ket_exp_fixed": ("kets", dict(free_time=False)),
+}
+
+
+@pytest.mark.parametrize("Bt", [1, 37])
+@pytest.mark.parametrize("case", list(_ASSEMBLY_CASES))
+def test_assembly_kernel_writes_every_entry(cuda, case, Bt):
+    # kernel 1 against its plain version, Padé and exponential, free and
+    # fixed Δt, one and two members, B (T-1) not a multiple of the block's
+    # pairs; the outputs land in memory poisoned with NaN just before the
+    # call (the caching allocator hands back the freed blocks), so an entry
+    # the kernel never writes shows up
+    kind, opts = _ASSEMBLY_CASES[case]
+    T = 11
+    if kind == "unitary":
+        sysq = qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"], qt.GATES["Y"]])
+        prob = qt.UnitarySmoothPulseProblem(
+            sysq, qt.GATES["H"], T, 0.2, piccolo_options=qt.PiccoloOptions(verbose=False, **opts),
+            rng=np.random.default_rng(0), device="cpu")
+    else:
+        sysq = qt.QuantumSystem(0.1 * qt.PAULIS["Z"], [qt.PAULIS["X"], qt.PAULIS["Y"]])
+        prob = qt.QuantumStateSmoothPulseProblem(
+            sysq, [[1, 0], [0, 1]], [[0, 1], [1, 0]], T, 0.2,
+            piccolo_options=qt.PiccoloOptions(verbose=False, integrator="exponential", **opts),
+            rng=np.random.default_rng(0), device="cpu")
+    an = prob.solver.nlp.analytic
+    (g,) = an.groups
+    assert len(g.members) == (2 if kind == "kets" else 1)
+    assert g.kind == ("pade" if case.startswith("pade") else "exp")
+    assert (g.dt_col is not None) == case.endswith("free")
+    cfg = da.assembly_config(an)
+    assert cfg["threads_per_pair"] == 16 and Bt * (T - 1) % cfg["pairs_per_block"] != 0, cfg
+    rng = np.random.default_rng(Bt)
+    z0 = np.asarray(prob.solver.nlp.z0)
+    Z = torch.as_tensor(z0 + 0.05 * rng.standard_normal((Bt, *z0.shape)),
+                        dtype=torch.float32, device=cuda)
+    lam = torch.as_tensor(rng.standard_normal((Bt, T - 1, an.s)), dtype=torch.float32,
+                          device=cuda)
+    ref = da.dyn_assembly_reference(an, Z, lam)
+    da.dyn_assembly(an, Z, lam)  # packs the argument table before the poisoning
+    torch.cuda.synchronize()
+    poison = [torch.full(r.shape, float("nan"), device=cuda) for r in ref]
+    ptrs = sorted(x.data_ptr() for x in poison)
+    del poison
+    out = da.dyn_assembly(an, Z, lam)
+    torch.cuda.synchronize()
+    assert sorted(x.data_ptr() for x in out) == ptrs
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        if case.startswith("pade"):
+            torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+        else:
+            _close_rel(o, r)
