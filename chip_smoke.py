@@ -76,10 +76,12 @@ Phases, one JSON object per line on stdout:
      launches (T-1) x (KKT attempts + 1) times and the fused sweeps never.
 The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
-the rows of kernels 2, 3, 4, 6 and 7 report their launch configuration
-(threads per instance, instances per block, shared bytes per block), and
-kernel 1's rows its own (threads per pair, pairs per block, shared bytes
-per block).
+the bank's rows give, beside a call's time (ms, the host's enqueue
+included), its device time (device_ms: a CUDA graph of the call,
+replayed); the rows of kernels 2, 3, 4, 6 and 7 report their launch
+configuration (threads per instance, instances per block, shared bytes per
+block), and the rows of kernels 1 and 5 their own (threads per pair, pairs
+per block, shared bytes per block).
 Then the kernels line, and last {"ok": true, "device": {...}}.  Each main
 path checks its own kernels' launch counts.  Any failed check exits
 nonzero before the last line.  Without CUDA it exits 1.
@@ -304,7 +306,7 @@ def main():
     from quantumcollocation_tpu_torch.solver import kkt_lanes as kl
     from quantumcollocation_tpu_torch.solver.kkt import solve_kkt
     from quantumcollocation_tpu_torch.solver.lbfgs import lbfgs_rhs
-    from quantumcollocation_tpu_torch.bench_util import graph_ms, seeded_kkt, time_ms
+    from quantumcollocation_tpu_torch.bench_util import bank_args, graph_ms, seeded_kkt, time_ms
 
     # ---- 1. environment ---------------------------------------------- #
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -328,24 +330,15 @@ def main():
     def bank_entry(Z, analytic, v, second_order=True):
         """The bank kernel against its plain version on the pairs of Z, in
         the kind (Padé or exponential) of the problem's group."""
-        (g,) = analytic.groups
-        Zp = Z * torch.as_tensor(v, dtype=Z.dtype, device=Z.device)
-        na = g.G_drives.shape[0]
-        a = Zp[:, :-1, g.a_slice[0]:g.a_slice[1]].reshape(-1, na).contiguous()
-        free = g.dt_col is not None
-        dt = (Zp[:, :-1, g.dt_col].reshape(-1).contiguous() if free
-              else torch.full((a.shape[0],), g.dt_static, dtype=Z.dtype, device=Z.device))
-        Gd = torch.as_tensor(g.G_drift, dtype=Z.dtype, device=Z.device)
-        Gs = torch.as_tensor(g.G_drives, dtype=Z.dtype, device=Z.device)
-        kw = dict(kind=g.kind, order=g.order, num_squarings=g.num_squarings, free_dt=free,
-                  second_order=second_order)
+        a, dt, Gd, Gs, kw = bank_args(analytic, Z, v, second_order)
+        M, n, na = a.shape[0], Gd.shape[0], Gs.shape[0]
+        kind, free, nsq = kw["kind"], kw["free_dt"], kw["num_squarings"]
         k_out = pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)
         r_out = pb.prop_bank_reference(a, dt, Gd, Gs, **kw)
         errs = [rel_err(x, y) for x, y in zip(k_out, r_out) if y is not None]
         lib = {}
-        if g.kind == "exp":
-            nbytes, flops = exp_bank_counts(a.shape[0], Gd.shape[0], na, free, g.num_squarings,
-                                            second_order)
+        if kind == "exp":
+            nbytes, flops = exp_bank_counts(M, n, na, free, nsq, second_order)
             # the library counterpart, block set-up included, and its
             # agreement with the plain version (printed, not a check)
             l_out = exp_bank_library(a, dt, Gd, Gs, free, second_order)
@@ -354,15 +347,16 @@ def main():
                 library_max_rel_err=max(rel_err(x, y)[1] for x, y in zip(l_out, r_out)
                                         if y is not None))
         else:
-            nbytes, flops = bank_counts(a.shape[0], Gd.shape[0], na, free, g.order)
+            nbytes, flops = bank_counts(M, n, na, free, kw["order"], second_order)
         return dict(
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
             ms=time_ms(lambda: pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)),
+            device_ms=graph_ms(lambda: pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)),
             plain_ms=time_ms(lambda: pb.prop_bank_reference(a, dt, Gd, Gs, **kw)),
             bytes=nbytes, flops=flops, **lib,
-            shapes={"M": a.shape[0], "n": Gd.shape[0], "K": na + int(free), "free_dt": free,
-                    "kind": g.kind, "num_squarings": g.num_squarings,
-                    "second_order": second_order},
+            launch=pb.bank_config(n, na, free, second_order, kind),
+            shapes={"M": M, "n": n, "K": na + int(free), "free_dt": free, "kind": kind,
+                    "num_squarings": nsq, "second_order": second_order},
         )
 
     def sweep_entries(real, Bn, Tn, delta_c, factors, r=None):
@@ -1001,7 +995,7 @@ def main():
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"],
          "columns": r.get("columns", 1),
-         **{k: r[k] for k in ("launch", "ms_unit") if k in r}}
+         **{k: r[k] for k in ("launch", "ms_unit", "device_ms") if k in r}}
         for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

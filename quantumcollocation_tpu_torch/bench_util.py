@@ -1,5 +1,5 @@
-"""Seeded KKT blocks and CUDA timing, shared by chip_smoke.py, the build
-comparison (sweep_builds) and the GPU tests."""
+"""Seeded KKT blocks, the propagator bank's inputs and CUDA timing, shared
+by chip_smoke.py, the build comparison (sweep_builds) and the GPU tests."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import statistics
 import numpy as np
 import torch
 
-__all__ = ["seeded_kkt", "time_ms", "graph_ms"]
+__all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms"]
 
 
 def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
@@ -33,6 +33,34 @@ def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
            (1.0 if small else 0.5) * E + 0.1 * rng.normal(size=(Bn, Tn - 1, s, d)),
            rng.normal(size=(Bn, Tn, d, *cols)), rng.normal(size=(Bn, Tn - 1, s, *cols)),
            rng.normal(size=(Bn, Tn, d, *cols)), rng.normal(size=(Bn, Tn - 1, s, *cols))]
+    return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in out]
+
+
+def bank_args(analytic, Z, var_scale, second_order=True):
+    """The propagator bank's inputs on the (instance, knot) pairs of a
+    problem's scaled Z (B, T, d), as the solver passes them: (a (M, na),
+    dt (M,), G_drift, G_drives, keywords of ops.prop_bank.prop_bank)."""
+    (g,) = analytic.groups
+    Zp = Z * torch.as_tensor(var_scale, dtype=Z.dtype, device=Z.device)
+    na = g.G_drives.shape[0]
+    a = Zp[:, :-1, g.a_slice[0]:g.a_slice[1]].reshape(-1, na).contiguous()
+    free = g.dt_col is not None
+    dt = (Zp[:, :-1, g.dt_col].reshape(-1).contiguous() if free
+          else torch.full((a.shape[0],), g.dt_static, dtype=Z.dtype, device=Z.device))
+    Gd = torch.as_tensor(g.G_drift, dtype=Z.dtype, device=Z.device)
+    Gs = torch.as_tensor(g.G_drives, dtype=Z.dtype, device=Z.device)
+    kw = dict(kind=g.kind, order=g.order, num_squarings=g.num_squarings, free_dt=free,
+              second_order=second_order)
+    return a, dt, Gd, Gs, kw
+
+
+def seeded_bank(M, n, na, device, seed=0, a_scale=1.0, dt_range=(0.1, 0.4)):
+    """Seeded float32 bank inputs a (M, na), dt (M,), G_drift (n, n),
+    G_drives (na, n, n): controls uniform in ±a_scale, generators of
+    entries ~0.5 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    out = [rng.uniform(-a_scale, a_scale, size=(M, na)), rng.uniform(*dt_range, size=(M,)),
+           0.5 * rng.normal(size=(n, n)), 0.5 * rng.normal(size=(na, n, n))]
     return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in out]
 
 

@@ -19,16 +19,19 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..dynamics.expm import expm_frechet_bank, frechet_pairs, pade_coefficients, pade_poly_frechet
 from . import build
 
-__all__ = ["prop_bank", "prop_bank_reference", "prop_bank_cuda", "SUPPORTED_N"]
+__all__ = ["prop_bank", "prop_bank_reference", "prop_bank_cuda", "run_library", "bank_config",
+           "set_signatures"]
 
-# matrix sizes the kernel is instantiated for (csrc/prop_bank.cu)
-SUPPORTED_N = (2, 4, 6, 8)
+# what the library returns for an n it has no kernel for (csrc/prop_bank.cu,
+# QCT_SIZES: n = 2, 4, 6, 8, any number of drives)
+_NOT_SUPPORTED = 801  # cudaErrorNotSupported
 
 
 def _as(x, like):
@@ -65,10 +68,72 @@ _COEFFS: dict = {}
 
 def _coeffs(order, device):
     """The Padé coefficients as a float32 device tensor, made once."""
-    key = (order, str(device))
+    key = (order, device)
     if key not in _COEFFS:
         _COEFFS[key] = torch.tensor(pade_coefficients(order), dtype=torch.float32, device=device)
     return _COEFFS[key]
+
+
+def set_signatures(lib):
+    """Sets the C signature of qct_prop_bank in a prop_bank.cu library
+    (this tree's, or another build of it); returns lib."""
+    lib.qct_prop_bank.restype = ctypes.c_int
+    lib.qct_prop_bank.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p] * 7
+    return lib
+
+
+@functools.cache
+def _lib():
+    """This tree's library, its C signatures set once."""
+    lib = set_signatures(build.library("prop_bank"))
+    lib.qct_prop_bank_config.restype = ctypes.c_int
+    lib.qct_prop_bank_config.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
+def _check(err, n):
+    if err == _NOT_SUPPORTED:
+        raise NotImplementedError(f"prop_bank has no kernel for n={n}")
+    build.check(err, "prop_bank")
+
+
+def bank_config(n, na, free_dt, second_order, kind):
+    """Launch configuration of the kernel for n x n generators, na drives
+    and a free Δt or not: threads per pair, pairs per block, shared bytes
+    per block, and the design ("strip" up to a few drives, "entry" past
+    them; csrc/prop_bank.cu)."""
+    out = (ctypes.c_int * 4)()
+    _check(_lib().qct_prop_bank_config(n, na, int(free_dt), int(second_order),
+                                       int(kind == "exp"), out), n)
+    return dict(threads_per_pair=out[0], pairs_per_block=out[1], shared_bytes_per_block=out[2],
+                design="strip" if out[3] else "entry")
+
+
+def run_library(lib, a, dt, G_drift, G_drives, *, kind, order, num_squarings=0, free_dt,
+                second_order):
+    """Launch qct_prop_bank of `lib` (set_signatures done) on contiguous
+    float32 CUDA tensors; outputs as prop_bank_reference, allocated here."""
+    M, na = a.shape
+    n = G_drift.shape[0]
+    coeffs = _coeffs(order, a.device)
+    K = na + int(free_dt)
+    Kp = K * (K + 1) // 2 if second_order else 0
+    shapes = [(M, n, n), (M, K, n, n), (M, Kp, n, n) if second_order else None]
+    if kind == "pade":
+        shapes *= 2
+    new = dict(dtype=torch.float32, device=a.device)
+    outs = [None if sh is None else torch.empty(sh, **new) for sh in shapes]
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    err = lib.qct_prop_bank(
+        a.data_ptr(), dt.data_ptr(), G_drift.data_ptr(), G_drives.data_ptr(), coeffs.data_ptr(),
+        coeffs.numel(), M, n, na, K, Kp, int(free_dt), int(kind == "exp"),
+        int(num_squarings) if kind == "exp" else 0,
+        *[ptr(x) for x in outs + [None] * (6 - len(outs))],
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _check(err, n)
+    return tuple(outs)
 
 
 def prop_bank_cuda(a, dt, G_drift, G_drives, *, kind, order, num_squarings=0,
@@ -77,6 +142,8 @@ def prop_bank_cuda(a, dt, G_drift, G_drives, *, kind, order, num_squarings=0,
     outputs as prop_bank_reference."""
     if kind not in ("pade", "exp"):
         raise ValueError(f"kind {kind!r} is not 'pade' or 'exp'")
+    if order < 2:
+        raise ValueError(f"Padé order {order} < 2")
     if not (a.is_cuda and dt.is_cuda):
         raise ValueError("prop_bank_cuda needs CUDA tensors")
     if a.dtype != torch.float32 or dt.dtype != torch.float32:
@@ -86,32 +153,11 @@ def prop_bank_cuda(a, dt, G_drift, G_drives, *, kind, order, num_squarings=0,
     if tuple(dt.shape) != (M,) or tuple(G_drives.shape) != (na, n, n):
         raise ValueError(f"shapes a {tuple(a.shape)} dt {tuple(dt.shape)} G_drives "
                          f"{tuple(G_drives.shape)} do not fit")
-    if n not in SUPPORTED_N:
-        raise NotImplementedError(f"n={n} not in {SUPPORTED_N}")
-    a, dt = a.contiguous(), dt.contiguous()
     Gd, Gs = _as(G_drift, a).contiguous(), _as(G_drives, a).contiguous()
-    coeffs = _coeffs(order, a.device)
-    K = na + int(free_dt)
-    Kp = len(frechet_pairs(K)) if second_order else 0
-    new = dict(dtype=torch.float32, device=a.device)
-    outs = [torch.empty(M, n, n, **new), torch.empty(M, K, n, n, **new),
-            torch.empty(M, Kp, n, n, **new) if second_order else None]
-    if kind == "pade":
-        outs += [torch.empty_like(x) if x is not None else None for x in outs]
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    fn = build.library("prop_bank").qct_prop_bank
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 7
-    err = fn(
-        a.data_ptr(), dt.data_ptr(), Gd.data_ptr(), Gs.data_ptr(), coeffs.data_ptr(),
-        coeffs.numel(), M, n, na, K, Kp, int(free_dt), int(kind == "exp"),
-        int(num_squarings) if kind == "exp" else 0,
-        *[ptr(x) for x in outs + [None] * (6 - len(outs))],
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    build.check(err, "prop_bank")
+    outs = run_library(_lib(), a.contiguous(), dt.contiguous(), Gd, Gs, kind=kind, order=order,
+                       num_squarings=num_squarings, free_dt=free_dt, second_order=second_order)
     build.launch_counts["prop_bank"] += 1
-    return tuple(outs)
+    return outs
 
 
 def prop_bank(a, dt, G_drift, G_drives, **kw):

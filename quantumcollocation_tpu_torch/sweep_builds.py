@@ -1,13 +1,14 @@
-"""Times builds of the sweep kernels and of the fused assembly against each
-other, and checks that their outputs agree.
+"""Times builds of the sweep kernels, of the fused assembly and of the
+propagator bank against each other, and checks that their outputs agree.
 
     python -m quantumcollocation_tpu_torch.sweep_builds
         [--build NAME=SOURCE ...] [--assembly-build NAME=SOURCE ...]
-        [--repeat 20]
+        [--bank-build NAME=SOURCE ...] [--repeat 20]
 
 Builds each --build, a kkt_sweeps.cu with the port's C interface (an
-earlier commit's, or a variant of this one), and each --assembly-build, a
-dyn_assembly.cu with the port's C interface, beside this tree's own builds
+earlier commit's, or a variant of this one), each --assembly-build, a
+dyn_assembly.cu with the port's C interface, and each --bank-build, a
+prop_bank.cu with the port's C interface, beside this tree's own builds
 ("this").  On seeded blocks (bench_util.seeded_kkt) at the main paths'
 shapes, the hadamard shape (B=512, T=51, d=15, s=13) and the cnot shape
 (B=128, T=40, d=47, s=42), and on the hadamard path's first IPM
@@ -25,10 +26,17 @@ reverse order:
   - kernel 1, the fused assembly, on the first IPM iteration's Z and
     multipliers of the hadamard (Padé) and ket_exp (exponential) paths
     (profile_step's problems and seeds);
-each as the median of --repeat calls after warm-up, and reports each
+  - kernel 5, the propagator bank, on the first IPM iteration's Z of the
+    cnot (Padé, second order), cnot_exp (exponential, second order),
+    hadamard_lbfgs (Padé, first order, 25,600 pairs) and ket_exp
+    (exponential, first order) paths, and on a seeded n=6 case of transmon
+    leakage's shape (Padé, second order, fixed Δt, 2 drives, 9,984 pairs);
+each as the median of --repeat calls after warm-up (kernel 5 also as the
+device time of one call, a CUDA graph of it replayed: "device_ms"), and
+reports each
 build's largest difference from this tree's outputs of each case (0.0:
-bit for bit).  A NAME given to both --build and --assembly-build is one
-build.  Prints the card's name and power limit, then one JSON line per
+bit for bit).  A NAME given to more than one of --build, --assembly-build
+and --bank-build is one build.  Prints the card's name and power limit, then one JSON line per
 build.  Needs a CUDA GPU.
 """
 
@@ -42,10 +50,11 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import profile_step
-from .bench_util import graph_ms, seeded_kkt, time_ms
+from .bench_util import bank_args, graph_ms, seeded_bank, seeded_kkt, time_ms
 from .kkt_accuracy_probe import first_system
 from .ops import build as kbuild
 from .ops import dyn_assembly as da
+from .ops import prop_bank as pb
 from .solver import kkt_lanes as kl
 
 HAD = (512, 51, 15, 13)
@@ -54,12 +63,18 @@ DELTA_C = 1e-8
 
 
 class Build:
-    """The sweep kernels of one kkt_sweeps.cu library and the fused assembly
-    of one dyn_assembly.cu library (either may be None)."""
+    """The sweep kernels of one kkt_sweeps.cu library, the fused assembly of
+    one dyn_assembly.cu library and the bank of one prop_bank.cu library
+    (any may be None)."""
 
-    def __init__(self, lib, asm=None):
+    def __init__(self, lib, asm=None, bank=None):
         self.lib = lib
         self.asm = asm
+        self.bank = bank
+
+    def prop_bank(self, a, dt, Gd, Gs, kw):
+        """Kernel 5: the bank's outputs that are not None."""
+        return [x for x in pb.run_library(self.bank, a, dt, Gd, Gs, **kw) if x is not None]
 
     def assembly(self, an, Z, lam):
         """Kernel 1 on the problem `an`'s Z (B, T, d) and lam (B, T-1, s)."""
@@ -172,6 +187,8 @@ def main():
                     help="NAME=SOURCE, another kkt_sweeps.cu build to set beside this tree's")
     ap.add_argument("--assembly-build", action="append", default=[],
                     help="NAME=SOURCE, another dyn_assembly.cu build to set beside this tree's")
+    ap.add_argument("--bank-build", action="append", default=[],
+                    help="NAME=SOURCE, another prop_bank.cu build to set beside this tree's")
     ap.add_argument("--repeat", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -180,18 +197,25 @@ def main():
                          capture_output=True, text=True).stdout.strip(), flush=True)
     specs = [spec.split("=", 1) for spec in args.build]
     asm_specs = [spec.split("=", 1) for spec in args.assembly_build]
-    with ThreadPoolExecutor(len(specs) + len(asm_specs) + 2) as ex:  # one nvcc per source
+    bank_specs = [spec.split("=", 1) for spec in args.bank_build]
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(specs) + len(asm_specs) + len(bank_specs) + 3) as ex:
         this = ex.submit(kl._lib)
         this_asm = ex.submit(da._lib)
+        this_bank = ex.submit(pb._lib)
         others = [ex.submit(kbuild.build_other, source, f"kkt_sweeps_{name}")
                   for name, source in specs]
         asm_others = [ex.submit(kbuild.build_other, source, f"dyn_assembly_{name}")
                       for name, source in asm_specs]
-        builds = {"this": Build(this.result(), this_asm.result())}
+        bank_others = [ex.submit(kbuild.build_other, source, f"prop_bank_{name}")
+                       for name, source in bank_specs]
+        builds = {"this": Build(this.result(), this_asm.result(), this_bank.result())}
         for (name, _), lib in zip(specs, others):
             builds[name] = Build(kl.set_signatures(lib.result()))
         for (name, _), lib in zip(asm_specs, asm_others):
             builds.setdefault(name, Build(None)).asm = da.set_signatures(lib.result())
+        for (name, _), lib in zip(bank_specs, bank_others):
+            builds.setdefault(name, Build(None)).bank = pb.set_signatures(lib.result())
 
     had = seeded_kkt(*HAD, "cuda", seed=0)[:6]
     had13 = seeded_kkt(*HAD, "cuda", r=13, seed=2)[:6]  # hadamard_lbfgs's [rz | U]
@@ -205,12 +229,22 @@ def main():
         fh = ref.fwd(*had, False)
     bwd_had = (*fh[:4], *had[1:4], had[5], fh[4])
     bwd_cx = (*fac[:4], *cx[1:4], cx[5], fac[4])
-    asm_in = {}
-    for config in ("hadamard", "ket_exp"):
+    asm_in, bank_in = {}, {}
+    for config in ("hadamard", "ket_exp", "cnot", "cnot_exp", "hadamard_lbfgs"):
         solver, Z0 = profile_step.build(config, None)
         with torch.no_grad():
             st = solver.init_state(Z0)
-        asm_in[config] = (solver.nlp.analytic, st.Z.contiguous(), st.lam.contiguous())
+        an, Z = solver.nlp.analytic, st.Z.contiguous()
+        if config in ("hadamard", "ket_exp"):
+            asm_in[config] = (an, Z, st.lam.contiguous())
+        if config != "hadamard":
+            bank_in[config] = bank_args(an, Z, solver.var_scale,
+                                        second_order=config.startswith("cnot"))
+    # transmon leakage's bank: B=256, T=40, n=6, two drives, Δt=0.2 fixed
+    a6, dt6, Gd6, Gs6 = seeded_bank(256 * 39, 6, 2, "cuda", seed=6, a_scale=0.5,
+                                    dt_range=(0.2, 0.2))
+    bank_in["seeded_n6"] = (a6, dt6, Gd6, Gs6, dict(kind="pade", order=4, free_dt=False,
+                                                    second_order=True))
     cases = {  # name: (run, is_scan, library)
         "kkt_fwd_sweep_hadamard": (lambda b: b.fwd(*had, False), False, "lib"),
         "kkt_fwd_sweep_hadamard_real": (lambda b: b.fwd(*had_real, False), False, "lib"),
@@ -223,6 +257,8 @@ def main():
         "kkt_bwd_step_hadamard": (lambda b: b.bwd_scan(*bwd_had), True, "lib"),
         "dyn_assembly_hadamard": (lambda b: b.assembly(*asm_in["hadamard"]), False, "asm"),
         "dyn_assembly_ket_exp": (lambda b: b.assembly(*asm_in["ket_exp"]), False, "asm"),
+        **{f"prop_bank_{config}": (lambda b, c=config: b.prop_bank(*bank_in[c]), False, "bank")
+           for config in bank_in},
     }
     results = {name: {} for name in builds}
     with torch.no_grad():
@@ -249,6 +285,8 @@ def main():
                     ms = time_ms(lambda: make(b), args.repeat)
                 r = results[name].setdefault(case, {"ms": [], "max_abs_diff_vs_this": 0.0})
                 r["ms"].append(ms)
+                if which == "bank":  # a call's device time, without the host's enqueue
+                    r.setdefault("device_ms", []).append(graph_ms(lambda: make(b), args.repeat))
                 r["max_abs_diff_vs_this"] = max(r["max_abs_diff_vs_this"],
                                                 max_diff(outs, refs[case]))
     for name, res in results.items():

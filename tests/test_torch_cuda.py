@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import quantumcollocation_tpu_torch as qt
-from quantumcollocation_tpu_torch.bench_util import seeded_kkt
+from quantumcollocation_tpu_torch.bench_util import seeded_bank, seeded_kkt
 from quantumcollocation_tpu_torch.ops import build
 from quantumcollocation_tpu_torch.ops import dyn_assembly as da
 from quantumcollocation_tpu_torch.ops import prop_bank as pb
@@ -114,47 +114,102 @@ def _close_rel(out, ref, tol=1e-4):
     assert (out.double() - ref.double()).abs().max() <= tol * max(1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("n, na, free_dt", [(8, 5, False), (4, 2, True)])
-def test_bank_kernel_matches_plain_version(cuda, n, na, free_dt):
-    rng = np.random.default_rng(n)
-    M = 300
-    args = [rng.uniform(-1, 1, size=(M, na)), rng.uniform(0.1, 0.4, size=(M,)),
-            0.5 * rng.normal(size=(n, n)), 0.5 * rng.normal(size=(na, n, n))]
-    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in args]
-    kw = dict(kind="pade", order=4, free_dt=free_dt, second_order=True)
+# (n, drives): kernel 5's strip design up to its drives (2 at n = 2, 4, 6;
+# 5 at n = 8) and its entry design past them; each with a fixed and a free
+# Δt
+_STRIP_MAX = {2: 2, 4: 2, 6: 2, 8: 5}
+_BANK_NNA = [(2, 1), (2, 2), (2, 3), (4, 1), (4, 2), (4, 3), (6, 1), (6, 2), (6, 3),
+             (8, 1), (8, 4), (8, 5), (8, 6)]
+_BANK_SHAPES = [(n, na, free) for n, na in _BANK_NNA for free in (False, True)]
+
+
+def _design(n, na):
+    return "strip" if na <= _STRIP_MAX[n] else "entry"
+
+
+def _bank_into_poison(args, kw, monkeypatch):
+    """The bank of args written into memory poisoned with NaN: the wrapper's
+    output allocations come filled with NaN, so an entry the kernel never
+    writes shows up."""
+    full = torch.full
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", lambda shape, **k: full(shape, float("nan"), **k))
+        out = pb.prop_bank(*args, **kw)
+    torch.cuda.synchronize()
+    return out
+
+
+def _check_bank(args, kw, monkeypatch):
+    """Kernel 5 against its plain version on NaN-poisoned outputs; a pair's
+    outputs do not depend on its place in the batch (bit for bit)."""
+    ref = pb.prop_bank_reference(*args, **kw)
     before = build.launch_counts["prop_bank"]
-    out = pb.prop_bank(*args, **kw)
+    out = _bank_into_poison(args, kw, monkeypatch)
     assert build.launch_counts["prop_bank"] == before + 1
-    for o, r in zip(out, pb.prop_bank_reference(*args, **kw)):
-        assert o.shape == r.shape
+    assert len(out) == len(ref)
+    for o, r in zip(out, ref):
+        if r is None:
+            assert o is None
+            continue
+        assert o.shape == r.shape and torch.isfinite(o).all()
         _close_rel(o, r)
-    first = pb.prop_bank(*args, **{**kw, "second_order": False})
+    last = pb.prop_bank(*[x[-1:] for x in args[:2]], *args[2:], **kw)
+    for o, x in zip(out, last):
+        if o is not None:
+            assert torch.equal(o[-1:], x)
+    return out
+
+
+@pytest.mark.parametrize("M", [1, 300, 301])  # 300 or 301: a ragged last block
+@pytest.mark.parametrize("order", [4, 8])
+@pytest.mark.parametrize("n, na, free_dt", _BANK_SHAPES)
+def test_bank_kernel_matches_plain_version(cuda, monkeypatch, n, na, free_dt, order, M):
+    assert pb.bank_config(n, na, free_dt, True, "pade")["design"] == _design(n, na)
+    args = seeded_bank(M, n, na, cuda, seed=n + 10 * na + order)
+    kw = dict(kind="pade", order=order, free_dt=free_dt, second_order=True)
+    out = _check_bank(args, kw, monkeypatch)
+    first = _check_bank(args, {**kw, "second_order": False}, monkeypatch)
     assert first[2] is None and first[5] is None
     _close_rel(first[4], out[4])
 
 
-@pytest.mark.parametrize("n, na, free_dt, second_order, nsq", [
-    (8, 5, False, True, 2),  # the CNOT path's iterations
-    (4, 2, True, False, 1),  # the ket path's multiplier initialisation
-    (4, 2, True, True, 3),
-])
-def test_bank_kernel_exp_branch_matches_plain_version(cuda, n, na, free_dt, second_order, nsq):
-    rng = np.random.default_rng(n + nsq)
-    M = 300
-    args = [rng.uniform(-1, 1, size=(M, na)), rng.uniform(0.1, 0.4, size=(M,)),
-            0.5 * rng.normal(size=(n, n)), 0.5 * rng.normal(size=(na, n, n))]
-    args = [torch.as_tensor(x, dtype=torch.float32, device=cuda) for x in args]
-    kw = dict(kind="exp", order=8, num_squarings=nsq, free_dt=free_dt, second_order=second_order)
-    before = build.launch_counts["prop_bank"]
-    out = pb.prop_bank(*args, **kw)
-    torch.cuda.synchronize()
-    assert build.launch_counts["prop_bank"] == before + 1 and len(out) == 3
-    for o, r in zip(out, pb.prop_bank_reference(*args, **kw)):
-        if r is None:
-            assert o is None
-            continue
-        assert o.shape == r.shape
-        _close_rel(o, r)
+_EXP_CASES = [  # (n, drives, free Δt, second order, Padé order, squarings)
+    (8, 5, False, True, 8, 2),  # the CNOT path's iterations
+    (4, 2, True, False, 8, 1),  # the ket path's multiplier initialisation
+    (4, 2, True, True, 8, 3),
+    (2, 1, False, True, 8, 0),
+    (2, 2, True, False, 8, 2),
+    (6, 2, False, True, 8, 1),
+    (6, 2, True, True, 8, 2),
+    (8, 5, True, True, 8, 1),  # K = 6: more than 48 KB of shared memory a block
+    # orders 2 and 4: the closed-form first step is the only step, or the
+    # one before the last
+    (4, 2, False, True, 2, 1),
+    (4, 1, True, True, 2, 0),
+    (8, 2, False, True, 2, 2),
+    (8, 5, True, True, 2, 1),
+    (2, 2, True, True, 4, 1),
+    (8, 5, False, True, 4, 2),
+    (6, 1, True, True, 4, 0),
+    # the entry design
+    (4, 3, False, True, 2, 1),
+    (2, 3, True, True, 8, 1),
+    (4, 4, False, True, 4, 2),
+    (6, 3, True, False, 2, 1),
+    (8, 6, False, True, 8, 2),
+    (8, 6, True, True, 2, 1),
+]
+
+
+@pytest.mark.parametrize("M", [1, 300, 301])
+@pytest.mark.parametrize("n, na, free_dt, second_order, order, nsq", _EXP_CASES)
+def test_bank_kernel_exp_branch_matches_plain_version(cuda, monkeypatch, n, na, free_dt,
+                                                      second_order, order, nsq, M):
+    assert pb.bank_config(n, na, free_dt, second_order, "exp")["design"] == _design(n, na)
+    args = seeded_bank(M, n, na, cuda, seed=n + nsq)
+    kw = dict(kind="exp", order=order, num_squarings=nsq, free_dt=free_dt,
+              second_order=second_order)
+    assert len(_check_bank(args, kw, monkeypatch)) == 3
 
 
 def _ket_problem(T=11, **kw):
@@ -296,6 +351,41 @@ def test_cnot_exp_path_launches_its_kernels(cuda):
     assert torch.isfinite(res.Z).all()
     assert c["dyn_assembly"] == 0 and c["prop_bank"] >= prob.solver.last_steps > 0, c
     assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+
+
+@pytest.mark.parametrize("qubits, drives, free_time, fused", [
+    # (n, K) = (4, 3): the fused assembly's, the bank (entry design) at the
+    # start
+    (1, ["X", "Y", "Z"], False, "auto"),
+    # the bank's entry design in every iteration (the fused assembly takes
+    # K <= 3 only)
+    (1, ["X", "Y", "Z", "X"], True, False),
+    # the strip design below its most drives, in every iteration
+    (2, ["XI", "IX"], False, "auto"),
+    # the entry design, in every iteration
+    (2, ["ZX", "XI", "YI", "IX", "IY", "ZZ"], False, "auto"),
+])
+def test_drive_counts_solve_on_the_card(cuda, qubits, drives, free_time, fused):
+    P = qt.PAULIS
+    op = lambda name: np.asarray(  # noqa: E731
+        P[name] if qubits == 1 else np.kron(P[name[0]], P[name[1]]))
+    drift = P["Z"] if qubits == 1 else 0.1 * op("ZZ")
+    sysq = qt.QuantumSystem(drift, [op(x) for x in drives])
+    prob = qt.UnitarySmoothPulseProblem(
+        sysq, qt.GATES["H" if qubits == 1 else "CX"], 11, 0.3, Q=1e4, R=1e-3,
+        ipopt_options=qt.SolverOptions(kkt_backend="lanes", line_search="filter",
+                                       fused_assembly=fused),
+        piccolo_options=qt.PiccoloOptions(verbose=False, free_time=free_time),
+        rng=np.random.default_rng(7),
+    )
+    Z0 = prob.multistart_initial_decisions(4, sigma=0.3, rng=np.random.default_rng(0))
+    build.reset_launch_counts()
+    res = prob.solve_batched(Z0, max_iter=5)
+    c = build.launch_counts
+    assert torch.isfinite(res.Z).all()
+    assert c["prop_bank"] >= (1 if fused == "auto" and qubits == 1
+                              else prob.solver.last_steps) > 0, c
+    assert c["kkt_fwd_sweep"] > 0, c
 
 
 def _seeded_kkt(Bt, T, d, s, r, device, seed=0):
