@@ -73,8 +73,40 @@ Phases, one JSON object per line on stdout:
      rows, the host-bound time of a solve's launches from Python;
  17. main path, hadamard_scan: phase 4's problem with kkt_backend
      "lanes_scan", 48 iterations (frac@1e-4 >= 0.9); each step kernel
-     launches (T-1) x (KKT attempts + 1) times and the fused sweeps never.
-The exponential bank's rows also time its library counterpart
+     launches (T-1) x (KKT attempts + 1) times and the fused sweeps never;
+ 18. kernels, su4 shapes (BASELINE #5: UnitaryMultiGoalProblem, phase 7's
+     two qubits, T=33, Δt=0.3 fixed, Q=1e4, R=1e-3, kkt_backend "lanes"):
+     the bank (second order, 16,384 pairs, n=8, K=5) and the three sweeps
+     with kept factors (B=512, d=47, s=42), on the first iteration's
+     inputs, as phase 6;
+ 19. main path, su4: one wave of 128 Haar goals (random_su,
+     default_rng(2024)) x 4 seeds (multigoal_initial_decisions, σ=0.2,
+     default_rng(100)) = B 512, 80 iterations, after a discarded warm-up
+     solve of a few iterations on other seeds (default_rng(300)); checked
+     per instance against its own goal by the float64
+     multigoal_rollout_fidelities (frac@1e-4 >= 0.9);
+ 20. min_time warm stage (BASELINE #2): B=1 fixed-time Hadamard (T=51,
+     Δt=0.2, Q=1e4, R=1e-3, tol 1e-7, recalc_y with feasibility tolerance
+     1e1, kkt_backend "xla", 80 iterations): recalc_y keeps the fused
+     assembly off, so the bank runs in every iteration; its row is on the
+     warm stage's first-iteration inputs;
+ 21. kernels, min_time shapes: the minimum-time problem (the free-time
+     trajectory rolled out from the warm controls, floor 0.99995, D=1000,
+     tol 1e-6, kkt_backend "lanes", m=1: the ρJᵀJ lift and the retry warm
+     start on): the fused assembly on its first iteration's (Z, λ), and
+     kernel 2 with kept factors, kernels 4 and 3 (B=512, d=15, s=13) on
+     lifted blocks (H + δ_w I + ρS_AA, C + ρS_AB, rz + ρJᵀrnu): held
+     against their plain versions on seeded blocks of these shapes lifted
+     by the solver's own ρ rule, timed on the first iteration's lifted
+     blocks; then their float32 error against the float64 solve of the
+     unlifted system, unrefined and after the one refinement pass;
+ 22. main path, min_time: B=512 seeds (the initial decision with 1e-4
+     control noise), 48 iterations after a discarded warm-up; an instance
+     succeeds at float64 fidelity >= 0.9999 and a duration below the warm
+     one (success_frac >= 0.9, median duration below the warm one); every
+     attempt is refined once through its kept factors (the lift's pass).
+The sweep rows of phases 18 and 21 also give device_ms (a CUDA graph of
+the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
 the bank's rows give, beside a call's time (ms, the host's enqueue
 included), its device time (device_ms: a CUDA graph of the call,
@@ -306,6 +338,7 @@ def main():
     from quantumcollocation_tpu_torch.solver import kkt_lanes as kl
     from quantumcollocation_tpu_torch.solver.kkt import solve_kkt
     from quantumcollocation_tpu_torch.solver.lbfgs import lbfgs_rhs
+    from quantumcollocation_tpu_torch import bench_util as bu
     from quantumcollocation_tpu_torch.bench_util import bank_args, graph_ms, seeded_kkt, time_ms
 
     # ---- 1. environment ---------------------------------------------- #
@@ -359,14 +392,18 @@ def main():
                     "num_squarings": nsq, "second_order": second_order},
         )
 
-    def sweep_entries(real, Bn, Tn, delta_c, factors, r=None):
+    def sweep_entries(real, Bn, Tn, delta_c, factors, r=None, lift=None, device=False):
         """Kernels 2, 3 (and 4 with factors) against their plain versions
         on seeded blocks of the path's shapes (r right-hand-side columns
-        where r is given); times on the path's real blocks (H with the
-        accepted δ_w)."""
+        where r is given; lift maps the seeded (H, C, A, B, rz, rnu) to the
+        blocks the path factors); times on the path's real blocks (H with
+        the accepted δ_w), and with device their device times (a CUDA graph
+        of the call)."""
         d, s = real[0].shape[-1], real[2].shape[-2]
         dev = real[0].device
         seeded = seeded_kkt(Bn, Tn, d, s, dev, r)
+        if lift is not None:
+            seeded = list(lift(*seeded[:6])) + seeded[6:]
         mats, rhs, rhs2 = seeded[:4], seeded[4:6], seeded[6:]
         out = {}
         k_f = list(kl.fwd_sweep_cuda(*mats, *rhs, delta_c, want_factors=factors))
@@ -418,6 +455,15 @@ def main():
                                                                     rnu, rL_Pf)),
                 bytes=nbytes, flops=flops, launch=kl.sweep_config("kkt_rhs_fwd_sweep", Bn, d, s),
             )
+        if device:
+            calls = {
+                "kkt_fwd_sweep": lambda: kl.fwd_sweep_cuda(*real, delta_c, want_factors=factors),
+                "kkt_bwd_sweep": lambda: kl.bwd_sweep_cuda(*real_bwd),
+                "kkt_rhs_fwd_sweep": lambda: kl.rhs_fwd_sweep_cuda(
+                    rf[0], rf[1], rG, C, A, rz, rnu, rL_Pf),
+            }
+            for name in out:
+                out[name]["device_ms"] = graph_ms(calls[name])
         return out
 
     def first_iteration(solver, Z0):
@@ -979,6 +1025,242 @@ def main():
     if frs["frac_infid_1e-4"] < 0.9:
         fail(f"hadamard_scan frac@1e-4 {frs['frac_infid_1e-4']} < 0.9")
 
+    # ---- 18. kernels on the first su4 iteration's inputs ------------------ #
+    SU_B, SU_T, SU_DT, SU_ITERS, SU_GOALS, SU_SEEDS = 512, 33, 0.3, 80, 128, 4
+    probu = bu.su4_problem(SU_T, SU_DT)
+    solveru = probu.solver
+    if (solveru.fused_assembly_on, solveru.kkt_refine_n, solveru.kkt_aug_on) != (False, 1, False):
+        fail(f"su4 modes {(solveru.fused_assembly_on, solveru.kkt_refine_n)} != (False, 1)")
+    rng_goals = np.random.default_rng(2024)
+    goals = [q.random_su(4, rng_goals) for _ in range(SU_GOALS)]
+
+    def seedsu(seed):
+        return q.multigoal_initial_decisions(probu, goals, n_seeds_per_goal=SU_SEEDS, sigma=0.2,
+                                             rng=np.random.default_rng(seed))
+
+    t_init = time.perf_counter()
+    Zu0, Zuw = seedsu(100), seedsu(300)
+    init_s = time.perf_counter() - t_init
+    with torch.no_grad():
+        stu, _, realu, _ = first_iteration(solveru, Zu0)
+        Zu = stu.Z.contiguous()
+        du, su_ = Zu.shape[-1], stu.lam.shape[-1]
+        resultsu = {"prop_bank": bank_entry(Zu, solveru.nlp.analytic, solveru.var_scale)}
+        resultsu.update(sweep_entries(realu, SU_B, SU_T, delta_c, factors=True, device=True))
+    finish(resultsu, bw, f32_peak)
+    shapesu = {"B": SU_B, "T": SU_T, "d": du, "s": su_, "dtype": "float32"}
+    for name, r in resultsu.items():
+        emit({"phase": "kernel", "path": "su4", "name": name,
+              "shapes": r.pop("shapes", shapesu), **r})
+    bad = [n for n, r in resultsu.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the su4 shapes: {bad}")
+
+    # ---- 19. su4 main path ------------------------------------------------ #
+    solveru.solve(Zuw, max_iter=CX_WARM)  # discarded warm-up
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resu = solveru.solve(Zu0, max_iter=SU_ITERS)
+    torch.cuda.synchronize()
+    wallu = time.perf_counter() - t0
+    countsu = dict(build.launch_counts)
+    itu, attu = solveru.last_steps, solveru.kkt_attempts
+    Zsu = resu.Z.double().cpu().numpy()
+    if Zsu.shape != (SU_B, SU_T, du) or not np.isfinite(Zsu).all():
+        fail(f"su4 solution has shape {Zsu.shape} or non-finite values")
+    infidu = 1.0 - q.multigoal_rollout_fidelities(probu, Zsu, goals, n_seeds_per_goal=SU_SEEDS)
+    fru = {f"frac_infid_{t}": float(np.mean(infidu <= float(t))) for t in ("1e-4", "1e-3", "1e-2")}
+    goal_best = infidu.reshape(SU_GOALS, SU_SEEDS).min(axis=1)
+    emit({"phase": "main_path", "path": "su4", "batch": SU_B, "goals": SU_GOALS,
+          "seeds_per_goal": SU_SEEDS, "T": SU_T, "ipm_iters": itu, "wall_s": wallu,
+          "ipm_ms_per_iter": 1e3 * wallu / max(itu, 1),
+          "solves_per_s_at_1e-4": SU_B * fru["frac_infid_1e-4"] / wallu, **fru,
+          "goal_frac_solved_1e-4": float(np.mean(goal_best <= 1e-4)),
+          "best_infid": float(infidu.min()), "median_infid": float(np.median(infidu)),
+          "ipm_converged_frac": float(resu.converged.float().mean()),
+          "seed_build_s_two_waves": init_s, "launches": countsu, "kkt_attempts": attu,
+          "kkt_attempts_per_iter": attu / max(itu, 1),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    su_kernels = ("prop_bank", "kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+    if min(countsu[k] for k in su_kernels) <= 0 or countsu["dyn_assembly"] != 0:
+        fail(f"a kernel of the su4 path was not launched, or the fused assembly was: {countsu}")
+    if countsu["prop_bank"] < itu or countsu["kkt_rhs_fwd_sweep"] != countsu["kkt_fwd_sweep"] - 1:
+        fail(f"su4: fewer bank launches than iterations, or not one re-solve per attempt: "
+             f"{countsu}")
+    if fru["frac_infid_1e-4"] < 0.9:
+        fail(f"su4 frac@1e-4 {fru['frac_infid_1e-4']} < 0.9")
+    emit({"phase": "launches_per_iter", "path": "su4",
+          **{k: v / max(itu, 1) for k, v in countsu.items()}})
+
+    # ---- 20. min_time warm stage ------------------------------------------ #
+    MT_ITERS, MT_WARM_ITERS = 48, 80
+    warm = bu.min_time_warm(T, 0.2)
+    solverw = warm.solver
+    if (solverw.fused_assembly_on, solverw.kkt_aug_on) != (False, False):
+        fail(f"min_time warm-stage modes {(solverw.fused_assembly_on, solverw.kkt_aug_on)}")
+    with torch.no_grad():
+        stw = solverw.init_state(warm.initial_decision(1))
+        resultsw = {"prop_bank": bank_entry(stw.Z.contiguous(), solverw.nlp.analytic,
+                                            solverw.var_scale)}
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    warm.solve(max_iter=MT_WARM_ITERS)
+    torch.cuda.synchronize()
+    wallw = time.perf_counter() - t0
+    countsw = dict(build.launch_counts)
+    fid_warm = float(q.unitary_rollout_fidelity(warm.trajectory, warm.system))
+    emit({"phase": "main_path", "path": "min_time_warm", "batch": 1, "T": T,
+          "ipm_iters": solverw.last_steps, "wall_s": wallw,
+          "ipm_ms_per_iter": 1e3 * wallw / max(solverw.last_steps, 1), "warm_fid": fid_warm,
+          "converged": bool(warm.result.converged[0]), "launches": countsw,
+          "kkt_attempts": solverw.kkt_attempts})
+    if countsw["prop_bank"] < solverw.last_steps or countsw["dyn_assembly"] != 0:
+        fail(f"min_time warm stage: not a bank launch per iteration, or the fused assembly: "
+             f"{countsw}")
+    if not fid_warm > 0.999:
+        fail(f"min_time warm stage fidelity {fid_warm}")
+
+    # ---- 21. kernels on the first min_time iteration's inputs -------------- #
+    mt, dur0 = bu.min_time_problem(warm)
+    solverm = mt.solver
+    modes = (solverm.fused_assembly_on, solverm.kkt_refine_n, solverm.kkt_aug_on,
+             solverm.retry_warm_on, solverm.nlp.m)
+    if modes != (True, 0, True, True, 1):
+        fail(f"min_time modes {modes} != (True, 0, True, True, 1)")
+    with torch.no_grad():
+        stm = solverm.init_state(bu.min_time_seeds(mt, B, 7))
+        kkt_m, aux_m = solverm._iteration_pre(stm)
+        out_m = solverm._solve_kkt_batched(kkt_m, stm.delta_w, stm, False, None, aux_m.rho0)
+        dwm, rho_acc = out_m[3], out_m[5]
+        kkt_m = [x.contiguous() for x in kkt_m]
+        # the first iteration's blocks lifted by ρ0 at the accepted δ_w
+        realm = [x.contiguous() for x in solverm._lifted(
+            kkt_m, dwm, aux_m.rho0, solverm._lift_S(kkt_m[2], kkt_m[3]))]
+
+        def lift_seeded(H_, C_, A_, B_, rz_, rnu_):
+            rho = solverm.lift_scale(H_, C_, solverm.options.kkt_aug_rho_factor)
+            return [x.contiguous() for x in solverm._lifted(
+                (H_, C_, A_, B_, rz_, rnu_), torch.zeros_like(rho), rho,
+                solverm._lift_S(A_, B_))]
+
+        anm = solverm.nlp.analytic
+        Zm, lamm = stm.Z.contiguous(), stm.lam.contiguous()
+        dm, sm = Zm.shape[-1], lamm.shape[-1]
+        k_out = dyn_assembly_cuda(anm, Zm, lamm)
+        r_out = dyn_assembly_reference(anm, Zm, lamm)
+        errs = [rel_err(a, b) for a, b in zip(k_out, r_out)]
+        (gm,) = anm.groups
+        nmm, Km = gm.G_drift.shape[0], gm.G_drives.shape[0] + 1
+        n_pairs = B * (T - 1)
+        resultsm = {"dyn_assembly": dict(
+            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+            ms=time_ms(lambda: dyn_assembly_cuda(anm, Zm, lamm)),
+            device_ms=graph_ms(lambda: dyn_assembly_cuda(anm, Zm, lamm)),
+            plain_ms=time_ms(lambda: dyn_assembly_reference(anm, Zm, lamm)),
+            bytes=F4 * (Zm.numel() + lamm.numel() + sum(x.numel() for x in k_out)),
+            flops=(bank_counts(n_pairs, nmm, Km - 1, True)[1]
+                   + n_pairs * sum(member_flops(nmm, Km, mb[4], False) for mb in gm.members)),
+            launch=assembly_config(anm),
+        )}
+        resultsm.update(sweep_entries(realm, B, T, delta_c, factors=True, lift=lift_seeded,
+                                      device=True))
+    finish(resultsm, bw, f32_peak)
+    finish(resultsw, bw, f32_peak)
+    shapesm = {"B": B, "T": T, "d": dm, "s": sm, "m": 1, "dtype": "float32"}
+    for name, r in resultsm.items():
+        emit({"phase": "kernel", "path": "min_time", "name": name,
+              "shapes": r.pop("shapes", shapesm),
+              **({"lifted": True} if name.startswith("kkt") else {}), **r})
+    emit({"phase": "kernel", "path": "min_time", "stage": "warm", "name": "prop_bank",
+          **resultsw["prop_bank"]})
+    emit({"phase": "lift_system", "path": "min_time", "rho0_median": float(aux_m.rho0.median()),
+          "rho0_max": float(aux_m.rho0.max()), "dw_median": float(dwm.median()),
+          "accepted_lifted_frac": float((rho_acc > 0).float().mean())})
+    bad = [n for res_ in (resultsm, resultsw) for n, r in res_.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the min_time shapes: {bad}")
+    # the lifted system is far from float32's reach at this iteration
+    # (ρ0 ~ 3e2): the step comes from its solve plus the one refinement
+    # pass against the unlifted system on the kept factors; both are held
+    # against the float64 solves of the lifted and of the unlifted system
+    # (equal in exact arithmetic up to ρδ_c terms), the plain float32
+    # solve of the lifted system beside them (a printed finding, as the
+    # first iteration of cnot; no gate on its size)
+    with torch.no_grad():
+        dz0, nu0, ok0, fac = kl.solve_kkt_lanes(*realm, delta_c, want_factors=True)
+        dz1, nu1 = solverm._refine(kkt_m, dwm, dz0, nu0,
+                                   lambda a, b: kl.resolve_kkt_lanes(fac, a, b),
+                                   rho=aux_m.rho0, n_pass=1)
+        dz_p, nu_p, ok_p = solve_kkt(*realm, delta_c)
+        refs = {"lifted": solve_kkt(*[x.double().cpu() for x in realm], delta_c),
+                "unlifted": solve_kkt(*[x.double().cpu() for x in
+                                        solverm._lifted(kkt_m, dwm, None)], delta_c)}
+        line = {}
+        for rname, (dz_r, nu_r, ok_r) in refs.items():
+            keep = ok_r & ok0.cpu()
+            for tag, (a, b) in (("refine0", (dz0, nu0)), ("refine1", (dz1, nu1)),
+                                ("plain", (dz_p, nu_p))):
+                line[f"{tag}_rel_err_vs_f64_{rname}"] = max(rel_err(a.cpu(), dz_r, keep)[1],
+                                                            rel_err(b.cpu(), nu_r, keep)[1])
+            line[f"compared_{rname}"] = int(keep.sum())
+            line[f"ok_f64_{rname}"] = int(ok_r.sum())
+        e1 = line["refine1_rel_err_vs_f64_unlifted"]
+    emit({"phase": "reference", "path": "min_time", "batch": B, "lifted": True, **line,
+          "ok_kernel": int(ok0.sum()), "ok_plain": int(ok_p.sum())})
+    if line["compared_unlifted"] < line["ok_f64_unlifted"] - B // 100 or not np.isfinite(e1):
+        fail("the min_time kernel KKT solve failed on the first iteration's lifted system")
+
+    # ---- 22. min_time main path ------------------------------------------- #
+    solverm.solve(bu.min_time_seeds(mt, B, 6), max_iter=NEW_WARM)  # discarded warm-up
+    Zm0 = bu.min_time_seeds(mt, B, 42)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resm = solverm.solve(Zm0, max_iter=MT_ITERS)
+    torch.cuda.synchronize()
+    wallm = time.perf_counter() - t0
+    countsm = dict(build.launch_counts)
+    itm, attm = solverm.last_steps, solverm.kkt_attempts
+    lifted_share = float(solverm.kkt_lifted_rows) / max(solverm.kkt_attempt_rows, 1)
+    Zsm = resm.Z.double().cpu().numpy()
+    if Zsm.shape != (B, T, dm) or not np.isfinite(Zsm).all():
+        fail(f"min_time solution has shape {Zsm.shape} or non-finite values")
+    trm = mt.trajectory
+    am_sl, dtm_sl = trm.comp_slice("a"), trm.comp_slice("Δt")
+    dtsm = Zsm[:, :, dtm_sl][:, :, 0]
+    fidsm = q.batched_rollout_fidelity(Zsm[:, :, am_sl], dtsm, warm.system, trm.goal["Ũ⃗"],
+                                       trm.initial["Ũ⃗"], device="cuda")
+    dursm = dtsm[:, :-1].sum(axis=1)
+    okm = (fidsm >= 0.9999) & (dursm < dur0)
+    succ = float(okm.mean())
+    emit({"phase": "main_path", "path": "min_time", "batch": B, "T": T, "ipm_iters": itm,
+          "wall_s": wallm, "ipm_ms_per_iter": 1e3 * wallm / max(itm, 1),
+          "success_frac": succ, "solves_per_s_at_fid_0.9999": B * succ / wallm,
+          "warm_fid": fid_warm, "duration_before": dur0,
+          "median_duration_after": float(np.median(dursm)), "median_fid": float(np.median(fidsm)),
+          "fid_quantiles": [float(x) for x in np.quantile(fidsm, [0.0, 0.01, 0.1, 0.5, 0.9])],
+          "frac_fid_0.9999": float(np.mean(fidsm >= 0.9999)),
+          "frac_shorter": float(np.mean(dursm < dur0)),
+          "ipm_converged_frac": float(resm.converged.float().mean()),
+          "launches": countsm, "kkt_attempts": attm, "kkt_attempts_per_iter": attm / max(itm, 1),
+          "lifted_attempt_share": lifted_share,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    mt_kernels = ("dyn_assembly", "kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+    if min(countsm[k] for k in mt_kernels) <= 0 or countsm["dyn_assembly"] < itm:
+        fail(f"a kernel of the min_time path was not launched: {countsm}")
+    if countsm["prop_bank"] != 1 or countsm["kkt_rhs_fwd_sweep"] != countsm["kkt_fwd_sweep"] - 1:
+        fail(f"min_time: not one bank launch per solve, or not one re-solve per attempt: "
+             f"{countsm}")
+    if succ < 0.9 or not np.median(dursm) < dur0:
+        fail(f"min_time success_frac {succ} < 0.9 or median duration {np.median(dursm)} "
+             f">= {dur0}")
+    emit({"phase": "launches_per_iter", "path": "min_time",
+          **{k: v / max(itm, 1) for k, v in countsm.items()}})
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -988,6 +1270,9 @@ def main():
     entries += [("hadamard_lbfgs", n, r, countsq) for n, r in resultsq.items()]
     entries += [("hadamard_scan", n, results[n], countss) for n in ("dyn_assembly", "prop_bank")]
     entries += [("hadamard_scan", n, r, countss) for n, r in resultss.items()]
+    entries += [("su4", n, r, countsu) for n, r in resultsu.items()]
+    entries += [("min_time", n, r, countsm) for n, r in resultsm.items()]
+    entries += [("min_time", "prop_bank", dict(resultsw["prop_bank"], stage="warm"), countsw)]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],
@@ -995,7 +1280,7 @@ def main():
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"],
          "columns": r.get("columns", 1),
-         **{k: r[k] for k in ("launch", "ms_unit", "device_ms") if k in r}}
+         **{k: r[k] for k in ("launch", "ms_unit", "device_ms", "stage") if k in r}}
         for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
-"""Seeded KKT blocks, the propagator bank's inputs and CUDA timing, shared
-by chip_smoke.py, the build comparison (sweep_builds) and the GPU tests."""
+"""Seeded KKT blocks, the propagator bank's inputs, CUDA timing, and the
+su4 and min_time problems, shared by chip_smoke.py, profile_step, the
+build comparison (sweep_builds) and the GPU tests."""
 
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ import statistics
 import numpy as np
 import torch
 
-__all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms"]
+__all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "su4_system",
+           "su4_problem", "min_time_warm", "min_time_problem", "min_time_seeds"]
 
 
 def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
@@ -93,3 +95,80 @@ def graph_ms(fn, n=20):
     with torch.cuda.graph(g):
         fn()
     return time_ms(g.replay, n)
+
+
+def _options(**kw):
+    from . import SolverOptions
+
+    return SolverOptions(print_level=1, kappa_mu=0.2, line_search="filter", **kw)
+
+
+def su4_system():
+    """BASELINE #5's two qubits: drift 0.1 Z⊗Z, drives Z⊗X, X⊗I, Y⊗I,
+    I⊗X, I⊗Y."""
+    from . import PAULIS, QuantumSystem
+
+    P, k = PAULIS, np.kron
+    return QuantumSystem(0.1 * k(P["Z"], P["Z"]), [k(P["Z"], P["X"]), k(P["X"], P["I"]),
+                                                  k(P["Y"], P["I"]), k(P["I"], P["X"]),
+                                                  k(P["I"], P["Y"])])
+
+
+def su4_problem(T=33, dt=0.3, device=None):
+    """BASELINE #5's multigoal problem: Δt fixed, Q=1e4, R=1e-3, tol 1e-5,
+    κ_μ 0.2, filter line search, kkt_backend "lanes"."""
+    from . import PiccoloOptions, UnitaryMultiGoalProblem
+
+    return UnitaryMultiGoalProblem(
+        su4_system(), T, dt, Q=1e4, R=1e-3,
+        ipopt_options=_options(tol=1e-5, kkt_backend="lanes"),
+        piccolo_options=PiccoloOptions(verbose=False, free_time=False), device=device,
+    )
+
+
+def min_time_warm(T=51, dt=0.2, device=None):
+    """BASELINE #2's warm stage: the fixed-time Hadamard smooth-pulse
+    problem (Q=1e4, R=1e-3) at tol 1e-7 with recalc_y (feasibility
+    tolerance 1e1) and kkt_backend "xla"."""
+    from . import GATES, PiccoloOptions, QuantumSystem, UnitarySmoothPulseProblem
+
+    return UnitarySmoothPulseProblem(
+        QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]]), GATES["H"], T, dt, Q=1e4, R=1e-3,
+        ipopt_options=_options(tol=1e-7, recalc_y="yes", recalc_y_feas_tol=1e1,
+                               kkt_backend="xla"),
+        piccolo_options=PiccoloOptions(verbose=False, free_time=False),
+        rng=np.random.default_rng(0), device=device,
+    )
+
+
+def min_time_problem(warm, final_fidelity=0.99995, D=1000.0):
+    """BASELINE #2's minimum-time stage on a solved warm stage: the
+    free-time trajectory rolled out from the warm controls, the warm
+    objective and integrators, the floor and D, tol 1e-6, kkt_backend
+    "lanes".  Returns (problem, duration before)."""
+    from . import GATES, UnitaryMinimumTimeProblem, initialize_unitary_trajectory
+
+    T = warm.trajectory.T
+    traj = initialize_unitary_trajectory(
+        GATES["H"], T, float(warm.trajectory.timestep), 2,
+        [np.ones(2), np.full(2, np.inf), np.ones(2)],
+        free_time=True, a_guess=np.asarray(warm.trajectory["a"]), system=warm.system,
+    )
+    prob = UnitaryMinimumTimeProblem(
+        traj, warm.system, warm.get_objective(), warm.integrators, [],
+        final_fidelity=final_fidelity, D=D,
+        ipopt_options=_options(tol=1e-6, kkt_backend="lanes"), device=warm.device,
+    )
+    return prob, float(traj.duration())
+
+
+def min_time_seeds(prob, B, seed):
+    """(B, T, d) seeds: the initial decision with 1e-4 N(0, 1) noise on
+    the interior controls, inside the floor's basin."""
+    z0 = prob.initial_decision(1)[0]
+    a_sl = prob.trajectory.comp_slice("a")
+    Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
+    T = z0.shape[0]
+    Z0[:, 1:-1, a_sl] += 1e-4 * np.random.default_rng(seed).standard_normal(
+        (B, T - 2, a_sl.stop - a_sl.start))
+    return Z0

@@ -3,15 +3,16 @@
 This system has no weights: its parameters are the problem data.
 `problem_arrays` reads a JAX-package problem as plain numpy (the system's
 Hamiltonians and generators, the trajectory with its bounds and pins, the
-initial decision Z0, the solver's variable, defect and objective scales,
-and each integrator's class, Padé order and squaring count).  It only
-reads attributes and calls numpy, so it imports nothing of JAX.
-`unitary_smooth_pulse_from_arrays` and
-`quantum_state_smooth_pulse_from_arrays` build the port's problem from
-those arrays and check that the port derives the same integrators and the
-same NLP scaling: an exponential integrator's squaring count comes from a
-host-side norm bound, and a port that derived another count would build
-another NLP.
+initial decision Z0, the solver's variable, defect, inequality-row and
+objective scales, each integrator's class, Padé order and squaring count,
+the inequality constraints (class, state name, floor) with m, the
+MinimumTimeObjective's weight, and the goals of a multigoal batch).  It
+only reads attributes, calls the problem's own methods and calls numpy, so
+it imports nothing of JAX.  The `*_from_arrays` functions build the port's
+problem from those arrays and check that the port derives the same
+integrators, constraints and NLP scaling: an exponential integrator's
+squaring count comes from a host-side norm bound, and a port that derived
+another count would build another NLP.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .problems.multigoal import UnitaryMultiGoalProblem
+from .problems.quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .problems.quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
+from .problems.unitary_minimum_time import UnitaryMinimumTimeProblem
 from .problems.unitary_smooth_pulse import UnitarySmoothPulseProblem
 from .quantum.isomorphisms import iso_to_ket
 from .quantum.systems import QuantumSystem
@@ -32,6 +36,9 @@ __all__ = [
     "trajectory_from_arrays",
     "unitary_smooth_pulse_from_arrays",
     "quantum_state_smooth_pulse_from_arrays",
+    "unitary_minimum_time_from_arrays",
+    "quantum_state_minimum_time_from_arrays",
+    "unitary_multigoal_from_arrays",
 ]
 
 
@@ -44,11 +51,27 @@ def _integrator_specs(integrators):
     ]
 
 
-def problem_arrays(prob, batch: int = 1) -> dict:
-    """numpy snapshot of a JAX-package QuantumControlProblem."""
+def _constraint_specs(constraints):
+    """(class name, state name, floor) of each inequality constraint."""
+    return [
+        (type(c).__name__, c.state_name, float(c.final_fidelity))
+        for c in constraints if hasattr(c, "final_fidelity")
+    ]
+
+
+def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None) -> dict:
+    """numpy snapshot of a JAX-package QuantumControlProblem; Z0 (B, T, d)
+    replaces the trajectory's broadcast initial decision, and goals are
+    those of a multigoal batch.  The inequality-row scales q are read from
+    the solver's scaled NLP at knot 0, where every final-fidelity row is
+    inactive and returns q·1."""
     traj = prob.trajectory
     solver = prob.solver
-    analytic = solver.nlp.analytic
+    nlp = solver.nlp
+    analytic = nlp.analytic
+    ineq_scale = (np.asarray(nlp.ineq(np.asarray(nlp.z0)[0], 0), dtype=np.float64)
+                  if nlp.m > 0 else np.ones(0))
+    min_time = [t.weight for t in prob.objective.terms if t.label == "minimum_time"]
     return {
         "H_drift": np.asarray(prob.system.H_drift),
         "H_drives": np.asarray(prob.system.H_drives),
@@ -62,7 +85,7 @@ def problem_arrays(prob, batch: int = 1) -> dict:
         "initial": {k: np.asarray(v) for k, v in traj.initial.items()},
         "final": {k: np.asarray(v) for k, v in traj.final.items()},
         "goal": {k: np.asarray(v) for k, v in traj.goal.items()},
-        "Z0": np.asarray(prob.initial_decision(batch), dtype=np.float64),
+        "Z0": np.asarray(prob.initial_decision(batch) if Z0 is None else Z0, dtype=np.float64),
         "var_scale": np.asarray(solver.var_scale, dtype=np.float64),
         "obj_scale": float(solver.obj_scale),
         "defect_scale": (
@@ -71,6 +94,11 @@ def problem_arrays(prob, batch: int = 1) -> dict:
             else None
         ),
         "integrators": _integrator_specs(prob.integrators),
+        "constraints": _constraint_specs(prob.constraints),
+        "m": int(nlp.m),
+        "ineq_scale": ineq_scale,
+        "min_time_D": float(min_time[0]) if min_time else None,
+        "goals": None if goals is None else np.asarray(goals, dtype=complex),
     }
 
 
@@ -99,10 +127,14 @@ def _checked(prob, arrays, rtol):
     mine, theirs = _integrator_specs(prob.integrators), list(arrays["integrators"])
     if mine != theirs:
         raise ValueError(f"integrators {mine} differ from the source problem's {theirs}")
+    mine, theirs = _constraint_specs(prob.constraints), list(arrays["constraints"])
+    if mine != theirs or prob.solver.nlp.m != arrays["m"]:
+        raise ValueError(f"constraints {mine} differ from the source problem's {theirs}")
     solver = prob.solver
     checks = {
         "var_scale": (solver.var_scale, arrays["var_scale"]),
         "obj_scale": (solver.obj_scale, arrays["obj_scale"]),
+        "ineq_scale": (solver.ineq_scale, arrays["ineq_scale"]),
     }
     if arrays["defect_scale"] is not None:
         checks["defect_scale"] = (solver.defect_scale, arrays["defect_scale"])
@@ -144,13 +176,74 @@ def quantum_state_smooth_pulse_from_arrays(
     QuantumStateSmoothPulseProblem built with the same Q, R and integrator
     (and the default state name ψ̃); raises as
     unitary_smooth_pulse_from_arrays."""
+    return _checked(_state_problem(arrays, Q, R, ipopt_options, piccolo_options, device),
+                    arrays, rtol)
+
+
+def _state_problem(arrays, Q, R, ipopt_options, piccolo_options, device):
     traj = trajectory_from_arrays(arrays)
     names = [n for n in traj.names if n.startswith("ψ̃")]
-    prob = QuantumStateSmoothPulseProblem(
+    return QuantumStateSmoothPulseProblem(
         system_from_arrays(arrays),
         [iso_to_ket(traj.initial[n]) for n in names], [iso_to_ket(traj.goal[n]) for n in names],
         traj.T, float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
         piccolo_options=_free_time(traj, piccolo_options), device=device,
     )
+
+
+def _floor(arrays):
+    """The one floor all of the source's fidelity constraints share."""
+    floors = {f for _, _, f in arrays["constraints"]}
+    if len(floors) != 1:
+        raise ValueError(f"expected one fidelity floor, got {sorted(floors)}")
+    return floors.pop()
+
+
+def unitary_minimum_time_from_arrays(
+    arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    UnitaryMinimumTimeProblem warm-started from a UnitarySmoothPulseProblem
+    with the same Q, R and integrator: the port builds that smooth-pulse
+    problem on the source's trajectory, then the minimum-time problem with
+    the source's floor and D.  Raises as unitary_smooth_pulse_from_arrays,
+    also where the constraints or the inequality-row scales differ."""
+    traj = trajectory_from_arrays(arrays)
+    base = UnitarySmoothPulseProblem(
+        system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
+        init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
+        piccolo_options=_free_time(traj, piccolo_options), device=device,
+    )
+    prob = UnitaryMinimumTimeProblem(base, final_fidelity=_floor(arrays), D=arrays["min_time_D"])
     return _checked(prob, arrays, rtol)
+
+
+def quantum_state_minimum_time_from_arrays(
+    arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
+):
+    """The ket counterpart of unitary_minimum_time_from_arrays, from a JAX
+    QuantumStateMinimumTimeProblem warm-started from a
+    QuantumStateSmoothPulseProblem (default state name ψ̃)."""
+    base = _state_problem(arrays, Q, R, ipopt_options, piccolo_options, device)
+    prob = QuantumStateMinimumTimeProblem(
+        base, final_fidelity=_floor(arrays), D=arrays["min_time_D"]
+    )
+    return _checked(prob, arrays, rtol)
+
+
+def unitary_multigoal_from_arrays(
+    arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
+):
+    """(problem, Z0 tensor, goals) for the port, from `problem_arrays` of a
+    JAX UnitaryMultiGoalProblem (with Z0 its multigoal_initial_decisions
+    and goals theirs) built with the same Q and R.  The NLP scaling is the
+    one computed at the identity goal's z0, in both packages."""
+    traj = trajectory_from_arrays(arrays)
+    prob = UnitaryMultiGoalProblem(
+        system_from_arrays(arrays), traj.T, float(np.mean(traj.get_timesteps())),
+        init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
+        piccolo_options=_free_time(traj, piccolo_options), device=device,
+    )
+    prob, Z0 = _checked(prob, arrays, rtol)
+    return prob, Z0, arrays["goals"]

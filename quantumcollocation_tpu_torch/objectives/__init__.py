@@ -1,5 +1,13 @@
-from .constraints import AbstractConstraint, BoundsConstraint, TimeStepsAllEqualConstraint
+from .constraints import (
+    AbstractConstraint,
+    BoundsConstraint,
+    FinalQuantumStateFidelityConstraint,
+    FinalUnitaryFidelityConstraint,
+    FinalUnitaryFreePhaseFidelityConstraint,
+    TimeStepsAllEqualConstraint,
+)
 from .objectives import (
+    MinimumTimeObjective,
     Objective,
     ObjectiveTerm,
     QuadraticRegularizer,
@@ -10,6 +18,10 @@ from .objectives import (
 __all__ = [
     "AbstractConstraint",
     "BoundsConstraint",
+    "FinalQuantumStateFidelityConstraint",
+    "FinalUnitaryFidelityConstraint",
+    "FinalUnitaryFreePhaseFidelityConstraint",
+    "MinimumTimeObjective",
     "Objective",
     "ObjectiveTerm",
     "QuadraticRegularizer",

@@ -1,7 +1,8 @@
 """Objective terms and their algebra.
 
 Counterpart of quantumcollocation_tpu/objectives/objectives.py
-(UnitaryInfidelityObjective, QuantumStateObjective, QuadraticRegularizer).  A term is classified
+(UnitaryInfidelityObjective, QuantumStateObjective, QuadraticRegularizer,
+MinimumTimeObjective).  A term is classified
 by its stage structure so the problem compiler keeps the KKT system
 block-tridiagonal:
   - "stage":    fn(z_t, t) -> scalar, summed over all knots
@@ -29,6 +30,7 @@ __all__ = [
     "UnitaryInfidelityObjective",
     "QuantumStateObjective",
     "QuadraticRegularizer",
+    "MinimumTimeObjective",
 ]
 
 
@@ -114,3 +116,20 @@ def QuadraticRegularizer(name, traj, R=1.0):
         return fn
 
     return Objective((ObjectiveTerm("stage", make, 1.0, f"quad_reg[{name}]"),))
+
+
+def MinimumTimeObjective(traj, *, D=1.0, timestep_name="Δt", eval_hessian=True):
+    """D Σ_{t<T-1} Δt_t, a stage term (the last knot's Δt moves nothing)."""
+    if not isinstance(traj.timestep, str):
+        raise ValueError("MinimumTimeObjective needs a free-time trajectory")
+    start, stop = traj.components[traj.timestep]
+    last = traj.T - 1
+
+    def make(dtype, device):
+        def fn(z, t):
+            dt = z[start:stop].sum()
+            return torch.where(t < last, dt, torch.zeros_like(dt))
+
+        return fn
+
+    return Objective((ObjectiveTerm("stage", make, float(D), "minimum_time"),))

@@ -1,10 +1,24 @@
+from .multigoal import (
+    UnitaryMultiGoalProblem,
+    multigoal_initial_decisions,
+    multigoal_rollout_fidelities,
+    random_su,
+)
 from .problem import QuantumControlProblem, resolve_device
+from .quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
+from .unitary_minimum_time import UnitaryMinimumTimeProblem
 from .unitary_smooth_pulse import UnitarySmoothPulseProblem
 
 __all__ = [
     "QuantumControlProblem",
+    "QuantumStateMinimumTimeProblem",
     "QuantumStateSmoothPulseProblem",
+    "UnitaryMinimumTimeProblem",
+    "UnitaryMultiGoalProblem",
     "UnitarySmoothPulseProblem",
+    "multigoal_initial_decisions",
+    "multigoal_rollout_fidelities",
+    "random_su",
     "resolve_device",
 ]

@@ -2,8 +2,8 @@
 
 Counterpart of quantumcollocation_tpu/problems/_options.py: under free time
 with equal timesteps, add the TimeStepsAllEqualConstraint.  Leakage
-suppression and the complex-modulus constraint need stage inequality rows,
-which the port does not have yet.
+suppression (embedded operators, L1 slack rows) and the complex-modulus
+constraint are not ported yet.
 """
 
 from __future__ import annotations

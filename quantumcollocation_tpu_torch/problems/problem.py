@@ -3,8 +3,9 @@ a StageNLP and solve it with the batched interior-point method.
 
 Counterpart of quantumcollocation_tpu/problems/problem.py.  Lowering:
 integrators -> stacked defect rows; TimeStepsAllEqualConstraint -> extra
-defect rows; trajectory bounds -> barrier bounds; initial/final pins ->
-fixed masks.
+defect rows; inequality constraints -> m = Σ ineq_dim rows per knot, the
+constraints' rows stacked, inactive knots +1; trajectory bounds -> barrier
+bounds; initial/final pins -> fixed masks.
 
 Device rule: `device=None` means CUDA; without CUDA that raises, and the
 caller passes device="cpu" to run on the CPU on purpose.  The dtype
@@ -89,8 +90,6 @@ class QuantumControlProblem:
         for con in constraints:
             if isinstance(con, TimeStepsAllEqualConstraint):
                 self.integrators.append(con.as_integrator())
-            elif con.ineq_dim(traj) > 0:
-                raise NotImplementedError("stage inequality constraints are not ported yet")
             else:
                 self.constraints.append(con)
         self._compile()
@@ -121,6 +120,13 @@ class QuantumControlProblem:
                 total = total + w * fn(zT)
             return total
 
+        ineq_cons = [c for c in self.constraints if c.ineq_dim(traj) > 0]
+        m = sum(c.ineq_dim(traj) for c in ineq_cons)
+        ineq_fns = [c.make(traj, **dt_dev) for c in ineq_cons]
+
+        def ineq(z, t):
+            return torch.cat([fn(z, t) for fn in ineq_fns])
+
         lb = np.full((T, d), -np.inf)
         ub = np.full((T, d), np.inf)
         free = np.ones((T, d), dtype=bool)
@@ -137,8 +143,9 @@ class QuantumControlProblem:
                     free[t, sl] = False
         self._d = d
         self.nlp = StageNLP(
-            T=T, d=d, s=s, m=0,
+            T=T, d=d, s=s, m=m,
             stage_cost=stage_cost, terminal_cost=terminal_cost,
+            ineq=ineq if m > 0 else None,
             lb=lb, ub=ub, free_mask=free, z0=z0,
             dtype=self.dtype, device=self.device,
             analytic=(
@@ -223,3 +230,6 @@ class QuantumControlProblem:
 
     def get_objective(self) -> Objective:
         return self.objective
+
+    def get_constraints(self):
+        return list(self.constraints)

@@ -1,7 +1,7 @@
 """Where one IPM iteration of a main-path solve spends its time.
 
     python -m quantumcollocation_tpu_torch.profile_step
-        [--config hadamard|hadamard_lbfgs|hadamard_scan|cnot|ket_exp|cnot_exp]
+        [--config hadamard|hadamard_lbfgs|hadamard_scan|cnot|ket_exp|cnot_exp|su4|min_time]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -12,8 +12,12 @@ iterations so that its memory is full), "hadamard_scan" (hadamard with
 kkt_backend "lanes_scan"), "ket_exp" (the two-ket transfer |0>->|1>, |1>->|0>
 with the exponential integrator, T=50, seeds as hadamard's), "cnot"
 (BASELINE #3: two qubits, fixed Δt=0.3, B=128, T=40, kkt_backend "lanes",
-seeds from multistart_initial_decisions) or "cnot_exp" (cnot with the
-exponential integrator), float32 on CUDA.  Runs two warm-up iterations
+seeds from multistart_initial_decisions), "cnot_exp" (cnot with the
+exponential integrator), "su4" (BASELINE #5: 128 Haar goals x 4 seeds,
+T=33, Δt=0.3 fixed, kkt_backend "lanes", bench_util.su4_problem) or
+"min_time" (BASELINE #2's minimum-time stage, B=512, after its B=1 warm
+stage has solved for 80 iterations; bench_util.min_time_problem), float32
+on CUDA.  Runs two warm-up iterations
 (eight for hadamard_lbfgs), then profiles `--steps`
 iterations with torch.profiler and prints one JSON line: host wall per
 iteration, device-busy time per iteration (the sum of kernel times), the
@@ -33,6 +37,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from . import bench_util as bu
 from . import (
     GATES,
     PAULIS,
@@ -41,6 +46,8 @@ from . import (
     QuantumSystem,
     SolverOptions,
     UnitarySmoothPulseProblem,
+    multigoal_initial_decisions,
+    random_su,
 )
 
 
@@ -48,6 +55,18 @@ def build(config, batch):
     """(solver, Z0) of a main-path configuration; batch None = its own."""
     opts = dict(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter")
     rng = np.random.default_rng(42)
+    if config == "su4":
+        prob = bu.su4_problem()
+        n_goals = (batch or 512) // 4
+        goal_rng = np.random.default_rng(2024)
+        goals = [random_su(4, goal_rng) for _ in range(n_goals)]
+        return prob.solver, multigoal_initial_decisions(
+            prob, goals, n_seeds_per_goal=4, sigma=0.2, rng=np.random.default_rng(100))
+    if config == "min_time":
+        warm = bu.min_time_warm()
+        warm.solve(max_iter=80)
+        prob, _ = bu.min_time_problem(warm)
+        return prob.solver, bu.min_time_seeds(prob, batch or 512, 42)
     integrator = "exponential" if config.endswith("_exp") else "pade"
     if config.startswith("cnot"):
         P, k = PAULIS, np.kron
@@ -93,7 +112,8 @@ def build(config, batch):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan", "cnot",
-                                         "ket_exp", "cnot_exp"), default="hadamard")
+                                         "ket_exp", "cnot_exp", "su4", "min_time"),
+                    default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)
     args = ap.parse_args()

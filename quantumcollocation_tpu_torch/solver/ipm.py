@@ -6,31 +6,45 @@ in lockstep with per-instance convergence masks (a converged instance
 freezes).  One iteration (`_step`):
 
   1. the dynamics blocks: with the fused assembly on (small stage sizes,
-     exact Hessian; solver/options.py::resolve_modes) one kernel
-     (ops/dyn_assembly.py) gives F, A, B and the defect curvature; off,
-     the propagator-bank kernel (ops/prop_bank.py) gives the banks and
-     solver/analytic.py assembles the blocks from them.  torch.func gives
-     the cost blocks.  With eval_hessian=False (quasi_newton="lbfgs") the
-     bank runs first order, and the Hessian is the compact L-BFGS
-     σI - U M⁻¹ Uᵀ (solver/lbfgs.py), its memory updated from the last
-     step's pair (∇L at both points with the current multipliers);
-  2. residuals, the KKT error, the monotone barrier update and the
+     exact Hessian, no recalc_y, (n, K) covered by the kernel;
+     solver/options.py::resolve_modes) one kernel (ops/dyn_assembly.py)
+     gives F, A, B and the defect curvature; off, the propagator-bank
+     kernel (ops/prop_bank.py) gives the banks and solver/analytic.py
+     assembles the blocks from them.  torch.func gives the cost blocks
+     and the stage inequality rows g (m per knot), their Jacobian Jg and
+     the curvature -w·∇²g.  With eval_hessian=False
+     (quasi_newton="lbfgs") the bank runs first order, and the Hessian is
+     the compact L-BFGS σI - U M⁻¹ Uᵀ (solver/lbfgs.py), its memory
+     updated from the last step's pair (∇L at both points with the
+     current multipliers);
+  2. residuals, the KKT error, the monotone barrier update, the
      feasibility-restoration state machine (Ipopt A-9 analog; off under
-     L-BFGS, as in JAX);
-  3. the condensed block-tridiagonal KKT system goes through the Riccati
-     sweep kernels (solver/kkt_lanes.py), with per-instance δ_w
-     regularization retries while an instance's factorization fails.
-     With kkt_refine passes, each attempt keeps its factors and corrects
-     its step by iterative refinement: the residual of the regularized
-     system at (dz, ν) re-solved against the same factors (the rhs-only
-     forward sweep, then the backward sweep).  Under L-BFGS the σI +
-     barrier base and the 13-column right-hand side [rz | U] go through
-     one sweep pair and Sherman-Morrison-Woodbury adds the low-rank part.
+     L-BFGS, as in JAX), and with recalc_y the least-squares reset of
+     the equality multipliers at near-feasible points (the H = I saddle
+     solve through the sweep kernels, kept per instance where it shrinks
+     the dual residual);
+  3. the condensed block-tridiagonal KKT system (the inequality rows
+     condensed into H as Jgᵀ (w/σ) Jg, the slacks σ and duals w
+     eliminated) goes through the Riccati sweep kernels
+     (solver/kkt_lanes.py), with per-instance δ_w regularization retries
+     while an instance's factorization fails.  With m > 0 ("auto") the
+     retries carry the ρJᵀJ lift: H + ρS_AA, C + ρS_AB and rz + ρJᵀrnu,
+     an exact transform of the saddle system whose stage blocks stay PD
+     at a δ_w of the reduced Hessian's size; instances that needed δ_w
+     last iteration start at δ_w/3 with the lift (the retry warm start).
+     With kkt_refine passes, or the lift on, each attempt keeps its
+     factors and corrects its step by iterative refinement: the residual
+     of the regularized, unlifted system at (dz, ν) re-solved against
+     the same factors (the rhs-only forward sweep, then the backward
+     sweep).  Under L-BFGS the σI + barrier base and the 13-column
+     right-hand side [rz | U] go through one sweep pair and
+     Sherman-Morrison-Woodbury adds the low-rank part.
      kkt_backend="lanes_scan" solves through the per-knot step kernels
-     instead (2(T-1) launches per attempt), and refines, when kkt_refine
-     asks for it, through a fresh scan solve;
-  4. fraction-to-boundary, a filter or merit line search, and the update
-     with Ipopt's κ_Σ bound-dual safeguard.
+     instead (2(T-1) launches per attempt), and refines, when asked,
+     through a fresh scan solve;
+  4. fraction-to-boundary on the bounds and the slacks σ, a filter or
+     merit line search, and the update with Ipopt's κ_Σ safeguard on the
+     bound duals and w.
 
 The JAX solve is one lax.while_loop on the device.  Here the loop runs in
 Python; each iteration synchronizes with the host once, to read "did every
@@ -40,10 +54,9 @@ candidates in one batched pass and picks the first acceptable one per
 instance, which gives the sequential loop's result without a host read per
 trial.
 
-Not ported yet (the solver raises NotImplementedError): stage inequality
-rows (m > 0) and with them the ρJᵀJ lift and retry warm start, second-order
-correction, recalc_y, Gauss-Newton Hessians, the watchdog, adaptive μ, and
-the cyclic-reduction KKT backend.
+Not ported yet (the solver raises NotImplementedError): second-order
+correction, Gauss-Newton Hessians, the watchdog, adaptive μ, and the
+cyclic-reduction KKT backend.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..ops.dyn_assembly import SUPPORTED_NK
 from .kkt_lanes import resolve_kkt_lanes, solve_kkt_lanes, solve_kkt_lanes_scan
 from .lbfgs import lbfgs_compact, lbfgs_rhs, lbfgs_update
 from .options import SolverOptions, resolve_modes
@@ -68,6 +82,8 @@ _BIG = 1e20
 class IPMState:
     Z: Any  # (B, T, d)
     lam: Any  # (B, T-1, s)
+    sig: Any  # (B, T, m) inequality slacks
+    w: Any  # (B, T, m) inequality duals
     zl: Any  # (B, T, d)
     zu: Any  # (B, T, d)
     mu: Any  # (B,)
@@ -120,6 +136,10 @@ class IPMResult(NamedTuple):
 
 class _Aux(NamedTuple):
     F: Any
+    g: Any  # (B, T, m) inequality rows
+    Jg: Any  # (B, T, m, d) their Jacobian (None when m = 0)
+    lam: Any  # equality multipliers after the recalc_y reset
+    rho0: Any  # (B,) ρJᵀJ lift scale (zeros when the lift is off)
     mu: Any
     tau: Any
     sl: Any
@@ -169,14 +189,10 @@ class InteriorPointSolver:
             "eval_hessian=False with quasi_newton='gauss-newton'": (
                 not exact_hessian and o.quasi_newton != "lbfgs"
             ),
-            "stage inequality rows (m > 0)": nlp.m > 0,
             "mu_strategy='adaptive'": o.mu_strategy != "monotone",
             "soc=True": bool(o.soc),
             "watchdog_trials > 0": o.watchdog_trials > 0,
-            "recalc_y=True": bool(o.recalc_y),
             f"kkt_backend={o.kkt_backend!r}": o.kkt_backend == "cr",
-            "kkt_aug=True": o.kkt_aug is True,
-            "kkt_retry_warm=True": o.kkt_retry_warm is True,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -191,17 +207,32 @@ class InteriorPointSolver:
         # L-BFGS: no restoration, and no refinement (the SMW-combined step
         # keeps no factors), as in JAX
         self.resto_on = bool(o.restoration) and not self.qn_lbfgs
+        # the ρJᵀJ lift: "auto" = on iff the NLP has stage inequality rows;
+        # never under L-BFGS (its σI base is PD).  The retry warm start
+        # follows the lift under "auto".
+        self.kkt_aug_on = (
+            (nlp.m > 0 if o.kkt_aug == "auto" else bool(o.kkt_aug)) and not self.qn_lbfgs
+        )
+        self.retry_warm_on = (
+            self.kkt_aug_on if o.kkt_retry_warm == "auto" else bool(o.kkt_retry_warm)
+        )
+        groups = nlp.analytic.groups if nlp.analytic is not None else ()
         self.fused_assembly_on, self.kkt_refine_n = resolve_modes(
             o, nlp.d, nlp.s,
-            has_groups=nlp.analytic is not None and len(nlp.analytic.groups) > 0,
-            exact_hessian=exact_hessian,
+            group_nk=[(g.G_drift.shape[0], g.G_drives.shape[0] + int(g.dt_col is not None))
+                      for g in groups],
+            supported_nk=SUPPORTED_NK, exact_hessian=exact_hessian,
         )
         if self.qn_lbfgs:
             self.kkt_refine_n = 0
         self.kkt_attempts = 0  # KKT attempts since the last solve began
+        # instance rows of those attempts, and those that ran lifted (a
+        # device count, read when wanted)
+        self.kkt_attempt_rows, self.kkt_lifted_rows = 0, 0
         self.device, self.dtype = nlp.device, nlp.dtype
         self.var_scale = np.ones(nlp.d)
         self.defect_scale = np.ones(nlp.s)
+        self.ineq_scale = np.ones(nlp.m)
         self.obj_scale = 1.0
         self.nlp = self._build_scaled_nlp(nlp) if o.nlp_scaling else nlp
         self.funcs = make_nlp_functions(self.nlp)
@@ -229,6 +260,7 @@ class InteriorPointSolver:
         f0 = make_nlp_functions(nlp)
         z0 = torch.as_tensor(np.asarray(nlp.z0), dtype=nlp.dtype, device=nlp.device)[None]
         A, B = f0.jac_blocks(z0)
+        Jg = f0.jac_ineq(z0)[0]
         gphi = f0.grad_cost(z0)[0]
         A = np.abs(A[0].double().cpu().numpy())
         B = np.abs(B[0].double().cpu().numpy())
@@ -238,11 +270,14 @@ class InteriorPointSolver:
         rowA = (A * v[None, None, :]).max(axis=(0, 2))
         rowB = (B * v[None, None, :]).max(axis=(0, 2))
         r = 1.0 / np.maximum(1.0, np.maximum(rowA, rowB))
+        Jg = np.abs(Jg.double().cpu().numpy())
+        q = 1.0 / np.maximum(1.0, (Jg * v[None, None, :]).max(axis=(0, 2))) if nlp.m else np.ones(0)
         gmax = float(np.max(np.abs(gphi.double().cpu().numpy()) * v[None, :]))
         self.var_scale = v
         self.defect_scale = r
+        self.ineq_scale = q
         self.obj_scale = 100.0 / max(100.0, gmax)
-        return scale_stage_nlp(nlp, v, r, self.obj_scale)
+        return scale_stage_nlp(nlp, v, r, q, self.obj_scale)
 
     def unscale(self, Z):
         """Solver (scaled) coordinates -> problem units."""
@@ -268,19 +303,20 @@ class InteriorPointSolver:
         zhi = torch.where(has_ub > 0, ub - pert_u, torch.full_like(ub, _BIG))
         Z = torch.where(self._free > 0, torch.minimum(torch.maximum(Z0, zlo), zhi), Z0)
 
+        # inequality slacks and duals
+        mu0 = Z.new_full((Bt,), o.mu_init)
+        g0 = self.funcs.ineqs(Z)
+        sig = torch.clamp_min(g0, 1e-2)
+        w = _col(mu0, 3) / sig if nlp.m > 0 else torch.zeros_like(sig)
+
         # least-squares initial multipliers: the saddle solve with H = I,
         # C = 0; discarded when absurdly large
         free = self._free
         A, Bj = self.funcs.jac_blocks(Z)
-        A = A * free[:-1, None, :]
-        Bj = Bj * free[1:, None, :]
-        gphi = self.funcs.grad_cost(Z) * free
-        H = self._eye.expand(Bt, nlp.T, nlp.d, nlp.d).contiguous()
-        Cz = Z.new_zeros(Bt, nlp.T - 1, nlp.d, nlp.d)
-        _, nu, ok = (solve_kkt_lanes_scan if self.scan else solve_kkt_lanes)(
-            H, Cz, A.contiguous(), Bj.contiguous(), gphi.contiguous(),
-            Z.new_zeros(Bt, nlp.T - 1, nlp.s), 1e-8,
-        )
+        gphi = self.funcs.grad_cost(Z)
+        if nlp.m > 0:
+            gphi = gphi - torch.einsum("btmi,btm->bti", self.funcs.jac_ineq(Z), w)
+        nu, ok = self._ls_multipliers(A * free[:-1, None, :], Bj * free[1:, None, :], gphi * free)
         lam = torch.where(_col(ok, 3), nu, torch.zeros_like(nu))
         lam = torch.where(_col(_bmax(lam.abs()) > 1e3, 3), torch.zeros_like(lam), lam)
 
@@ -288,7 +324,7 @@ class InteriorPointSolver:
         izeros = lambda: torch.zeros(Bt, dtype=torch.int32, device=self.device)  # noqa: E731
         extra = {}
         if o.line_search == "filter":
-            theta0 = _bsum(self.funcs.defects(Z).abs())
+            theta0 = _bsum(self.funcs.defects(Z).abs()) + _bsum((g0 - sig).abs())
             extra.update(
                 flt_theta=Z.new_full((Bt, o.filter_size), float("inf")),
                 flt_phi=Z.new_full((Bt, o.filter_size), float("inf")),
@@ -313,9 +349,9 @@ class InteriorPointSolver:
                 resto_k=izeros(),
             )
         return IPMState(
-            Z=Z, lam=lam,
+            Z=Z, lam=lam, sig=sig, w=w,
             zl=has_lb.expand_as(Z).clone(), zu=has_ub.expand_as(Z).clone(),
-            mu=Z.new_full((Bt,), o.mu_init), delta_w=zeros(),
+            mu=mu0, delta_w=zeros(),
             converged=torch.zeros(Bt, dtype=torch.bool, device=self.device),
             n_iter=izeros(), kkt_err=Z.new_full((Bt,), float("inf")),
             alpha=zeros(), e_dual=zeros(), e_pr=zeros(), e_comp=zeros(),
@@ -323,11 +359,25 @@ class InteriorPointSolver:
             acc_count=izeros(), **extra,
         )
 
+    def _ls_multipliers(self, A, Bj, g):
+        """ν of the saddle solve with H = I, C = 0 (the least-squares
+        multipliers of J^T ν = g, J from the masked blocks A, Bj), and
+        whether each instance's solve succeeded."""
+        Bt, T, d = g.shape
+        H = self._eye.expand(Bt, T, d, d).contiguous()
+        Cz = g.new_zeros(Bt, T - 1, d, d)
+        _, nu, ok = (solve_kkt_lanes_scan if self.scan else solve_kkt_lanes)(
+            H, Cz, A.contiguous(), Bj.contiguous(), g.contiguous(),
+            g.new_zeros(Bt, T - 1, self.nlp.s), 1e-8,
+        )
+        return nu, ok
+
     # ------------------------------------------------------------------ #
     def _iteration_pre(self, st: IPMState):
         o, nlp = self.options, self.nlp
-        T, s = nlp.T, nlp.s
+        T, s, m = nlp.T, nlp.s, nlp.m
         Z, lam, zl, zu, mu = st.Z, st.lam, st.zl, st.zu, st.mu
+        sig, w = st.sig, st.w
         free, has_lb, has_ub = self._free, self._has_lb, self._has_ub
         one = torch.ones_like(Z)
         sl = torch.where(has_lb > 0, torch.clamp_min(Z - self._lb, self._tiny), one)
@@ -339,15 +389,19 @@ class InteriorPointSolver:
         else:
             banks = an.banks_batched(Z, second_order=self.exact_hessian)
             F, A, Bj, dyn_aux = an.dyn_eval(Z, banks)
-            if self.exact_hessian:
-                Hc, Cc = an.defect_curvature(lam, dyn_aux)
         gcost = self.funcs.grad_cost(Z)
-        E_pr = _bmax(F.abs())
+        g = self.funcs.ineqs(Z)
+        if m > 0:
+            Jg = self.funcs.jac_ineq(Z)
+            jg_w = torch.einsum("btmi,btm->bti", Jg, w)
+        else:
+            Jg, jg_w = None, 0.0
+        E_pr = torch.maximum(_bmax(F.abs()), _bmax((g - sig).abs(), 0.0))
 
         resto = {}
         mu3 = _col(mu, 3)
         if self.resto_on:
-            theta_cur = _bsum(F.abs())
+            theta_cur = _bsum(F.abs()) + _bsum((g - sig).abs())
             stall_c = torch.where(
                 st.ls_fail & ~st.in_resto, st.stall_count + 1, 0
             ).to(torch.int32)
@@ -374,7 +428,22 @@ class InteriorPointSolver:
             resto_flip = enter | exit_
             Dr2 = 1.0 / torch.clamp_min(zR * zR, 1.0)
 
-        jt_lam = jt_blocks(A, Bj, lam)
+        if o.recalc_y:
+            # least-squares multiplier reset at near-feasible points: the
+            # H = I saddle solve for argmin ||∇φ - Jgᵀw - zl + zu - Jᵀλ||,
+            # kept where it shrinks that residual (the solve carries an
+            # O(δ) floor) and E_pr <= recalc_y_feas_tol
+            A_m, B_m = A * free[:-1, None, :], Bj * free[1:, None, :]
+            gother = (gcost - jg_w - has_lb * zl + has_ub * zu) * free
+            nu_ls, ok_ls = self._ls_multipliers(A_m, B_m, gother)
+            res_cur = _bmax((gother - jt_blocks(A_m, B_m, lam)).abs())
+            res_ls = _bmax((gother - jt_blocks(A_m, B_m, nu_ls)).abs())
+            good = ok_ls & (E_pr <= o.recalc_y_feas_tol) & (res_ls < res_cur)
+            lam = torch.where(_col(good, 3), nu_ls, lam)
+        if not self.fused_assembly_on and self.exact_hessian:
+            Hc, Cc = an.defect_curvature(lam, dyn_aux)
+
+        jt_lam = jt_blocks(A, Bj, lam) + jg_w
         gL = gcost - jt_lam
         gcost_kkt = gcost
         if self.resto_on:
@@ -383,14 +452,16 @@ class InteriorPointSolver:
         gL_kkt = gcost_kkt - jt_lam
         r_dual = (gL - has_lb * zl + has_ub * zu) * free
 
-        n_duals = (T - 1) * s + self._n_bounds
-        dual_sum = _bsum(lam.abs()) + _bsum(zl.abs() * has_lb) + _bsum(zu.abs() * has_ub)
+        n_duals = (T - 1) * s + T * m + self._n_bounds
+        dual_sum = (_bsum(lam.abs()) + _bsum(w.abs()) + _bsum(zl.abs() * has_lb)
+                    + _bsum(zu.abs() * has_ub))
         s_d = torch.clamp_min(dual_sum / max(n_duals, 1), 100.0) / 100.0
         E_dual = _bmax(r_dual.abs()) / s_d
 
         def comp_err(muv):
             e = _bmax((sl * zl - _col(muv, 3)).abs() * has_lb, 0.0)
             e = torch.maximum(e, _bmax((su * zu - _col(muv, 3)).abs() * has_ub, 0.0))
+            e = torch.maximum(e, _bmax((sig * w - _col(muv, 3)).abs(), 0.0))
             return e / s_d
 
         E_comp0 = comp_err(torch.zeros_like(mu))
@@ -419,7 +490,7 @@ class InteriorPointSolver:
             # B = σI - U M⁻¹ Uᵀ with the low-rank part applied by SMW in
             # the KKT solve
             Bt = Z.shape[0]
-            y_vec = ((gL - self.funcs.grad_lagrangian(st.qn_prevZ, lam)) * free).flatten(1)
+            y_vec = ((gL - self.funcs.grad_lagrangian(st.qn_prevZ, lam, w)) * free).flatten(1)
             s_vec = ((Z - st.qn_prevZ) * free).flatten(1)
             qS, qY, qsty, qcount, sig_new, acc = lbfgs_update(
                 st.qn_S, st.qn_Y, st.qn_sty, st.qn_count, s_vec, y_vec
@@ -430,22 +501,35 @@ class InteriorPointSolver:
             H = _col(sigma, 4) * self._eye.expand(Bt, T, nlp.d, nlp.d)
             C = Z.new_zeros(Bt, T - 1, nlp.d, nlp.d)
         else:
-            H, C = self.funcs.cost_hess(Z)
+            H, C = self.funcs.cost_hess(Z, w)
             H = H + Hc
             C = C + Cc
         if self.resto_on:
             ir4 = _col(in_resto, 4)
             H = torch.where(ir4, torch.diag_embed(o.resto_zeta * Dr2), H)
             C = torch.where(ir4, torch.zeros_like(C), C)
+        # the lift scale from the pre-barrier Lagrangian Hessian: a
+        # Gershgorin bound on the block rows |H_t| + |C_t| + |C_{t-1}^T|
+        # (the PSD barrier terms would push ρ up near convergence)
+        if self.kkt_aug_on:
+            rho0 = self.lift_scale(H, C, o.kkt_aug_rho_factor)
+        else:
+            rho0 = Z.new_zeros(Z.shape[0])
         Sig_l = torch.where(has_lb > 0, zl / sl, torch.zeros_like(Z))
         Sig_u = torch.where(has_ub > 0, zu / su, torch.zeros_like(Z))
         H = H + torch.diag_embed(Sig_l + Sig_u)
+        if m > 0:
+            H = H + torch.einsum("btmi,btm,btmj->btij", Jg, w / sig, Jg)
         Mf = free
         H = H * Mf[:, :, None] * Mf[:, None, :] + torch.diag_embed(1.0 - Mf)
         C = C * Mf[:-1, :, None] * Mf[1:, None, :]
         A = A * Mf[:-1, None, :]
         Bj = Bj * Mf[1:, None, :]
         zero = torch.zeros_like(Z)
+        if m > 0:
+            # ∇L at the slack-eliminated duals ŵ = μ/σ - (w/σ)(g - σ)
+            w_hat = mu3 / sig - (w / sig) * (g - sig)
+            gL_kkt = gL_kkt - torch.einsum("btmi,btm->bti", Jg, w_hat - w)
         r_z = (
             gL_kkt
             - torch.where(has_lb > 0, mu3 / sl, zero)
@@ -453,7 +537,8 @@ class InteriorPointSolver:
         ) * free
         kkt_in = (H, C, A, Bj, -r_z, -F)
         aux = _Aux(
-            F=F, mu=mu, tau=tau, sl=sl, su=su, Sig_l=Sig_l, Sig_u=Sig_u, E0=E0,
+            F=F, g=g, Jg=Jg, lam=lam, rho0=rho0, mu=mu, tau=tau, sl=sl, su=su,
+            Sig_l=Sig_l, Sig_u=Sig_u, E0=E0,
             E_dual=E_dual, E_pr=E_pr, E_comp0=E_comp0,
             now_converged=now_converged, gcost=gcost_kkt, mu_changed=mu_changed,
             qn=qn, lowrank=lowrank, **resto,
@@ -461,13 +546,45 @@ class InteriorPointSolver:
         return kkt_in, aux
 
     # ------------------------------------------------------------------ #
-    def _refine(self, kkt_in, dw, dz, nu, resolve):
-        """kkt_refine passes: the residual of the ORIGINAL (δ_w- and
-        δ_c-regularized) system at (dz, ν), re-solved by resolve(rz, rnu)
-        (against the kept factors, or a fresh lanes_scan solve); a
-        correction applies where the re-solve is finite."""
+    @staticmethod
+    def lift_scale(H, C, factor):
+        """(B,) ρ of the lift: factor × the largest Gershgorin row sum
+        |H_t| + |C_t| + |C_{t-1}^T| of the block-tridiagonal H, C."""
+        rowsum = H.abs().sum(-1)
+        rowsum[:, :-1] += C.abs().sum(-1)
+        rowsum[:, 1:] += C.abs().sum(-2)
+        return factor * _bmax(rowsum)
+
+    @staticmethod
+    def _lift_S(A, Bj):
+        """(S_AA (B, T, d, d), S_AB (B, T-1, d, d)): the blocks of JᵀJ for
+        the block-bidiagonal J of the masked A, B."""
+        S_AA = A.new_zeros(A.shape[0], A.shape[1] + 1, A.shape[3], A.shape[3])
+        S_AA[:, :-1] += torch.einsum("btsi,btsj->btij", A, A)
+        S_AA[:, 1:] += torch.einsum("btsi,btsj->btij", Bj, Bj)
+        return S_AA, torch.einsum("btsi,btsj->btij", A, Bj)
+
+    def _lifted(self, kkt_in, dw, rho, S=None):
+        """The blocks of one attempt: H + δ_w I, and with the lift
+        (S = (S_AA, S_AB), ρ per instance) H + ρS_AA, C + ρS_AB and
+        rz + ρJᵀrnu."""
         H, C, A, Bj, rz, rnu = kkt_in
-        for _ in range(self.kkt_refine_n):
+        Hreg = H + _col(dw, 4) * self._eye
+        if rho is None:
+            return Hreg, C, A, Bj, rz, rnu
+        r4 = _col(rho, 4)
+        return (Hreg + r4 * S[0], C + r4 * S[1], A, Bj,
+                rz + _col(rho, 3) * jt_blocks(A, Bj, rnu), rnu)
+
+    def _refine(self, kkt_in, dw, dz, nu, resolve, rho=None, n_pass=None):
+        """Refinement passes (kkt_refine, or one under the lift): the
+        residual of the ORIGINAL (δ_w- and δ_c-regularized, unlifted)
+        system at (dz, ν), re-solved by resolve(rz, rnu) (against the kept
+        factors, or a fresh lanes_scan solve) after the lift's rhs
+        transform rz + ρJᵀrnu where rho is given; a correction applies
+        where the re-solve is finite."""
+        H, C, A, Bj, rz, rnu = kkt_in
+        for _ in range(self.kkt_refine_n if n_pass is None else n_pass):
             Hdz = torch.einsum("btij,btj->bti", H, dz) + _col(dw, 3) * dz
             Hdz[:, :-1] += torch.einsum("btij,btj->bti", C, dz[:, 1:])
             Hdz[:, 1:] += torch.einsum("btji,btj->bti", C, dz[:, :-1])
@@ -476,7 +593,8 @@ class InteriorPointSolver:
                 "btsd,btd->bts", Bj, dz[:, 1:]
             )
             r2 = Jdz - self.options.delta_c * nu - rnu
-            ez, enu, okr = resolve(-r1, -r2)
+            e1 = -r1 if rho is None else -r1 - _col(rho, 3) * jt_blocks(A, Bj, r2)
+            ez, enu, okr = resolve(e1, -r2)
             dz = dz + torch.where(_col(okr, 3), ez, torch.zeros_like(ez))
             nu = nu + torch.where(_col(okr, 3), enu, torch.zeros_like(enu))
         return dz, nu
@@ -498,55 +616,78 @@ class InteriorPointSolver:
         return dz, nu, okm & torch.isfinite(h).flatten(1).all(1) & (info == 0)
 
     def _solve_kkt_batched(self, kkt_in, delta_w0, st: IPMState, stop_if_converged,
-                           lowrank=None):
+                           lowrank=None, rho0=None):
         """KKT solve with per-instance δ_w escalation on factorization
         failure (Ipopt: try 0, then δ_last/3, then x8 per retry), each
-        attempt refined kkt_refine_n times.  lowrank = (U, M) of the L-BFGS
-        Hessian.  Returns None when every instance had already converged
-        on entry."""
+        attempt refined kkt_refine_n times (once at least under the lift).
+        lowrank = (U, M) of the L-BFGS Hessian; rho0 (B,) the lift scale,
+        engaged from attempt kkt_aug_start, and on a warm-started δ_w > 0
+        first attempt.  Returns None when every instance had already
+        converged on entry, else (dz, dλ, ok, δ_w used, new δ_w, ρ used)."""
         o = self.options
         kkt_in = [x.contiguous() for x in kkt_in]
         H, C, A, Bj, rz, rnu = kkt_in
-        refine = self.kkt_refine_n > 0
+        aug = self.kkt_aug_on and rho0 is not None
+        n_ref = max(self.kkt_refine_n, int(aug))
         Bt = H.shape[0]
         ok = torch.zeros(Bt, dtype=torch.bool, device=self.device)
         dz = torch.zeros_like(rz)
         nu = torch.zeros_like(rnu)
         dw_try = torch.zeros_like(delta_w0)
         dw_used = torch.zeros_like(delta_w0)
+        rho_used = torch.zeros_like(delta_w0)
+        S = self._lift_S(A, Bj) if aug else None
         first = torch.where(
             delta_w0 > 0, torch.clamp_min(delta_w0 / 3.0, o.delta_w_min),
             torch.full_like(delta_w0, 1e-4),
         )
+        if self.retry_warm_on:
+            # instances that needed δ_w last iteration skip the plain
+            # attempt and start at δ_w/3 with the lift, until δ_w/3 decays
+            # below kkt_retry_warm_min
+            dw_warm = torch.where(delta_w0 / 3.0 >= o.kkt_retry_warm_min, first,
+                                  torch.zeros_like(delta_w0))
+        else:
+            dw_warm = torch.zeros_like(delta_w0)
         for k in range(12):
             if k == 0:
-                dw_next = torch.zeros_like(delta_w0)
-                Hreg = H
+                dw_next = dw_warm
             else:
                 dw_next = torch.where(
                     dw_try == 0.0, first, torch.clamp_max(dw_try * 8.0, o.delta_w_max)
                 )
-                Hreg = H + _col(dw_next, 4) * self._eye
+            if aug and k >= o.kkt_aug_start:
+                rho = rho0
+            elif aug and self.retry_warm_on:
+                rho = torch.where(dw_next > 0, rho0, torch.zeros_like(rho0))
+            else:
+                rho = None
+            Hreg, C_in, _, _, rz_in, _ = self._lifted(kkt_in, dw_next, rho, S)
             self.kkt_attempts += 1
+            self.kkt_attempt_rows += Bt
+            if rho is not None:
+                self.kkt_lifted_rows = self.kkt_lifted_rows + (rho > 0).sum()
             if self.scan:
-                dz2, nu2, ok2 = solve_kkt_lanes_scan(Hreg, C, A, Bj, rz, rnu, o.delta_c)
+                dz2, nu2, ok2 = solve_kkt_lanes_scan(Hreg, C_in, A, Bj, rz_in, rnu, o.delta_c)
 
-                def resolve(r1, r2, Hreg=Hreg):
-                    return solve_kkt_lanes_scan(Hreg, C, A, Bj, r1, r2, o.delta_c)
+                def resolve(r1, r2, Hreg=Hreg, C_in=C_in):
+                    return solve_kkt_lanes_scan(Hreg, C_in, A, Bj, r1, r2, o.delta_c)
             elif lowrank is not None:
-                dz2, nu2, ok2 = self._lbfgs_solve(Hreg, C, A, Bj, rz, rnu, *lowrank)
+                dz2, nu2, ok2 = self._lbfgs_solve(Hreg, C_in, A, Bj, rz_in, rnu, *lowrank)
             else:
                 dz2, nu2, ok2, *fac = solve_kkt_lanes(
-                    Hreg, C, A, Bj, rz, rnu, o.delta_c, want_factors=refine
+                    Hreg, C_in, A, Bj, rz_in, rnu, o.delta_c, want_factors=n_ref > 0
                 )
 
                 def resolve(r1, r2, fac=fac):
                     return resolve_kkt_lanes(fac[0], r1, r2)
-            if refine:
-                dz2, nu2 = self._refine(kkt_in, dw_next, dz2, nu2, resolve)
+            if n_ref > 0 and lowrank is None:
+                dz2, nu2 = self._refine(kkt_in, dw_next, dz2, nu2, resolve,
+                                        rho=rho, n_pass=n_ref)
             dz = torch.where(_col(ok, 3), dz, dz2)
             nu = torch.where(_col(ok, 3), nu, nu2)
             dw_used = torch.where(ok, dw_used, dw_next)
+            rho_used = torch.where(ok, rho_used, 0.0 if rho is None else rho)
             ok = ok | ok2
             dw_try = dw_next
             # the one host read of the iteration (one more per retry)
@@ -561,24 +702,26 @@ class InteriorPointSolver:
         delta_w_new = torch.where(dw_used > 0, dw_used, delta_w0)
         dz = torch.where(_col(ok, 3), dz, torch.zeros_like(dz))
         dlam = -torch.where(_col(ok, 3), nu, torch.zeros_like(nu))
-        return dz, dlam, ok, dw_used, delta_w_new
+        return dz, dlam, ok, dw_used, delta_w_new, rho_used
 
     # ------------------------------------------------------------------ #
-    def _line_search(self, st: IPMState, aux: _Aux, dz, dlam, a_pri):
+    def _line_search(self, st: IPMState, aux: _Aux, dz, dlam, dsig, dw_ineq, a_pri):
         """Filter (Wächter-Biegler, Ipopt A-5.4/A-6) or l1-merit
-        backtracking.  All max_ls_iters candidates α_k = a_pri 2^-k are
-        evaluated in one batched pass; per instance the first acceptable
-        one wins, else the best-merit candidate (restoration-phase
-        fallback) — the result of the sequential loop."""
+        backtracking along (dz, dσ).  All max_ls_iters candidates
+        α_k = a_pri 2^-k are evaluated in one batched pass; per instance
+        the first acceptable one wins, else the best-merit candidate
+        (restoration-phase fallback) — the result of the sequential
+        loop."""
         o, f = self.options, self.funcs
-        Z, mu = st.Z, aux.mu
+        Z, mu, sig = st.Z, aux.mu, st.sig
         Bt, T, d = Z.shape
         K = o.max_ls_iters
         has_lb, has_ub, free = self._has_lb, self._has_ub, self._free
-        nu_pen = 1.2 * _bmax((st.lam + dlam).abs(), 1.0)
+        nu_pen = 1.2 * torch.maximum(_bmax((aux.lam + dlam).abs(), 1.0),
+                                     _bmax((st.w + dw_ineq).abs(), 1.0))
 
-        def theta_phi(Zc, Fc, in_resto, zR, mu_c):
-            """(theta, phi) for (N, T, d) points."""
+        def theta_phi(Zc, Fc, gc, sigc, in_resto, zR, mu_c):
+            """(theta, phi) for (N, T, d) points with slacks (N, T, m)."""
             cost = f.total_cost(Zc)
             if self.resto_on:
                 Dr2 = 1.0 / torch.clamp_min(zR * zR, 1.0)
@@ -589,16 +732,18 @@ class InteriorPointSolver:
             suc = torch.where(has_ub > 0, self._ub - Zc, one)
             barrier = _bsum(torch.log(torch.clamp_min(slc, 1e-300)) * has_lb)
             barrier = barrier + _bsum(torch.log(torch.clamp_min(suc, 1e-300)) * has_ub)
-            return _bsum(Fc.abs()), cost - mu_c * barrier
+            barrier = barrier + _bsum(torch.log(torch.clamp_min(sigc, 1e-300)))
+            return _bsum(Fc.abs()) + _bsum((gc - sigc).abs()), cost - mu_c * barrier
 
-        theta_k, phi_0 = theta_phi(Z, aux.F, aux.in_resto, aux.resto_zR, mu)
+        theta_k, phi_0 = theta_phi(Z, aux.F, aux.g, sig, aux.in_resto, aux.resto_zR, mu)
         m0 = phi_0 + nu_pen * theta_k
 
         a = a_pri[:, None] * (0.5 ** torch.arange(K, device=Z.device, dtype=Z.dtype))
         Zc = (Z[:, None] + a[:, :, None, None] * dz[:, None]).reshape(Bt * K, T, d)
+        sigc = (sig[:, None] + a[:, :, None, None] * dsig[:, None]).reshape(Bt * K, T, -1)
         rep = lambda x: None if x is None else x.repeat_interleave(K, 0)  # noqa: E731
         th, ph = theta_phi(
-            Zc, f.defects(Zc), rep(aux.in_resto), rep(aux.resto_zR), rep(mu)
+            Zc, f.defects(Zc), f.ineqs(Zc), sigc, rep(aux.in_resto), rep(aux.resto_zR), rep(mu)
         )
         th, ph = th.reshape(Bt, K), ph.reshape(Bt, K)
         mval = ph + nu_pen[:, None] * th
@@ -608,6 +753,7 @@ class InteriorPointSolver:
                 _bsum(aux.gcost * dz * free)
                 - mu * _bsum(dz / aux.sl * has_lb)
                 + mu * _bsum(dz / aux.su * has_ub)
+                - mu * _bsum(dsig / sig)
             )
             theta_min = 1e-4 * st.theta_ref
             theta_max = o.theta_max_fact * st.theta_ref
@@ -657,7 +803,8 @@ class InteriorPointSolver:
 
     def _iteration_post(self, st: IPMState, aux: _Aux, dz, dlam, ok, dw_used, delta_w):
         o = self.options
-        Z, lam, zl, zu = st.Z, st.lam, st.zl, st.zu
+        Z, lam, zl, zu = st.Z, aux.lam, st.zl, st.zu
+        sig, w = st.sig, st.w
         has_lb, has_ub, free = self._has_lb, self._has_ub, self._free
         mu, tau = aux.mu, aux.tau
         mu3 = _col(mu, 3)
@@ -680,8 +827,18 @@ class InteriorPointSolver:
 
         a_pri = torch.minimum(max_step(aux.sl, dz, has_lb), max_step(aux.su, -dz, has_ub))
         a_dual = torch.minimum(max_step(zl, dzl, has_lb), max_step(zu, dzu, has_ub))
+        if self.nlp.m > 0:
+            # slack and inequality-dual directions, and their
+            # fraction-to-boundary steps
+            dsig = torch.einsum("btmi,bti->btm", aux.Jg, dz) + (aux.g - sig)
+            dw_ineq = mu3 / sig - w - (w / sig) * dsig
+            ones = torch.ones_like(sig)
+            a_pri = torch.minimum(a_pri, max_step(sig, dsig, ones))
+            a_dual = torch.minimum(a_dual, max_step(w, dw_ineq, ones))
+        else:
+            dsig, dw_ineq = sig, w
 
-        alpha, k_ls, accepted, flt = self._line_search(st, aux, dz, dlam, a_pri)
+        alpha, k_ls, accepted, flt = self._line_search(st, aux, dz, dlam, dsig, dw_ineq, a_pri)
         alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
 
         upd = ~st.converged & ~now_converged
@@ -694,6 +851,11 @@ class InteriorPointSolver:
         lam_new = lam_new * _col(torch.clamp_max(1e4 / _bmax(lam_new.abs(), 1.0), 1.0), 3)
         zl_new = zl + _col(scale * a_dual, 3) * dzl
         zu_new = zu + _col(scale * a_dual, 3) * dzu
+        if self.nlp.m > 0:
+            sig_new = torch.clamp_min(sig + _col(scale * alpha, 3) * dsig, self._tiny)
+            w_new = w + _col(scale * a_dual, 3) * dw_ineq
+        else:
+            sig_new, w_new = sig, w
         # Ipopt kappa_Sigma safeguard: bound duals near mu / slack
         ks = 1e10
         one = torch.ones_like(Z)
@@ -706,6 +868,10 @@ class InteriorPointSolver:
         zu_new = torch.where(
             upd3, torch.clamp(zu_new, mu3 / (ks * su_new), ks * mu3 / su_new) * has_ub, zu
         )
+        if self.nlp.m > 0:
+            w_new = torch.where(
+                upd3, torch.clamp(w_new, mu3 / (ks * sig_new), ks * mu3 / sig_new), w
+            )
         extra = dict(flt)
         if self.qn_lbfgs:
             # keep the memory updated in _iteration_pre, and advance prevZ to
@@ -724,7 +890,8 @@ class InteriorPointSolver:
                 resto_k=torch.where(upd, aux.resto_k, st.resto_k),
             )
         return st.replace(
-            Z=Z_new, lam=lam_new, zl=zl_new, zu=zu_new, mu=mu, delta_w=delta_w,
+            Z=Z_new, lam=lam_new, sig=sig_new, w=w_new, zl=zl_new, zu=zu_new, mu=mu,
+            delta_w=delta_w,
             converged=st.converged | now_converged,
             n_iter=(st.n_iter + upd.to(torch.int32)).to(torch.int32),
             kkt_err=aux.E0, alpha=alpha, e_dual=aux.E_dual, e_pr=aux.E_pr,
@@ -738,10 +905,10 @@ class InteriorPointSolver:
         with torch.no_grad():
             kkt_in, aux = self._iteration_pre(st)
             out = self._solve_kkt_batched(kkt_in, st.delta_w, st, stop_if_converged,
-                                          aux.lowrank)
+                                          aux.lowrank, aux.rho0)
             if out is None:
                 return None
-            return self._iteration_post(st, aux, *out)
+            return self._iteration_post(st, aux, *out[:5])
 
     def step(self, st: IPMState) -> IPMState:
         """One batched IPM iteration."""
@@ -755,6 +922,7 @@ class InteriorPointSolver:
         state = self.init_state(Z0)
         self.last_steps = 0  # iterations the last solve ran
         self.kkt_attempts = 0
+        self.kkt_attempt_rows, self.kkt_lifted_rows = 0, 0
         for k in range(max_iter):
             new = self._step(state, True)
             if new is None:

@@ -5,13 +5,17 @@ so a configuration carries over unchanged.  `resolve_modes` turns the
 "auto" switches into the solver's modes exactly as the JAX solver does:
 
   fused_assembly  "auto": on iff the NLP has analytic propagator groups,
-                  the Hessian is exact, recalc_y is off and
-                  max(d, s) <= lanes_max_dim.  Off, the solver evaluates
-                  the propagator bank (ops/prop_bank.py) and assembles the
-                  blocks from it.  The ceiling is not only a TPU compile
+                  the Hessian is exact, recalc_y is off,
+                  max(d, s) <= lanes_max_dim, and the fused kernel is built
+                  for every group's (n, K) (ops/dyn_assembly.py
+                  SUPPORTED_NK; the JAX kernel takes any (n, K)).  Off, the
+                  solver evaluates the propagator bank (ops/prop_bank.py)
+                  and assembles the blocks from it, the route JAX's result
+                  also comes from.  The ceiling is not only a TPU compile
                   limit: the fused kernel keeps a whole (instance, knot)
-                  bank in one thread's registers, which does not fit at
-                  the two-qubit sizes (n=8, K=5: 10,752 bytes of bank).
+                  bank in shared memory, which does not fit at the
+                  two-qubit sizes (n=8, K=5: 10,752 bytes of bank per
+                  pair).  True with an (n, K) outside SUPPORTED_NK raises.
   kkt_refine      "auto": one refinement pass through the kept factors iff
                   kkt_backend == "lanes" and max(d, s) > lanes_max_dim.
                   An int is taken as given.  (The JAX solver also sends
@@ -125,20 +129,27 @@ class SolverOptions:
 IpoptOptions = SolverOptions
 
 
-def resolve_modes(o: SolverOptions, d: int, s: int, *, has_groups: bool,
+def resolve_modes(o: SolverOptions, d: int, s: int, *, group_nk=(), supported_nk=(),
                   exact_hessian: bool) -> tuple[bool, int]:
-    """(fused_assembly_on, kkt_refine_n) for stage sizes d, s; see the
-    module docstring."""
+    """(fused_assembly_on, kkt_refine_n) for stage sizes d, s; group_nk
+    holds the (n, K) of each analytic propagator group (empty without
+    them), supported_nk the fused kernel's.  See the module docstring."""
     big = max(d, s)
     if o.kkt_refine == "auto":
         refine = int(o.kkt_backend == "lanes" and big > o.lanes_max_dim)
     else:
         refine = int(o.kkt_refine)
     fa = o.fused_assembly
+    covered = set(group_nk) <= set(supported_nk)
     fused = (
-        has_groups and exact_hessian and not o.recalc_y
-        and (big <= o.lanes_max_dim if fa == "auto" else bool(fa))
+        len(group_nk) > 0 and exact_hessian and not o.recalc_y
+        and (big <= o.lanes_max_dim and covered if fa == "auto" else bool(fa))
     )
+    if fused and not covered:
+        raise NotImplementedError(
+            f"fused_assembly=True: the fused kernel takes (n, K) in SUPPORTED_NK "
+            f"{sorted(supported_nk)}, not {sorted(set(group_nk) - set(supported_nk))}"
+        )
     return bool(fused), refine
 
 

@@ -2,9 +2,9 @@
 time only).
 
 Counterpart of quantumcollocation_tpu/trajectory/initialization.py:
-unitary geodesic (or linear) state guess, ket linear interpolation (or a
-rollout under a given control guess), plus random bounded controls or the
-derivative chain of a given guess.  Randomness comes from a numpy
+unitary geodesic (or linear) state guess, ket linear interpolation, or
+either state's rollout under a given control guess, plus random bounded
+controls or the derivative chain of a given guess.  Randomness comes from a numpy
 Generator, drawn in the same order as the JAX package, so both packages
 build the same trajectory from one seed.
 """
@@ -16,7 +16,7 @@ from typing import Sequence
 import numpy as np
 import scipy.linalg as sla
 
-from ..dynamics.rollouts import rollout
+from ..dynamics.rollouts import rollout, unitary_rollout
 from ..quantum.isomorphisms import ket_to_iso, operator_to_iso_vec
 from .named_trajectory import NamedTrajectory, derivative
 
@@ -153,22 +153,34 @@ def initialize_trajectory(
 
 def initialize_unitary_trajectory(
     U_goal, T: int, dt, n_drives: int, control_bounds, *,
-    state_name: str = "Ũ⃗", U_init=None, geodesic: bool = True, rng=None,
+    state_name: str = "Ũ⃗", U_init=None, a_guess=None, system=None,
+    geodesic: bool = True, rollout_integrator: str = "expm", rng=None,
     **kwargs,
 ) -> NamedTrajectory:
-    """Geodesic (or linear) unitary state guess with random controls."""
+    """Geodesic (or linear) unitary state guess with random controls, or
+    the rollout of a_guess (T, n_drives) under system's dynamics with
+    a_guess's control chain."""
     U_goal = np.asarray(U_goal, dtype=complex)
     if U_init is None:
         U_init = np.eye(U_goal.shape[0], dtype=complex)
     v_init = operator_to_iso_vec(np.asarray(U_init))
     v_goal = operator_to_iso_vec(U_goal)
-    if geodesic:
+    if a_guess is not None:
+        if system is None:
+            raise ValueError("a system is needed to roll out a_guess")
+        if rollout_integrator != "expm":
+            raise NotImplementedError(
+                f"rollout integrator {rollout_integrator!r}: the port rolls out with expm"
+            )
+        dts = np.full((T,), float(dt)) if np.isscalar(dt) else np.asarray(dt).reshape(-1)
+        U_traj = unitary_rollout(v_init, np.asarray(a_guess), dts, system).numpy()
+    elif geodesic:
         U_traj = unitary_geodesic(U_init, U_goal, samples=T)
     else:
         U_traj = linear_interpolation(v_init, v_goal, T)
     return initialize_trajectory(
         [U_traj], [v_init], [v_goal], [state_name], T, dt, n_drives,
-        control_bounds, rng=rng, **kwargs,
+        control_bounds, a_guess=a_guess, rng=rng, **kwargs,
     )
 
 

@@ -140,6 +140,9 @@ class NamedTrajectory:
             obj.global_data = OrderedDict(global_data)
         return obj
 
+    def copy(self) -> "NamedTrajectory":
+        return self.with_data(self.data.copy())
+
     def __repr__(self):
         comps = ", ".join(f"{n}:{self.comp_size(n)}" for n in self._components)
         return (

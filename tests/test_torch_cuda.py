@@ -12,12 +12,15 @@ import pytest
 import torch
 
 import quantumcollocation_tpu_torch as qt
+from quantumcollocation_tpu_torch import bench_util as bu
 from quantumcollocation_tpu_torch.bench_util import seeded_bank, seeded_kkt
 from quantumcollocation_tpu_torch.ops import build
 from quantumcollocation_tpu_torch.ops import dyn_assembly as da
 from quantumcollocation_tpu_torch.ops import prop_bank as pb
 from quantumcollocation_tpu_torch.solver import kkt_lanes as kl
+from quantumcollocation_tpu_torch.solver.ipm import InteriorPointSolver
 from quantumcollocation_tpu_torch.solver.kkt import solve_kkt
+from quantumcollocation_tpu_torch.solver.stage_nlp import jt_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -357,9 +360,9 @@ def test_cnot_exp_path_launches_its_kernels(cuda):
     # (n, K) = (4, 3): the fused assembly's, the bank (entry design) at the
     # start
     (1, ["X", "Y", "Z"], False, "auto"),
-    # the bank's entry design in every iteration (the fused assembly takes
-    # K <= 3 only)
-    (1, ["X", "Y", "Z", "X"], True, False),
+    # the bank's entry design in every iteration: "auto" takes the bank
+    # route, since the fused assembly takes K <= 3 only
+    (1, ["X", "Y", "Z", "X"], True, "auto"),
     # the strip design below its most drives, in every iteration
     (2, ["XI", "IX"], False, "auto"),
     # the entry design, in every iteration
@@ -378,13 +381,15 @@ def test_drive_counts_solve_on_the_card(cuda, qubits, drives, free_time, fused):
         piccolo_options=qt.PiccoloOptions(verbose=False, free_time=free_time),
         rng=np.random.default_rng(7),
     )
+    fused_on = qubits == 1 and len(drives) + int(free_time) <= 3
+    assert prob.solver.fused_assembly_on == fused_on
     Z0 = prob.multistart_initial_decisions(4, sigma=0.3, rng=np.random.default_rng(0))
     build.reset_launch_counts()
     res = prob.solve_batched(Z0, max_iter=5)
     c = build.launch_counts
     assert torch.isfinite(res.Z).all()
-    assert c["prop_bank"] >= (1 if fused == "auto" and qubits == 1
-                              else prob.solver.last_steps) > 0, c
+    assert c["prop_bank"] >= (1 if fused_on else prob.solver.last_steps) > 0, c
+    assert (c["dyn_assembly"] > 0) == fused_on, c
     assert c["kkt_fwd_sweep"] > 0, c
 
 
@@ -684,3 +689,116 @@ def test_assembly_kernel_writes_every_entry(cuda, case, Bt):
             torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
         else:
             _close_rel(o, r)
+
+
+def _lifted_kkt(Bt, T, d, s, device, seed):
+    """Seeded blocks lifted as the solver lifts them (ρ from its Gershgorin
+    rule): H + ρS_AA, C + ρS_AB, rz + ρJᵀrnu; and a second rhs."""
+    H, C, A, B, rz, rnu, rz2, rnu2 = seeded_kkt(Bt, T, d, s, device, seed=seed)
+    rho = InteriorPointSolver.lift_scale(H, C, 2.0)
+    S_AA, S_AB = InteriorPointSolver._lift_S(A, B)
+    r4 = rho[:, None, None, None]
+    lifted = (H + r4 * S_AA, C + r4 * S_AB, A, B, rz + rho[:, None, None] * jt_blocks(A, B, rnu),
+              rnu)
+    return [x.contiguous() for x in lifted], (rz2, rnu2)
+
+
+@pytest.mark.parametrize("T", [2, 51])
+@pytest.mark.parametrize("Bt", [1, 133, 512])
+def test_sweeps_on_lifted_blocks_match_plain_version(cuda, monkeypatch, Bt, T):
+    # the min_time path's KKT attempt at d=15: kernel 2 with kept factors on
+    # the lifted blocks, then kernel 4 (the refinement's rhs-only sweep on
+    # those factors, rhs_fwd_sweep_group<4>) and kernel 3, each writing into
+    # memory poisoned with NaN
+    d, s = 15, 13
+    args, rhs2 = _lifted_kkt(Bt, T, d, s, cuda, seed=Bt + T)
+    ref = kl.fwd_sweep_reference(*args, 1e-8, want_factors=True)
+    full = torch.full
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", lambda *shape, **k: full(
+            shape[0] if len(shape) == 1 and not isinstance(shape[0], int) else shape,
+            float("nan"), **k))
+        k = kl.fwd_sweep_cuda(*args, 1e-8, want_factors=True)
+        fac = [x.contiguous() for x in ref[:4]]
+        q_k, dz_k = kl.rhs_fwd_sweep_cuda(k[0], k[1], k[5], args[1], args[2], *rhs2, k[6])
+        dz_b, nu_b = kl.bwd_sweep_cuda(*fac, *args[1:4], args[5], k[4])
+    torch.cuda.synchronize()
+    for o, r in list(zip(k[:4] + (k[4][:, -1],), ref[:5])) + list(zip(k[5:], ref[6:])):
+        assert torch.isfinite(o).all()
+        _close_rel(o, r)
+    q_r, dzl_r = kl.rhs_fwd_sweep_reference(*[x.contiguous() for x in (ref[0], ref[1], ref[6])],
+                                            args[1], args[2], *rhs2, ref[7].contiguous())
+    _close_rel(q_k, q_r)
+    _close_rel(dz_k[:, -1], dzl_r)
+    dz_p, nu_p = kl.bwd_sweep_reference(*fac, *args[1:4], args[5], k[4][:, -1])
+    for o, r in ((dz_b, dz_p), (nu_b, nu_p)):
+        assert torch.isfinite(o).all()
+        _close_rel(o, r)
+    # the whole re-solve on the kept factors against the plain KKT solve
+    dz, nu, ok, fac_k = kl.solve_kkt_lanes(*args, 1e-8, want_factors=True)
+    dz2, nu2, ok2 = kl.resolve_kkt_lanes(fac_k, *rhs2)
+    dz_r, nu_r, ok_r = solve_kkt(*args[:4], *rhs2, 1e-8)
+    assert bool(ok.all()) and bool(ok2.all()) and bool(ok_r.all())
+    _close_rel(dz2, dz_r)
+    _close_rel(nu2, nu_r)
+
+
+def test_sweeps_at_the_su4_shape_match_plain_version(cuda):
+    # kernels 2 (kept factors), 4 and 3 at B=512, T=33, d=47: one instance
+    # a block, some four waves over the SMs
+    Bt, T, d, s = 512, 33, 47, 42
+    H, C, A, B, rz, rnu, rz2, rnu2 = seeded_kkt(Bt, T, d, s, cuda, seed=5)
+    args = (H, C, A, B, rz, rnu)
+    k = kl.fwd_sweep_cuda(*args, 1e-8, want_factors=True)
+    ref = kl.fwd_sweep_reference(*args, 1e-8, want_factors=True)
+    for o, r in list(zip(k[:4] + (k[4][:, -1],), ref[:5])) + list(zip(k[5:], ref[6:])):
+        _close_rel(o, r)
+    fac = [x.contiguous() for x in ref[:4]]
+    dz_b, nu_b = kl.bwd_sweep_cuda(*fac, C, A, B, rnu, k[4])
+    dz_p, nu_p = kl.bwd_sweep_reference(*fac, C, A, B, rnu, k[4][:, -1])
+    _close_rel(dz_b, dz_p)
+    _close_rel(nu_b, nu_p)
+    L_P, L_S, G, L_Pf = [x.contiguous() for x in (ref[0], ref[1], ref[6], ref[7])]
+    q_k, dz_k = kl.rhs_fwd_sweep_cuda(L_P, L_S, G, C, A, rz2, rnu2, L_Pf)
+    q_r, dzl_r = kl.rhs_fwd_sweep_reference(L_P, L_S, G, C, A, rz2, rnu2, L_Pf)
+    torch.cuda.synchronize()
+    _close_rel(q_k, q_r)
+    _close_rel(dz_k[:, -1], dzl_r)
+    assert kl.sweep_config("kkt_fwd_sweep", Bt, d, s)["instances_per_block"] == 1
+
+
+def test_su4_path_solves_on_the_card(cuda):
+    prob = bu.su4_problem(T=11)
+    goals = [qt.random_su(4, np.random.default_rng(s)) for s in (1, 2)]
+    Z0 = qt.multigoal_initial_decisions(prob, goals, n_seeds_per_goal=4, sigma=0.2,
+                                        rng=np.random.default_rng(100))
+    build.reset_launch_counts()
+    res = prob.solve_batched(Z0, max_iter=5)
+    c = dict(build.launch_counts)
+    Z = res.Z.double().cpu().numpy()
+    assert np.isfinite(Z).all()
+    free = np.asarray(prob.solver.nlp.free_mask)
+    np.testing.assert_allclose(Z[:, ~free], Z0[:, ~free], atol=1e-6)  # the pinned W₀ = G†
+    f = qt.multigoal_rollout_fidelities(prob, Z, goals, n_seeds_per_goal=4)
+    assert np.isfinite(f).all()
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] >= prob.solver.last_steps > 0, c
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+
+
+def test_min_time_path_solves_on_the_card(cuda):
+    warm = bu.min_time_warm(T=11)
+    build.reset_launch_counts()
+    warm.solve(max_iter=10)
+    c = dict(build.launch_counts)
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] >= warm.solver.last_steps > 0, c
+    mt, dur0 = bu.min_time_problem(warm)
+    s = mt.solver
+    assert (s.fused_assembly_on, s.kkt_aug_on, s.retry_warm_on) == (True, True, True)
+    build.reset_launch_counts()
+    res = s.solve(bu.min_time_seeds(mt, 8, 0), max_iter=6)
+    c = dict(build.launch_counts)
+    assert torch.isfinite(res.Z).all()
+    assert c["prop_bank"] == 1 and c["dyn_assembly"] >= s.last_steps > 0, c
+    # every attempt refines once through its kept factors (the lift's pass)
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+    assert int(s.kkt_lifted_rows) > 0 and dur0 > 0

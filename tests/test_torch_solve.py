@@ -102,10 +102,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    # soc, recalc_y, the cr backend, Gauss-Newton Hessians and stage
-    # inequality rows (here the leakage constraint's) are not ported
+    # soc, the watchdog, the cr backend, Gauss-Newton Hessians, leakage
+    # suppression and the free-phase minimum-time floor are not ported
     cases = [
-        (dict(soc=True), {}), (dict(recalc_y=True), {}), (dict(kkt_backend="cr"), {}),
+        (dict(soc=True), {}), (dict(watchdog_trials=1), {}), (dict(kkt_backend="cr"), {}),
         (dict(quasi_newton="gauss-newton"), dict(eval_hessian=False)),
         ({}, dict(leakage_suppression=True)),
     ]
@@ -116,6 +116,12 @@ def test_unported_options_raise():
                 ipopt_options=qt.SolverOptions(**solver_kw),
                 piccolo_options=qt.PiccoloOptions(verbose=False, **piccolo_kw), device="cpu",
             )
+    base = qt.UnitarySmoothPulseProblem(
+        qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
+        piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
+    )
+    with pytest.raises(NotImplementedError):
+        qt.UnitaryMinimumTimeProblem(base, phase_operators=[qt.GATES["Z"]])
 
 
 def test_port_runs_with_jax_blocked():
