@@ -104,8 +104,21 @@ Phases, one JSON object per line on stdout:
      control noise), 48 iterations after a discarded warm-up; an instance
      succeeds at float64 fidelity >= 0.9999 and a duration below the warm
      one (success_frac >= 0.9, median duration below the warm one); every
-     attempt is refined once through its kept factors (the lift's pass).
-The sweep rows of phases 18 and 21 also give device_ms (a CUDA graph of
+     attempt is refined once through its kept factors (the lift's pass);
+ 23. kernels, leakage shapes (BASELINE #4: a three-level transmon, the X
+     gate embedded on its qubit subspace, leakage suppression through L1
+     slack rows (m=8), T=40, Δt=0.2 fixed, kkt_backend "lanes", so no
+     fused assembly, one refinement pass and the lift): the bank (second
+     order, 9,984 pairs, n=6, 2 drives, fixed Δt) and kernel 2 with kept
+     factors, kernels 4 and 3 (B=256, d=28, s=22) on lifted blocks, as
+     phase 21;
+ 24. reference, leakage: the first iteration's lifted system, as phase 21's;
+ 25. main path, leakage: B=256 seeds (the initial decision with 0.05 σ
+     control noise, the bench's), 120 iterations after a discarded
+     warm-up; checked by a float64 rollout on the qubit subspace (the
+     fractions at subspace infidelity <= 1e-3, 1e-2, 1e-4; frac@1e-3 >=
+     0.9).
+The sweep rows of phases 18, 21 and 23 also give device_ms (a CUDA graph of
 the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
 the bank's rows give, beside a call's time (ms, the host's enqueue
@@ -498,6 +511,62 @@ def main():
               "ok_f64": int(ok_r.sum())})
         if not (e_k <= 10 * e_p + 1e-6 and int(keep.sum()) >= Bn - Bn // 100):
             fail(f"the {path} kernel KKT solve is less accurate than the plain float32 solve")
+
+    def lifted_first_iteration(solver_, Z0):
+        """The first iteration of a solver with the ρJᵀJ lift: (state, the
+        unlifted KKT blocks, the iteration's aux, the accepted δ_w and ρ,
+        the blocks lifted by ρ0 at the accepted δ_w, and the map lifting
+        seeded blocks (H, C, A, B, rz, rnu) by the solver's own ρ rule)."""
+        st_ = solver_.init_state(Z0)
+        kkt_, aux_ = solver_._iteration_pre(st_)
+        out_ = solver_._solve_kkt_batched(kkt_, st_.delta_w, st_, False, None, aux_.rho0)
+        kkt_ = [x.contiguous() for x in kkt_]
+        real_ = [x.contiguous() for x in solver_._lifted(
+            kkt_, out_[3], aux_.rho0, solver_._lift_S(kkt_[2], kkt_[3]))]
+
+        def lift_seeded(H_, C_, A_, B_, rz_, rnu_):
+            rho = solver_.lift_scale(H_, C_, solver_.options.kkt_aug_rho_factor)
+            return [x.contiguous() for x in solver_._lifted(
+                (H_, C_, A_, B_, rz_, rnu_), torch.zeros_like(rho), rho,
+                solver_._lift_S(A_, B_))]
+
+        return st_, kkt_, aux_, out_[3], out_[5], real_, lift_seeded
+
+    def lifted_reference(path, solver_, kkt_, aux_, dw_, real_):
+        """The first iteration's lifted system: the kernel path's step
+        (kernels 2 and 3, then the one refinement pass against the
+        unlifted system on the kept factors) and the plain float32 solve of
+        the lifted system, each against the float64 solves of the lifted
+        and of the unlifted system (equal in exact arithmetic up to ρδ_c
+        terms).  On min_time (ρ0 ~ 3e2) this system is far from float32's
+        reach, so the errors are printed findings, not gates; the phase
+        fails only where the kernel path's solve fails or its refined step
+        is not finite."""
+        Bn = real_[0].shape[0]
+        with torch.no_grad():
+            dz0, nu0, ok0, fac = kl.solve_kkt_lanes(*real_, delta_c, want_factors=True)
+            dz1, nu1 = solver_._refine(kkt_, dw_, dz0, nu0,
+                                       lambda a, b: kl.resolve_kkt_lanes(fac, a, b),
+                                       rho=aux_.rho0, n_pass=1)
+            dz_p, nu_p, ok_p = solve_kkt(*real_, delta_c)
+            refs = {"lifted": solve_kkt(*[x.double().cpu() for x in real_], delta_c),
+                    "unlifted": solve_kkt(*[x.double().cpu() for x in
+                                            solver_._lifted(kkt_, dw_, None)], delta_c)}
+            line = {}
+            for rname, (dz_r, nu_r, ok_r) in refs.items():
+                keep = ok_r & ok0.cpu()
+                for tag, (a, b) in (("refine0", (dz0, nu0)), ("refine1", (dz1, nu1)),
+                                    ("plain", (dz_p, nu_p))):
+                    line[f"{tag}_rel_err_vs_f64_{rname}"] = max(
+                        rel_err(a.cpu(), dz_r, keep)[1], rel_err(b.cpu(), nu_r, keep)[1])
+                line[f"compared_{rname}"] = int(keep.sum())
+                line[f"ok_f64_{rname}"] = int(ok_r.sum())
+        emit({"phase": "reference", "path": path, "batch": Bn, "lifted": True, **line,
+              "ok_kernel": int(ok0.sum()), "ok_plain": int(ok_p.sum()),
+              "rho0_median": float(aux_.rho0.median()), "dw_max": float(dw_.max())})
+        if (line["compared_unlifted"] < line["ok_f64_unlifted"] - Bn // 100
+                or not np.isfinite(line["refine1_rel_err_vs_f64_unlifted"])):
+            fail(f"the {path} kernel KKT solve failed on the first iteration's lifted system")
 
     # ---- the Hadamard problem -------------------------------------------- #
     sysq = q.QuantumSystem(q.GATES["Z"], [q.GATES["X"], q.GATES["Y"]])
@@ -1131,21 +1200,8 @@ def main():
     if modes != (True, 0, True, True, 1):
         fail(f"min_time modes {modes} != (True, 0, True, True, 1)")
     with torch.no_grad():
-        stm = solverm.init_state(bu.min_time_seeds(mt, B, 7))
-        kkt_m, aux_m = solverm._iteration_pre(stm)
-        out_m = solverm._solve_kkt_batched(kkt_m, stm.delta_w, stm, False, None, aux_m.rho0)
-        dwm, rho_acc = out_m[3], out_m[5]
-        kkt_m = [x.contiguous() for x in kkt_m]
-        # the first iteration's blocks lifted by ρ0 at the accepted δ_w
-        realm = [x.contiguous() for x in solverm._lifted(
-            kkt_m, dwm, aux_m.rho0, solverm._lift_S(kkt_m[2], kkt_m[3]))]
-
-        def lift_seeded(H_, C_, A_, B_, rz_, rnu_):
-            rho = solverm.lift_scale(H_, C_, solverm.options.kkt_aug_rho_factor)
-            return [x.contiguous() for x in solverm._lifted(
-                (H_, C_, A_, B_, rz_, rnu_), torch.zeros_like(rho), rho,
-                solverm._lift_S(A_, B_))]
-
+        stm, kkt_m, aux_m, dwm, rho_acc, realm, lift_seeded = lifted_first_iteration(
+            solverm, bu.min_time_seeds(mt, B, 7))
         anm = solverm.nlp.analytic
         Zm, lamm = stm.Z.contiguous(), stm.lam.contiguous()
         dm, sm = Zm.shape[-1], lamm.shape[-1]
@@ -1182,36 +1238,7 @@ def main():
     bad = [n for res_ in (resultsm, resultsw) for n, r in res_.items() if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions at the min_time shapes: {bad}")
-    # the lifted system is far from float32's reach at this iteration
-    # (ρ0 ~ 3e2): the step comes from its solve plus the one refinement
-    # pass against the unlifted system on the kept factors; both are held
-    # against the float64 solves of the lifted and of the unlifted system
-    # (equal in exact arithmetic up to ρδ_c terms), the plain float32
-    # solve of the lifted system beside them (a printed finding, as the
-    # first iteration of cnot; no gate on its size)
-    with torch.no_grad():
-        dz0, nu0, ok0, fac = kl.solve_kkt_lanes(*realm, delta_c, want_factors=True)
-        dz1, nu1 = solverm._refine(kkt_m, dwm, dz0, nu0,
-                                   lambda a, b: kl.resolve_kkt_lanes(fac, a, b),
-                                   rho=aux_m.rho0, n_pass=1)
-        dz_p, nu_p, ok_p = solve_kkt(*realm, delta_c)
-        refs = {"lifted": solve_kkt(*[x.double().cpu() for x in realm], delta_c),
-                "unlifted": solve_kkt(*[x.double().cpu() for x in
-                                        solverm._lifted(kkt_m, dwm, None)], delta_c)}
-        line = {}
-        for rname, (dz_r, nu_r, ok_r) in refs.items():
-            keep = ok_r & ok0.cpu()
-            for tag, (a, b) in (("refine0", (dz0, nu0)), ("refine1", (dz1, nu1)),
-                                ("plain", (dz_p, nu_p))):
-                line[f"{tag}_rel_err_vs_f64_{rname}"] = max(rel_err(a.cpu(), dz_r, keep)[1],
-                                                            rel_err(b.cpu(), nu_r, keep)[1])
-            line[f"compared_{rname}"] = int(keep.sum())
-            line[f"ok_f64_{rname}"] = int(ok_r.sum())
-        e1 = line["refine1_rel_err_vs_f64_unlifted"]
-    emit({"phase": "reference", "path": "min_time", "batch": B, "lifted": True, **line,
-          "ok_kernel": int(ok0.sum()), "ok_plain": int(ok_p.sum())})
-    if line["compared_unlifted"] < line["ok_f64_unlifted"] - B // 100 or not np.isfinite(e1):
-        fail("the min_time kernel KKT solve failed on the first iteration's lifted system")
+    lifted_reference("min_time", solverm, kkt_m, aux_m, dwm, realm)
 
     # ---- 22. min_time main path ------------------------------------------- #
     solverm.solve(bu.min_time_seeds(mt, B, 6), max_iter=NEW_WARM)  # discarded warm-up
@@ -1261,6 +1288,82 @@ def main():
     emit({"phase": "launches_per_iter", "path": "min_time",
           **{k: v / max(itm, 1) for k, v in countsm.items()}})
 
+    # ---- 23. kernels on the first leakage iteration's inputs --------------- #
+    LK_B, LK_T, LK_DT, LK_ITERS = 256, 40, 0.2, 120
+    probl, goall = bu.leakage_problem(LK_T, LK_DT)
+    solverl = probl.solver
+    modes = (solverl.fused_assembly_on, solverl.kkt_refine_n, solverl.kkt_aug_on,
+             solverl.retry_warm_on, solverl.nlp.m)
+    if modes != (False, 1, True, True, 8):
+        fail(f"leakage modes {modes} != (False, 1, True, True, 8)")
+    with torch.no_grad():
+        stl, kkt_l, aux_l, dwl, rho_accl, reall, lift_seededl = lifted_first_iteration(
+            solverl, bu.leakage_seeds(probl, LK_B, 7))
+        Zl = stl.Z.contiguous()
+        dl, sl_ = Zl.shape[-1], stl.lam.shape[-1]
+        resultsl = {"prop_bank": bank_entry(Zl, solverl.nlp.analytic, solverl.var_scale)}
+        resultsl.update(sweep_entries(reall, LK_B, LK_T, delta_c, factors=True,
+                                      lift=lift_seededl, device=True))
+    finish(resultsl, bw, f32_peak)
+    shapesl = {"B": LK_B, "T": LK_T, "d": dl, "s": sl_, "m": solverl.nlp.m, "dtype": "float32"}
+    for name, r in resultsl.items():
+        emit({"phase": "kernel", "path": "leakage", "name": name,
+              "shapes": r.pop("shapes", shapesl),
+              **({"lifted": True} if name.startswith("kkt") else {}), **r})
+    emit({"phase": "lift_system", "path": "leakage", "rho0_median": float(aux_l.rho0.median()),
+          "rho0_max": float(aux_l.rho0.max()), "dw_median": float(dwl.median()),
+          "accepted_lifted_frac": float((rho_accl > 0).float().mean())})
+    bad = [n for n, r in resultsl.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the leakage shapes: {bad}")
+
+    # ---- 24. reference: the first leakage iteration's lifted system -------- #
+    lifted_reference("leakage", solverl, kkt_l, aux_l, dwl, reall)
+
+    # ---- 25. leakage main path --------------------------------------------- #
+    solverl.solve(bu.leakage_seeds(probl, LK_B, 6), max_iter=NEW_WARM)  # discarded warm-up
+    Zl0 = bu.leakage_seeds(probl, LK_B, 42)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resl = solverl.solve(Zl0, max_iter=LK_ITERS)
+    torch.cuda.synchronize()
+    walll = time.perf_counter() - t0
+    countsl = dict(build.launch_counts)
+    itl, attl = solverl.last_steps, solverl.kkt_attempts
+    lifted_sharel = float(solverl.kkt_lifted_rows) / max(solverl.kkt_attempt_rows, 1)
+    Zsl = resl.Z.double().cpu().numpy()
+    if Zsl.shape != (LK_B, LK_T, dl) or not np.isfinite(Zsl).all():
+        fail(f"leakage solution has shape {Zsl.shape} or non-finite values")
+    trl = probl.trajectory
+    al_sl = trl.comp_slice("a")
+    infidl = 1.0 - q.batched_rollout_fidelity(
+        Zsl[:, :, al_sl], np.full((LK_B, LK_T), LK_DT), probl.system, trl.goal["Ũ⃗"],
+        trl.initial["Ũ⃗"], subspace=goall.subspace, device="cuda")
+    frl = {f"frac_subspace_infid_{t}": float(np.mean(infidl <= float(t)))
+           for t in ("1e-3", "1e-2", "1e-4")}
+    emit({"phase": "main_path", "path": "leakage", "batch": LK_B, "T": LK_T, "dt": LK_DT,
+          "ipm_iters": itl, "wall_s": walll, "ipm_ms_per_iter": 1e3 * walll / max(itl, 1),
+          "solves_per_s_at_subspace_infid_1e-3": LK_B * frl["frac_subspace_infid_1e-3"] / walll,
+          **frl, "best_subspace_infid": float(infidl.min()),
+          "median_subspace_infid": float(np.median(infidl)),
+          "ipm_converged_frac": float(resl.converged.float().mean()),
+          "launches": countsl, "kkt_attempts": attl, "kkt_attempts_per_iter": attl / max(itl, 1),
+          "lifted_attempt_share": lifted_sharel,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    lk_kernels = ("prop_bank", "kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+    if min(countsl[k] for k in lk_kernels) <= 0 or countsl["dyn_assembly"] != 0:
+        fail(f"a kernel of the leakage path was not launched, or the fused assembly was: "
+             f"{countsl}")
+    if countsl["prop_bank"] < itl or countsl["kkt_rhs_fwd_sweep"] != countsl["kkt_fwd_sweep"] - 1:
+        fail(f"leakage: fewer bank launches than iterations, or not one re-solve per attempt: "
+             f"{countsl}")
+    if frl["frac_subspace_infid_1e-3"] < 0.9:
+        fail(f"leakage frac@subspace infidelity 1e-3 {frl['frac_subspace_infid_1e-3']} < 0.9")
+    emit({"phase": "launches_per_iter", "path": "leakage",
+          **{k: v / max(itl, 1) for k, v in countsl.items()}})
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -1273,6 +1376,7 @@ def main():
     entries += [("su4", n, r, countsu) for n, r in resultsu.items()]
     entries += [("min_time", n, r, countsm) for n, r in resultsm.items()]
     entries += [("min_time", "prop_bank", dict(resultsw["prop_bank"], stage="warm"), countsw)]
+    entries += [("leakage", n, r, countsl) for n, r in resultsl.items()]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],

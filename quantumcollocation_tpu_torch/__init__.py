@@ -18,6 +18,8 @@ from .quantum import *  # noqa: F401,F403
 from .quantum import __all__ as _quantum_all
 from .solver import *  # noqa: F401,F403
 from .solver import __all__ as _solver_all
+from .systems import *  # noqa: F401,F403
+from .systems import __all__ as _systems_all
 from .trajectory import *  # noqa: F401,F403
 from .trajectory import __all__ as _trajectory_all
 
@@ -25,5 +27,5 @@ __version__ = "0.1.0"
 
 __all__ = (
     list(_quantum_all) + list(_trajectory_all) + list(_dynamics_all)
-    + list(_objectives_all) + list(_solver_all) + list(_problems_all)
+    + list(_objectives_all) + list(_solver_all) + list(_problems_all) + list(_systems_all)
 )

@@ -1,6 +1,6 @@
 """Seeded KKT blocks, the propagator bank's inputs, CUDA timing, and the
-su4 and min_time problems, shared by chip_smoke.py, profile_step, the
-build comparison (sweep_builds) and the GPU tests."""
+su4, min_time and leakage problems, shared by chip_smoke.py, profile_step,
+the build comparison (sweep_builds) and the GPU tests."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "su4_system",
-           "su4_problem", "min_time_warm", "min_time_problem", "min_time_seeds"]
+           "su4_problem", "min_time_warm", "min_time_problem", "min_time_seeds",
+           "leakage_problem", "leakage_seeds"]
 
 
 def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
@@ -170,5 +171,38 @@ def min_time_seeds(prob, B, seed):
     Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
     T = z0.shape[0]
     Z0[:, 1:-1, a_sl] += 1e-4 * np.random.default_rng(seed).standard_normal(
+        (B, T - 2, a_sl.stop - a_sl.start))
+    return Z0
+
+
+def leakage_problem(T=40, dt=0.2, device=None):
+    """BASELINE #4: a three-level transmon (omega 4.0, delta 0.2, rotating
+    frame), the X gate embedded on its qubit subspace, a_bound 0.5, Q=1e4,
+    R=1e-3, leakage suppression (R_leakage 0.1: L1 slack rows on the four
+    leakage entries) at a fixed Δt, tol 1e-5, kkt_backend "lanes",
+    rng default_rng(11).  Returns (problem, embedded goal)."""
+    from . import EmbeddedOperator, GATES, PiccoloOptions, UnitarySmoothPulseProblem
+    from .systems import TransmonSystem
+
+    sysq = TransmonSystem(omega=4.0, delta=0.2, levels=3)
+    goal = EmbeddedOperator(GATES["X"], sysq)
+    prob = UnitarySmoothPulseProblem(
+        sysq, goal, T, dt, a_bound=0.5, Q=1e4, R=1e-3,
+        ipopt_options=_options(tol=1e-5, kkt_backend="lanes"),
+        piccolo_options=PiccoloOptions(verbose=False, leakage_suppression=True, R_leakage=1e-1,
+                                       free_time=False),
+        rng=np.random.default_rng(11), device=device,
+    )
+    return prob, goal
+
+
+def leakage_seeds(prob, B, seed):
+    """(B, T, d) seeds: the initial decision with 0.05 N(0, 1) noise on the
+    interior controls (the bench's)."""
+    z0 = prob.initial_decision(1)[0]
+    a_sl = prob.trajectory.comp_slice("a")
+    Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
+    T = z0.shape[0]
+    Z0[:, 1:-1, a_sl] += 0.05 * np.random.default_rng(seed).standard_normal(
         (B, T - 2, a_sl.stop - a_sl.start))
     return Z0

@@ -72,13 +72,14 @@ def batched_ket_rollout_fidelity(
 
 
 def batched_rollout_fidelity(
-    controls, dts, system, U_goal_iso_vec, U_init_iso_vec, *, device="cpu"
+    controls, dts, system, U_goal_iso_vec, U_init_iso_vec, *, subspace=None, device="cpu"
 ):
-    """Rollout fidelity for a batch: controls (B, T, n_drives), dts (B, T).
-    Returns a (B,) float64 numpy array."""
+    """Rollout fidelity for a batch: controls (B, T, n_drives), dts (B, T),
+    on the subspace block where one is given.  Returns a (B,) float64
+    numpy array."""
     Us = unitary_rollout(U_init_iso_vec, controls, dts, system, device=device)
     goal = torch.as_tensor(np.asarray(U_goal_iso_vec), dtype=torch.float64, device=device)
-    return iso_vec_unitary_fidelity(Us[..., -1, :], goal).cpu().numpy()
+    return iso_vec_unitary_fidelity(Us[..., -1, :], goal, subspace=subspace).cpu().numpy()
 
 
 def rollout_fidelity(traj, system, *, state_name="ψ̃", drive_name="a"):
@@ -91,11 +92,12 @@ def rollout_fidelity(traj, system, *, state_name="ψ̃", drive_name="a"):
     )
 
 
-def unitary_rollout_fidelity(traj, system, *, state_name="Ũ⃗", drive_name="a"):
-    """Ground-truth unitary fidelity of a trajectory by rollout (float)."""
+def unitary_rollout_fidelity(traj, system, *, state_name="Ũ⃗", drive_name="a", subspace=None):
+    """Ground-truth unitary fidelity of a trajectory by rollout (float), on
+    the subspace block where one is given."""
     return float(
         batched_rollout_fidelity(
             traj[drive_name], traj.get_timesteps(), system,
-            traj.goal[state_name], traj.initial[state_name],
+            traj.goal[state_name], traj.initial[state_name], subspace=subspace,
         )
     )

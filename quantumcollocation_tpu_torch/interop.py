@@ -5,14 +5,19 @@ This system has no weights: its parameters are the problem data.
 Hamiltonians and generators, the trajectory with its bounds and pins, the
 initial decision Z0, the solver's variable, defect, inequality-row and
 objective scales, each integrator's class, Padé order and squaring count,
-the inequality constraints (class, state name, floor) with m, the
-MinimumTimeObjective's weight, and the goals of a multigoal batch).  It
+the inequality constraints (fidelity floors: class, state name, floor,
+subspace; L1 slack rows: class, names, indices) with m, the
+MinimumTimeObjective's weight, the goals of a multigoal batch, and an
+embedded goal's subspace and levels).  It
 only reads attributes, calls the problem's own methods and calls numpy, so
 it imports nothing of JAX.  The `*_from_arrays` functions build the port's
 problem from those arrays and check that the port derives the same
-integrators, constraints and NLP scaling: an exponential integrator's
-squaring count comes from a host-side norm bound, and a port that derived
-another count would build another NLP.
+integrators, constraints, trajectory and NLP scaling: an exponential
+integrator's squaring count comes from a host-side norm bound, and a port
+that derived another count would build another NLP.  A leakage problem's
+slack components are left out of the port's starting trajectory: its
+L1Regularizer adds them again, and the check holds their initial values
+and place in the layout against the source's.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from .problems.quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .problems.quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
 from .problems.unitary_minimum_time import UnitaryMinimumTimeProblem
 from .problems.unitary_smooth_pulse import UnitarySmoothPulseProblem
-from .quantum.isomorphisms import iso_to_ket
+from .quantum.embedded import EmbeddedOperator, unembed
+from .quantum.isomorphisms import iso_to_ket, iso_vec_to_operator
 from .quantum.systems import QuantumSystem
 from .solver.options import PiccoloOptions
 from .trajectory.named_trajectory import NamedTrajectory
@@ -52,25 +58,37 @@ def _integrator_specs(integrators):
 
 
 def _constraint_specs(constraints):
-    """(class name, state name, floor) of each inequality constraint."""
-    return [
-        (type(c).__name__, c.state_name, float(c.final_fidelity))
-        for c in constraints if hasattr(c, "final_fidelity")
-    ]
+    """One tuple for each inequality constraint: (class name, state name,
+    floor, subspace) of a fidelity floor, (class name, name, slack name,
+    indices) of L1 slack rows."""
+    specs = []
+    for c in constraints:
+        if hasattr(c, "final_fidelity"):
+            sub = getattr(c, "subspace", None)
+            specs.append((type(c).__name__, c.state_name, float(c.final_fidelity),
+                          None if sub is None else tuple(int(i) for i in sub)))
+        elif hasattr(c, "slack_name"):
+            specs.append((type(c).__name__, c.name, c.slack_name,
+                          tuple(int(i) for i in c.indices)))
+    return specs
 
 
-def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None) -> dict:
+def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None) -> dict:
     """numpy snapshot of a JAX-package QuantumControlProblem; Z0 (B, T, d)
-    replaces the trajectory's broadcast initial decision, and goals are
-    those of a multigoal batch.  The inequality-row scales q are read from
-    the solver's scaled NLP at knot 0, where every final-fidelity row is
-    inactive and returns q·1."""
+    replaces the trajectory's broadcast initial decision, goals are those
+    of a multigoal batch, and operator is the problem's EmbeddedOperator
+    goal, if it has one.  The inequality-row scales q are read at knot 0
+    as the ratio of the solver's scaled rows to the problem's unscaled
+    ones: a final-fidelity row is inactive there (q·1 over 1), an L1 slack
+    row is s ∓ v with s = |v| + 1e-3 > 0."""
     traj = prob.trajectory
     solver = prob.solver
     nlp = solver.nlp
     analytic = nlp.analytic
-    ineq_scale = (np.asarray(nlp.ineq(np.asarray(nlp.z0)[0], 0), dtype=np.float64)
-                  if nlp.m > 0 else np.ones(0))
+    ineq_scale = (
+        np.asarray(nlp.ineq(np.asarray(nlp.z0)[0], 0), dtype=np.float64)
+        / np.asarray(prob.nlp.ineq(np.asarray(prob.nlp.z0)[0], 0), dtype=np.float64)
+        if nlp.m > 0 else np.ones(0))
     min_time = [t.weight for t in prob.objective.terms if t.label == "minimum_time"]
     return {
         "H_drift": np.asarray(prob.system.H_drift),
@@ -99,6 +117,8 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None) -> dict:
         "ineq_scale": ineq_scale,
         "min_time_D": float(min_time[0]) if min_time else None,
         "goals": None if goals is None else np.asarray(goals, dtype=complex),
+        "subspace": None if operator is None else tuple(int(i) for i in operator.subspace),
+        "levels": None if operator is None else int(operator.levels),
     }
 
 
@@ -112,8 +132,11 @@ def system_from_arrays(arrays) -> QuantumSystem:
 
 
 def trajectory_from_arrays(arrays) -> NamedTrajectory:
+    """The source's trajectory without its L1 slack components."""
     data = arrays["data"]
-    comps = {name: data[:, a:b] for name, (a, b) in arrays["components"].items()}
+    slacks = [spec[2] for spec in arrays["constraints"] if spec[0] == "L1SlackConstraint"]
+    comps = {name: data[:, a:b] for name, (a, b) in arrays["components"].items()
+             if name not in slacks}
     return NamedTrajectory(
         comps, controls=arrays["controls"], timestep=arrays["timestep"],
         bounds=arrays["bounds"], initial=arrays["initial"], final=arrays["final"],
@@ -130,6 +153,10 @@ def _checked(prob, arrays, rtol):
     mine, theirs = _constraint_specs(prob.constraints), list(arrays["constraints"])
     if mine != theirs or prob.solver.nlp.m != arrays["m"]:
         raise ValueError(f"constraints {mine} differ from the source problem's {theirs}")
+    traj = prob.trajectory
+    if (dict(traj.components) != dict(arrays["components"])
+            or not np.allclose(traj.data, arrays["data"], rtol=rtol, atol=0.0)):
+        raise ValueError("the trajectory's layout or data differ from the source problem's")
     solver = prob.solver
     checks = {
         "var_scale": (solver.var_scale, arrays["var_scale"]),
@@ -153,16 +180,28 @@ def _free_time(traj, piccolo_options):
     )
 
 
+def _operator(arrays, traj):
+    """The source's EmbeddedOperator goal (None without one): the goal's
+    subspace block embedded at the source's subspace and levels."""
+    if arrays["subspace"] is None:
+        return None
+    goal = iso_vec_to_operator(traj.goal["Ũ⃗"])
+    return EmbeddedOperator(unembed(goal, arrays["subspace"]), arrays["subspace"],
+                            arrays["levels"])
+
+
 def unitary_smooth_pulse_from_arrays(
     arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
 ):
     """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
-    UnitarySmoothPulseProblem built with the same Q, R and integrator.
-    Raises if the port's integrators or NLP scaling differ from the
-    source's (scales by more than rtol)."""
+    UnitarySmoothPulseProblem built with the same Q, R, integrator and
+    leakage options (piccolo_options' leakage_suppression and R_leakage).
+    Raises if the port's integrators, constraints, trajectory or NLP
+    scaling differ from the source's (scales by more than rtol)."""
     traj = trajectory_from_arrays(arrays)
     prob = UnitarySmoothPulseProblem(
-        system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
+        system_from_arrays(arrays), _operator(arrays, traj), traj.T,
+        float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
         piccolo_options=_free_time(traj, piccolo_options), device=device,
     )
@@ -183,18 +222,22 @@ def quantum_state_smooth_pulse_from_arrays(
 def _state_problem(arrays, Q, R, ipopt_options, piccolo_options, device):
     traj = trajectory_from_arrays(arrays)
     names = [n for n in traj.names if n.startswith("ψ̃")]
+    leakage = [list(spec[3]) for spec in arrays["constraints"] if spec[0] == "L1SlackConstraint"]
     return QuantumStateSmoothPulseProblem(
         system_from_arrays(arrays),
         [iso_to_ket(traj.initial[n]) for n in names], [iso_to_ket(traj.goal[n]) for n in names],
         traj.T, float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
-        piccolo_options=_free_time(traj, piccolo_options), device=device,
+        piccolo_options=_free_time(traj, piccolo_options), state_leakage_indices=leakage or None,
+        device=device,
     )
 
 
 def _floor(arrays):
-    """The one floor all of the source's fidelity constraints share."""
-    floors = {f for _, _, f in arrays["constraints"]}
+    """(floor, subspace) that all of the source's fidelity constraints
+    share."""
+    floors = {(spec[2], spec[3]) for spec in arrays["constraints"]
+              if spec[0].startswith("Final")}
     if len(floors) != 1:
         raise ValueError(f"expected one fidelity floor, got {sorted(floors)}")
     return floors.pop()
@@ -215,7 +258,9 @@ def unitary_minimum_time_from_arrays(
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
         piccolo_options=_free_time(traj, piccolo_options), device=device,
     )
-    prob = UnitaryMinimumTimeProblem(base, final_fidelity=_floor(arrays), D=arrays["min_time_D"])
+    floor, subspace = _floor(arrays)
+    prob = UnitaryMinimumTimeProblem(base, final_fidelity=floor, D=arrays["min_time_D"],
+                                     subspace=subspace)
     return _checked(prob, arrays, rtol)
 
 
@@ -227,7 +272,7 @@ def quantum_state_minimum_time_from_arrays(
     QuantumStateSmoothPulseProblem (default state name ψ̃)."""
     base = _state_problem(arrays, Q, R, ipopt_options, piccolo_options, device)
     prob = QuantumStateMinimumTimeProblem(
-        base, final_fidelity=_floor(arrays), D=arrays["min_time_D"]
+        base, final_fidelity=_floor(arrays)[0], D=arrays["min_time_D"]
     )
     return _checked(prob, arrays, rtol)
 

@@ -1,12 +1,16 @@
 from .constraints import (
     AbstractConstraint,
     BoundsConstraint,
+    ComplexModulusConstraint,
+    ComplexModulusContraint,
     FinalQuantumStateFidelityConstraint,
     FinalUnitaryFidelityConstraint,
     FinalUnitaryFreePhaseFidelityConstraint,
+    L1SlackConstraint,
     TimeStepsAllEqualConstraint,
 )
 from .objectives import (
+    L1Regularizer,
     MinimumTimeObjective,
     Objective,
     ObjectiveTerm,
@@ -18,9 +22,13 @@ from .objectives import (
 __all__ = [
     "AbstractConstraint",
     "BoundsConstraint",
+    "ComplexModulusConstraint",
+    "ComplexModulusContraint",
     "FinalQuantumStateFidelityConstraint",
     "FinalUnitaryFidelityConstraint",
     "FinalUnitaryFreePhaseFidelityConstraint",
+    "L1Regularizer",
+    "L1SlackConstraint",
     "MinimumTimeObjective",
     "Objective",
     "ObjectiveTerm",

@@ -1,5 +1,5 @@
-"""Constraint objects: bounds, the equal-timestep constraint and the final
-fidelity floors.
+"""Constraint objects: bounds, the equal-timestep constraint, the final
+fidelity floors, the L1 slack rows and the complex-modulus disk.
 
 Counterpart of quantumcollocation_tpu/objectives/constraints.py, subset.
 Box bounds come from trajectory metadata and are enforced by the
@@ -9,13 +9,14 @@ system stays block-tridiagonal.  An inequality constraint has
 its row function fn(z, t) -> (ineq_dim,) with its constants on the solver's
 device, and `ineq(z, t, traj)` evaluates it once.  Rows inactive at knot t
 return +1 through a tensor `where` (zero derivative there), so the
-function vectorizes over t under torch.func.vmap.
+function vectorizes over t under torch.func.vmap.  Row functions gather
+their entries of z by index tensors built once in `make`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +30,9 @@ __all__ = [
     "FinalUnitaryFidelityConstraint",
     "FinalUnitaryFreePhaseFidelityConstraint",
     "FinalQuantumStateFidelityConstraint",
+    "L1SlackConstraint",
+    "ComplexModulusConstraint",
+    "ComplexModulusContraint",
 ]
 
 
@@ -67,6 +71,8 @@ class BoundsConstraint(AbstractConstraint):
 class _FinalFidelityFloor(AbstractConstraint):
     """One row: fidelity(z_T) - final_fidelity at t = T-1, +1 elsewhere."""
 
+    subspace = None
+
     def ineq_dim(self, traj) -> int:
         return 1
 
@@ -75,9 +81,12 @@ class _FinalFidelityFloor(AbstractConstraint):
         goal = torch.as_tensor(np.asarray(traj.goal[self.state_name]), dtype=dtype, device=device)
         floor, last = float(self.final_fidelity), traj.T - 1
         fid = self._fidelity
+        sub = (None if self.subspace is None
+               else torch.as_tensor([int(i) for i in self.subspace], dtype=torch.long,
+                                    device=device))
 
         def fn(z, t):
-            val = fid(z[start:stop], goal) - floor
+            val = fid(z[start:stop], goal, sub) - floor
             return torch.where(t == last, val, torch.ones_like(val))[None]
 
         return fn
@@ -85,20 +94,17 @@ class _FinalFidelityFloor(AbstractConstraint):
 
 @dataclasses.dataclass
 class FinalUnitaryFidelityConstraint(_FinalFidelityFloor):
-    """|tr(G^† U_T)| / N >= final_fidelity; the modulus has the port's
-    zero subgradient at the origin (quantum/fidelities.py::_safe_abs)."""
+    """|tr(G^† U_T)| / N >= final_fidelity, on the subspace block where one
+    is given; the modulus has the port's zero subgradient at the origin
+    (quantum/fidelities.py::_safe_abs)."""
 
     state_name: str
     final_fidelity: float
     subspace: Any = None
 
-    def __post_init__(self):
-        if self.subspace is not None:
-            raise NotImplementedError("subspace fidelities are not ported yet")
-
     @staticmethod
-    def _fidelity(u, goal):
-        return iso_vec_unitary_fidelity(u, goal)
+    def _fidelity(u, goal, subspace):
+        return iso_vec_unitary_fidelity(u, goal, subspace=subspace)
 
 
 @dataclasses.dataclass
@@ -109,8 +115,71 @@ class FinalQuantumStateFidelityConstraint(_FinalFidelityFloor):
     final_fidelity: float
 
     @staticmethod
-    def _fidelity(psi, goal):
+    def _fidelity(psi, goal, subspace):
         return iso_fidelity(psi, goal)
+
+
+@dataclasses.dataclass
+class L1SlackConstraint(AbstractConstraint):
+    """The slack rows of an L1 penalty, at every knot: s - v >= 0 and
+    s + v >= 0 for v = z[name][indices], s = z[slack_name]."""
+
+    name: str
+    slack_name: str
+    indices: Sequence[int]
+
+    def ineq_dim(self, traj) -> int:
+        return 2 * len(self.indices)
+
+    def make(self, traj, dtype, device):
+        start, _ = traj.components[self.name]
+        s_start, _ = traj.components[self.slack_name]
+        k = len(self.indices)
+        iv = torch.as_tensor([start + int(i) for i in self.indices], device=device)
+        i_s = torch.arange(s_start, s_start + k, device=device)
+
+        def fn(z, t):
+            v, s = z.index_select(0, iv), z.index_select(0, i_s)
+            return torch.cat([s - v, s + v])
+
+        return fn
+
+
+@dataclasses.dataclass
+class ComplexModulusConstraint(AbstractConstraint):
+    """|v_re + i v_im| <= radius at every knot: rows radius² - v_re² -
+    v_im² >= 0, the pairs (i, i + k/2) of the component (first half real,
+    second half imaginary) or the given `pairs`."""
+
+    name: str
+    radius: float
+    pairs: Any = None
+
+    def _pairs(self, traj):
+        start, stop = traj.components[self.name]
+        k = stop - start
+        if self.pairs is not None:
+            return [(start + i, start + j) for i, j in self.pairs]
+        if k % 2:
+            raise ValueError("the complex modulus needs a component of even size")
+        return [(start + i, start + k // 2 + i) for i in range(k // 2)]
+
+    def ineq_dim(self, traj) -> int:
+        return len(self._pairs(traj))
+
+    def make(self, traj, dtype, device):
+        ii, jj = zip(*self._pairs(traj))
+        ire, iim = (torch.as_tensor(x, device=device) for x in (ii, jj))
+        r2 = float(self.radius) ** 2
+
+        def fn(z, t):
+            return r2 - z.index_select(0, ire) ** 2 - z.index_select(0, iim) ** 2
+
+        return fn
+
+
+# the JAX package exports the upstream spelling too
+ComplexModulusContraint = ComplexModulusConstraint
 
 
 class FinalUnitaryFreePhaseFidelityConstraint(AbstractConstraint):

@@ -2,7 +2,7 @@
 
 Counterpart of quantumcollocation_tpu/objectives/objectives.py
 (UnitaryInfidelityObjective, QuantumStateObjective, QuadraticRegularizer,
-MinimumTimeObjective).  A term is classified
+L1Regularizer, MinimumTimeObjective).  A term is classified
 by its stage structure so the problem compiler keeps the KKT system
 block-tridiagonal:
   - "stage":    fn(z_t, t) -> scalar, summed over all knots
@@ -30,6 +30,7 @@ __all__ = [
     "UnitaryInfidelityObjective",
     "QuantumStateObjective",
     "QuadraticRegularizer",
+    "L1Regularizer",
     "MinimumTimeObjective",
 ]
 
@@ -62,16 +63,19 @@ class Objective:
     __rmul__ = __mul__
 
 
-def UnitaryInfidelityObjective(name, traj, Q=100.0):
-    """Q |1 - F(U_T, U_goal)|, F = |tr(U_goal^† U_T)| / N."""
+def UnitaryInfidelityObjective(name, traj, Q=100.0, *, subspace=None):
+    """Q |1 - F(U_T, U_goal)|, F = |tr(U_goal^† U_T)| / N, on the subspace
+    block (N its size) where one is given."""
     start, stop = traj.components[name]
     goal = np.asarray(traj.goal[name])
+    sub = None if subspace is None else [int(i) for i in subspace]
 
     def make(dtype, device):
         g = torch.as_tensor(goal, dtype=dtype, device=device)
+        idx = None if sub is None else torch.as_tensor(sub, dtype=torch.long, device=device)
 
         def fn(zT):
-            x = 1.0 - iso_vec_unitary_fidelity(zT[start:stop], g)
+            x = 1.0 - iso_vec_unitary_fidelity(zT[start:stop], g, subspace=idx)
             # |x| with derivative +1 at x = 0, as jnp.abs defines it: the
             # geodesic guess ends exactly on the goal, where x = 0
             return torch.where(x >= 0, x, -x)
@@ -116,6 +120,43 @@ def QuadraticRegularizer(name, traj, R=1.0):
         return fn
 
     return Objective((ObjectiveTerm("stage", make, 1.0, f"quad_reg[{name}]"),))
+
+
+def L1Regularizer(constraints: list, name: str, traj, *, R=1.0, R_value=None, indices=None,
+                  slack_name=None):
+    """R Σ_t Σ_i |v_i(t)| through slack variables: returns (J, new_traj).
+    new_traj is traj with the component `<name>_l1_slack` (one column per
+    index, initialised at |v| + 1e-3, unbounded) appended after the others;
+    an L1SlackConstraint (s - v >= 0, s + v >= 0) is appended to
+    `constraints`; J = R Σ s is a stage term, so the KKT system stays
+    block-tridiagonal."""
+    from .constraints import L1SlackConstraint
+
+    if R_value is not None:
+        R = R_value
+    start, stop = traj.components[name]
+    indices = list(range(stop - start)) if indices is None else [int(i) for i in indices]
+    slack_name = slack_name or f"{name}_l1_slack"
+    comps = {n: np.asarray(traj[n]) for n in traj.names}
+    comps[slack_name] = np.abs(np.asarray(traj[name]))[:, indices] + 1e-3
+    new_traj = type(traj)(
+        comps, controls=traj.controls, timestep=traj.timestep, bounds=dict(traj.bounds),
+        initial=dict(traj.initial), final=dict(traj.final), goal=dict(traj.goal),
+        global_data=dict(traj.global_data),
+    )
+    constraints.append(L1SlackConstraint(name, slack_name, tuple(indices)))
+    s_start, s_stop = new_traj.components[slack_name]
+    Rvec = np.broadcast_to(np.asarray(R, dtype=float), (len(indices),)).copy()
+
+    def make(dtype, device):
+        r = torch.as_tensor(Rvec, dtype=dtype, device=device)
+
+        def fn(z, t):
+            return torch.sum(r * z[s_start:s_stop])
+
+        return fn
+
+    return Objective((ObjectiveTerm("stage", make, 1.0, f"l1_reg[{name}]"),)), new_traj
 
 
 def MinimumTimeObjective(traj, *, D=1.0, timestep_name="Δt", eval_hessian=True):

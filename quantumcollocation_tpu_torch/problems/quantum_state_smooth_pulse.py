@@ -6,7 +6,9 @@ QuantumStateObjective and one ket integrator per pair, the states named
 ψ̃ alone or ψ̃1, ψ̃2, ... for several.  Decision variables (ψ̃…, a, da, dda,
 Δt); minimize Q Σ (1 - |<goal|ψ_T>|²) + (1/2) Σ (R_a a² + R_da da² +
 R_dda dda²) subject to Padé (or exponential) ket dynamics, the derivative
-chain, equal timesteps and box bounds.
+chain, equal timesteps and box bounds; with
+PiccoloOptions(leakage_suppression=True), state_leakage_indices (one list
+of iso-ket indices per state) get an L1 penalty through slack rows.
 """
 
 from __future__ import annotations
@@ -80,8 +82,6 @@ def QuantumStateSmoothPulseProblem(
         args = args[1:]
     if args:
         raise TypeError(f"unexpected positional arguments {args}")
-    if state_leakage_indices is not None:
-        raise NotImplementedError("leakage suppression is not ported yet")
     ipopt_options = ipopt_options or SolverOptions()
     piccolo_options = piccolo_options or PiccoloOptions()
     constraints = list(constraints or [])
@@ -120,7 +120,8 @@ def QuantumStateSmoothPulseProblem(
     J = J + QuadraticRegularizer(control_names[0], traj, R_a)
     J = J + QuadraticRegularizer(control_names[1], traj, R_da)
     J = J + QuadraticRegularizer(control_names[2], traj, R_dda)
-    J, traj = apply_piccolo_options(J, constraints, piccolo_options, traj, timestep_name)
+    J, traj = apply_piccolo_options(J, constraints, piccolo_options, traj, state_names,
+                                    timestep_name, state_leakage_indices=state_leakage_indices)
 
     integrators = []
     for name in state_names:

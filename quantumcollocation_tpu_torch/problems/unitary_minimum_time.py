@@ -2,7 +2,8 @@
 
 Counterpart of quantumcollocation_tpu/problems/unitary_minimum_time.py:
 adds D Σ Δt to the objective and a FinalUnitaryFidelityConstraint at
-`final_fidelity` (by default the trajectory's current fidelity), with a
+`final_fidelity` (by default the trajectory's current fidelity; both on
+the `subspace` block where one is given), with a
 warm-start form from a solved problem.  Bounds and pins are trajectory
 metadata, so a warm start keeps them.  The free-phase form
 (phase_operators) needs global variables, which are not ported.
@@ -85,7 +86,8 @@ def UnitaryMinimumTimeProblem(
     )
     if final_fidelity is None:
         final_fidelity = float(iso_vec_unitary_fidelity(
-            trajectory[unitary_name][-1], np.asarray(trajectory.goal[unitary_name])))
+            trajectory[unitary_name][-1], np.asarray(trajectory.goal[unitary_name]),
+            subspace=subspace))
     constraints.append(
         FinalUnitaryFidelityConstraint(unitary_name, final_fidelity, subspace=subspace)
     )

@@ -4,6 +4,9 @@ Counterpart of quantumcollocation_tpu/problems/unitary_smooth_pulse.py.
 Decision variables (U_iso_vec, a, da, dda, Δt); minimize Q·infidelity +
 (1/2) Σ (R_a a² + R_da da² + R_dda dda²) subject to Padé (or exponential)
 unitary dynamics, the derivative chain, equal timesteps and box bounds.
+An EmbeddedOperator goal measures the infidelity on its subspace, and with
+PiccoloOptions(leakage_suppression=True) adds R_leakage Σ |leakage
+entries| through L1 slack rows (problems/_options.py).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from ..dynamics.integrators import (
     UnitaryPadeIntegrator,
 )
 from ..objectives.objectives import QuadraticRegularizer, UnitaryInfidelityObjective
+from ..quantum.embedded import EmbeddedOperator, get_iso_vec_leakage_indices
 from ..quantum.systems import QuantumSystem
 from ..solver.options import PiccoloOptions, SolverOptions
 from ..trajectory.initialization import initialize_unitary_trajectory
@@ -88,12 +92,17 @@ def UnitarySmoothPulseProblem(
             geodesic=piccolo_options.geodesic,
             bound_state=piccolo_options.bound_state, rng=rng,
         )
-    J = UnitaryInfidelityObjective(state_name, traj, Q)
+    embedded = isinstance(operator, EmbeddedOperator)
+    J = UnitaryInfidelityObjective(state_name, traj, Q,
+                                   subspace=operator.subspace if embedded else None)
     control_names = [name for name in traj.names if name.endswith(control_name)]
     J = J + QuadraticRegularizer(control_names[0], traj, R_a)
     J = J + QuadraticRegularizer(control_names[1], traj, R_da)
     J = J + QuadraticRegularizer(control_names[2], traj, R_dda)
-    J, traj = apply_piccolo_options(J, constraints, piccolo_options, traj, timestep_name)
+    J, traj = apply_piccolo_options(
+        J, constraints, piccolo_options, traj, state_name, timestep_name,
+        state_leakage_indices=get_iso_vec_leakage_indices(operator) if embedded else None,
+    )
 
     if piccolo_options.integrator == "pade":
         unitary_integrator = UnitaryPadeIntegrator(

@@ -1,7 +1,8 @@
 """Where one IPM iteration of a main-path solve spends its time.
 
     python -m quantumcollocation_tpu_torch.profile_step
-        [--config hadamard|hadamard_lbfgs|hadamard_scan|cnot|ket_exp|cnot_exp|su4|min_time]
+        [--config hadamard|hadamard_lbfgs|hadamard_scan|cnot|ket_exp|cnot_exp|su4|min_time|
+                  leakage]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -16,10 +17,12 @@ seeds from multistart_initial_decisions), "cnot_exp" (cnot with the
 exponential integrator), "su4" (BASELINE #5: 128 Haar goals x 4 seeds,
 T=33, Δt=0.3 fixed, kkt_backend "lanes", bench_util.su4_problem) or
 "min_time" (BASELINE #2's minimum-time stage, B=512, after its B=1 warm
-stage has solved for 80 iterations; bench_util.min_time_problem), float32
-on CUDA.  Runs two warm-up iterations
-(eight for hadamard_lbfgs), then profiles `--steps`
-iterations with torch.profiler and prints one JSON line: host wall per
+stage has solved for 80 iterations; bench_util.min_time_problem) or
+"leakage" (BASELINE #4: the three-level transmon's embedded X gate with
+L1 leakage slacks, B=256, T=40, Δt=0.2 fixed, kkt_backend "lanes",
+bench_util.leakage_problem and leakage_seeds), float32 on CUDA.  Runs
+two warm-up iterations (eight for hadamard_lbfgs), then profiles
+`--steps` iterations with torch.profiler and prints one JSON line: host wall per
 iteration, device-busy time per iteration (the sum of kernel times), the
 idle share, the CUDA launch count, and the kernels with the most device
 time.  The profiler slows the host, so the wall and idle share read high;
@@ -62,6 +65,9 @@ def build(config, batch):
         goals = [random_su(4, goal_rng) for _ in range(n_goals)]
         return prob.solver, multigoal_initial_decisions(
             prob, goals, n_seeds_per_goal=4, sigma=0.2, rng=np.random.default_rng(100))
+    if config == "leakage":
+        prob, _ = bu.leakage_problem()
+        return prob.solver, bu.leakage_seeds(prob, batch or 256, 42)
     if config == "min_time":
         warm = bu.min_time_warm()
         warm.solve(max_iter=80)
@@ -112,7 +118,7 @@ def build(config, batch):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan", "cnot",
-                                         "ket_exp", "cnot_exp", "su4", "min_time"),
+                                         "ket_exp", "cnot_exp", "su4", "min_time", "leakage"),
                     default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)

@@ -4,7 +4,9 @@ time only).
 Counterpart of quantumcollocation_tpu/trajectory/initialization.py:
 unitary geodesic (or linear) state guess, ket linear interpolation, or
 either state's rollout under a given control guess, plus random bounded
-controls or the derivative chain of a given guess.  Randomness comes from a numpy
+controls or the derivative chain of a given guess.  An EmbeddedOperator
+goal takes its geodesic in the subspace, embedded back with the identity
+on the leakage levels.  Randomness comes from a numpy
 Generator, drawn in the same order as the JAX package, so both packages
 build the same trajectory from one seed.
 """
@@ -17,6 +19,7 @@ import numpy as np
 import scipy.linalg as sla
 
 from ..dynamics.rollouts import rollout, unitary_rollout
+from ..quantum.embedded import EmbeddedOperator, embed, unembed
 from ..quantum.isomorphisms import ket_to_iso, operator_to_iso_vec
 from .named_trajectory import NamedTrajectory, derivative
 
@@ -36,17 +39,26 @@ def linear_interpolation(x, y, samples: int):
     return (1 - ts) * np.asarray(x)[None, :] + ts * np.asarray(y)[None, :]
 
 
-def unitary_geodesic(U_init, U_goal, *, samples: int):
-    """(samples, 2N^2) iso-vec rows of exp(-i H t) U_init with
-    H = i log(U_goal U_init^†), t in [0, 1]."""
+def _geodesic_unitaries(U_init, U_goal, samples):
     times = np.linspace(0.0, 1.0, samples)
     U_init = np.asarray(U_init, dtype=complex)
     U_goal = np.asarray(U_goal, dtype=complex)
     H = 1j * sla.logm(U_goal @ U_init.conj().T) / (times[-1] - times[0])
     H = (H + H.conj().T) / 2
-    return np.stack(
-        [operator_to_iso_vec(sla.expm(-1j * H * t) @ U_init) for t in times]
-    )
+    return [sla.expm(-1j * H * t) @ U_init for t in times]
+
+
+def unitary_geodesic(U_init, U_goal, *, samples: int):
+    """(samples, 2N^2) iso-vec rows of exp(-i H t) U_init with
+    H = i log(U_goal U_init^†), t in [0, 1]; for an EmbeddedOperator goal,
+    the subspace blocks' geodesic embedded back."""
+    if isinstance(U_goal, EmbeddedOperator):
+        Us = _geodesic_unitaries(unembed(U_init, U_goal), unembed(U_goal.operator, U_goal),
+                                 samples)
+        Us = [embed(U, U_goal) for U in Us]
+    else:
+        Us = _geodesic_unitaries(U_init, U_goal, samples)
+    return np.stack([operator_to_iso_vec(U) for U in Us])
 
 
 def initialize_control_trajectory(
@@ -159,12 +171,14 @@ def initialize_unitary_trajectory(
 ) -> NamedTrajectory:
     """Geodesic (or linear) unitary state guess with random controls, or
     the rollout of a_guess (T, n_drives) under system's dynamics with
-    a_guess's control chain."""
-    U_goal = np.asarray(U_goal, dtype=complex)
+    a_guess's control chain.  An EmbeddedOperator goal starts from the
+    identity of all its levels and has its full operator as the goal."""
+    goal_op = np.asarray(
+        U_goal.operator if isinstance(U_goal, EmbeddedOperator) else U_goal, dtype=complex)
     if U_init is None:
-        U_init = np.eye(U_goal.shape[0], dtype=complex)
+        U_init = np.eye(goal_op.shape[0], dtype=complex)
     v_init = operator_to_iso_vec(np.asarray(U_init))
-    v_goal = operator_to_iso_vec(U_goal)
+    v_goal = operator_to_iso_vec(goal_op)
     if a_guess is not None:
         if system is None:
             raise ValueError("a system is needed to roll out a_guess")

@@ -703,14 +703,12 @@ def _lifted_kkt(Bt, T, d, s, device, seed):
     return [x.contiguous() for x in lifted], (rz2, rnu2)
 
 
-@pytest.mark.parametrize("T", [2, 51])
-@pytest.mark.parametrize("Bt", [1, 133, 512])
-def test_sweeps_on_lifted_blocks_match_plain_version(cuda, monkeypatch, Bt, T):
-    # the min_time path's KKT attempt at d=15: kernel 2 with kept factors on
-    # the lifted blocks, then kernel 4 (the refinement's rhs-only sweep on
-    # those factors, rhs_fwd_sweep_group<4>) and kernel 3, each writing into
-    # memory poisoned with NaN
-    d, s = 15, 13
+def _check_lifted_sweeps(cuda, monkeypatch, Bt, T, d, s):
+    """Kernel 2 with kept factors on lifted blocks, then kernel 4 (the
+    refinement's rhs-only sweep on those factors) and kernel 3, each
+    writing into memory poisoned with NaN, against their plain versions;
+    and the whole re-solve on the kept factors against the plain KKT
+    solve."""
     args, rhs2 = _lifted_kkt(Bt, T, d, s, cuda, seed=Bt + T)
     ref = kl.fwd_sweep_reference(*args, 1e-8, want_factors=True)
     full = torch.full
@@ -734,13 +732,28 @@ def test_sweeps_on_lifted_blocks_match_plain_version(cuda, monkeypatch, Bt, T):
     for o, r in ((dz_b, dz_p), (nu_b, nu_p)):
         assert torch.isfinite(o).all()
         _close_rel(o, r)
-    # the whole re-solve on the kept factors against the plain KKT solve
     dz, nu, ok, fac_k = kl.solve_kkt_lanes(*args, 1e-8, want_factors=True)
     dz2, nu2, ok2 = kl.resolve_kkt_lanes(fac_k, *rhs2)
     dz_r, nu_r, ok_r = solve_kkt(*args[:4], *rhs2, 1e-8)
     assert bool(ok.all()) and bool(ok2.all()) and bool(ok_r.all())
     _close_rel(dz2, dz_r)
     _close_rel(nu2, nu_r)
+
+
+@pytest.mark.parametrize("T", [2, 51])
+@pytest.mark.parametrize("Bt", [1, 133, 512])
+def test_sweeps_on_lifted_blocks_match_plain_version(cuda, monkeypatch, Bt, T):
+    # the min_time path's KKT attempt at d=15 (kernel 4 as
+    # rhs_fwd_sweep_group<4>)
+    _check_lifted_sweeps(cuda, monkeypatch, Bt, T, 15, 13)
+
+
+@pytest.mark.parametrize("T", [2, 40])
+@pytest.mark.parametrize("Bt", [1, 133, 256])
+def test_sweeps_at_the_leakage_shape_match_plain_version(cuda, monkeypatch, Bt, T):
+    # the leakage path's KKT attempt at (d, s) = (28, 22), m = 8 L1 rows
+    # condensed into H before the lift
+    _check_lifted_sweeps(cuda, monkeypatch, Bt, T, 28, 22)
 
 
 def test_sweeps_at_the_su4_shape_match_plain_version(cuda):
@@ -802,3 +815,45 @@ def test_min_time_path_solves_on_the_card(cuda):
     # every attempt refines once through its kept factors (the lift's pass)
     assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
     assert int(s.kkt_lifted_rows) > 0 and dur0 > 0
+
+
+@pytest.mark.parametrize("M", [1, 301, 9984])
+def test_bank_kernel_at_the_leakage_shape(cuda, monkeypatch, M):
+    # kernel 5 as the leakage path runs it every iteration: the transmon's
+    # 6x6 generators (drive rows up to 2π√2), 2 drives within a_bound 0.5,
+    # a fixed Δt = 0.2, Padé 4, second order; 9,984 = 256 x 39 pairs
+    prob, _ = bu.leakage_problem(T=5, device="cpu")
+    (g,) = prob.solver.nlp.analytic.groups
+    assert pb.bank_config(6, 2, False, True, "pade")["design"] == "strip"
+    rng = np.random.default_rng(M)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    args = [torch.as_tensor(rng.uniform(-0.5, 0.5, (M, 2)), **f32), torch.full((M,), 0.2, **f32),
+            torch.as_tensor(g.G_drift, **f32), torch.as_tensor(g.G_drives, **f32)]
+    _check_bank(args, dict(kind="pade", order=4, free_dt=False, second_order=True), monkeypatch)
+
+
+def test_leakage_path_solves_on_the_card(cuda):
+    prob, goal = bu.leakage_problem()
+    s = prob.solver
+    assert (s.fused_assembly_on, s.kkt_refine_n, s.kkt_aug_on, s.retry_warm_on, s.nlp.m) == (
+        False, 1, True, True, 8)
+    Z0 = bu.leakage_seeds(prob, 8, 0)
+    build.reset_launch_counts()
+    res = s.solve(Z0, max_iter=60)
+    c = dict(build.launch_counts)
+    Z = res.Z.double().cpu().numpy()
+    assert np.isfinite(Z).all()
+    tr = prob.trajectory
+    a = tr.comp_slice("a")
+
+    def fid(Zx):
+        return qt.batched_rollout_fidelity(Zx[:, :, a], np.full(Zx.shape[:2], 0.2), prob.system,
+                                           tr.goal["Ũ⃗"], tr.initial["Ũ⃗"],
+                                           subspace=goal.subspace)
+
+    f0, f1 = fid(Z0), fid(Z)
+    assert (f1 >= f0).all(), (f0, f1)
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] >= s.last_steps > 0, c
+    # every attempt refines once through its kept factors (the lift's pass)
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+    assert int(s.kkt_lifted_rows) > 0

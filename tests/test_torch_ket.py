@@ -235,6 +235,18 @@ def test_template_overloads():
     p3 = qt.QuantumStateSmoothPulseProblem(sysq, KETS0[0], KETS1[0], 6, 0.2,
                                            rng=np.random.default_rng(0), **kw)
     assert p3.trajectory.names[0] == "ψ̃" and p3.solver.nlp.d == 11
-    with pytest.raises(NotImplementedError, match="leakage"):
-        qt.QuantumStateSmoothPulseProblem(sysq, KETS0, KETS1, 6, 0.2, state_leakage_indices=[1],
-                                          **kw)
+    # leakage suppression on the kets: a slack component per ket and two
+    # rows per index, as JAX's
+    leak = [
+        pkg.QuantumStateSmoothPulseProblem(
+            pkg.QuantumSystem(0.1 * pkg.PAULIS["Z"], [pkg.PAULIS["X"], pkg.PAULIS["Y"]]),
+            KETS0, KETS1, 6, 0.2, state_leakage_indices=[[1], [3]], rng=np.random.default_rng(0),
+            piccolo_options=pkg.PiccoloOptions(verbose=False, integrator="exponential",
+                                               leakage_suppression=True),
+            **({"device": "cpu"} if pkg is qt else {}))
+        for pkg in (qct, qt)
+    ]
+    assert leak[1].trajectory.names == leak[0].trajectory.names
+    assert leak[1].trajectory.names[-2:] == ("ψ̃1_l1_slack", "ψ̃2_l1_slack")
+    assert leak[1].solver.nlp.m == leak[0].solver.nlp.m == 4
+    np.testing.assert_array_equal(leak[1].trajectory.data, leak[0].trajectory.data)

@@ -102,12 +102,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    # soc, the watchdog, the cr backend, Gauss-Newton Hessians, leakage
-    # suppression and the free-phase minimum-time floor are not ported
+    # soc, the watchdog, the cr backend, Gauss-Newton Hessians and the
+    # free-phase minimum-time floor are not ported
     cases = [
         (dict(soc=True), {}), (dict(watchdog_trials=1), {}), (dict(kkt_backend="cr"), {}),
         (dict(quasi_newton="gauss-newton"), dict(eval_hessian=False)),
-        ({}, dict(leakage_suppression=True)),
     ]
     for solver_kw, piccolo_kw in cases:
         with pytest.raises(NotImplementedError):
