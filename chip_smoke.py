@@ -117,8 +117,35 @@ Phases, one JSON object per line on stdout:
      control noise, the bench's), 120 iterations after a discarded
      warm-up; checked by a float64 rollout on the qubit subspace (the
      fractions at subspace infidelity <= 1e-3, 1e-2, 1e-4; frac@1e-3 >=
-     0.9).
-The sweep rows of phases 18, 21 and 23 also give device_ms (a CUDA graph of
+     0.9);
+ 26. kernels, sampling shapes (example 04: UnitarySamplingProblem over the
+     drift samples ζ ∈ {-0.05, 0, 0.05} of ζ Z with X, Y drives, the H
+     gate, T=50, Δt=0.2 free, Q=1e4, R=1e-3, kkt_backend "lanes"; d=31,
+     s=29, so no fused assembly and one refinement pass): the bank once
+     for each of the three propagator groups (second order, 25,088 pairs,
+     n=4, K=3) and the three sweeps with kept factors (B=512), as phase 6;
+ 27. main path, sampling: B=512 seeds (the initial decision with 0.1 σ
+     control noise), 150 iterations after a discarded warm-up; an instance
+     counts when its float64 rollout reaches infidelity <= 1e-3 on all
+     three sampled systems (fraction >= 0.9), and the median of the
+     rollout fidelities summed over ζ ∈ -0.05:0.01:0.05 must beat that of
+     the plain UnitarySmoothPulseProblem at ζ = 0 solved with the same
+     settings, seeds and iterations (BASELINE.md's sampling comparison);
+     at least three bank launches (one per group) an iteration;
+ 28. kernels at robustness shapes (the robustness warm start of the JAX
+     package's template test: a drift-free qubit, X and Y drives, the X
+     gate by a constant π pulse, T=51, Δt=0.2 free, tol 1e-7, kkt_backend
+     "lanes"; UnitaryRobustnessProblem against H_error = Z, floor 0.99:
+     d=23, s=21, m=1, no analytic assembly, so the AD route gives the
+     blocks): kernel 2 with kept factors, kernels 4 and 3 (B=256) on
+     lifted blocks, as phase 21, and the first iteration's lifted system
+     against float64, as phase 24;
+ 29. main path, robustness: B=256 seeds (the warm decision with 0.02 σ
+     control noise, default_rng(5)), 160 iterations after a discarded
+     warm-up; an instance counts when the float64 Magnus cost of its
+     rollout falls below half its seed's and its float64 fidelity is >=
+     0.989 (fraction >= 0.9); kernels 1 and 5 never launch (the AD route).
+The sweep rows of phases 18, 21, 23, 26 and 28 also give device_ms (a CUDA graph of
 the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
 the bank's rows give, beside a call's time (ms, the host's enqueue
@@ -373,10 +400,10 @@ def main():
     build_s = build.build_all()
     emit({"phase": "build", "sources": sorted(build.SOURCES.values()), "build_s": build_s})
 
-    def bank_entry(Z, analytic, v, second_order=True):
+    def bank_entry(Z, analytic, v, second_order=True, group=0):
         """The bank kernel against its plain version on the pairs of Z, in
-        the kind (Padé or exponential) of the problem's group."""
-        a, dt, Gd, Gs, kw = bank_args(analytic, Z, v, second_order)
+        the kind (Padé or exponential) of one of the problem's groups."""
+        a, dt, Gd, Gs, kw = bank_args(analytic, Z, v, second_order, group)
         M, n, na = a.shape[0], Gd.shape[0], Gs.shape[0]
         kind, free, nsq = kw["kind"], kw["free_dt"], kw["num_squarings"]
         k_out = pb.prop_bank_cuda(a, dt, Gd, Gs, **kw)
@@ -1364,6 +1391,192 @@ def main():
     emit({"phase": "launches_per_iter", "path": "leakage",
           **{k: v / max(itl, 1) for k, v in countsl.items()}})
 
+    # ---- 26. kernels on the first sampling iteration's inputs -------------- #
+    # 150 iterations: 48 leave 0.488 of B=512 at the gate on the card, 100
+    # 0.959, 150 0.998 (PERF.md, PR 12)
+    SA_B, SA_T, SA_ITERS = 512, 50, 150
+    probsa = bu.sampling_problem(SA_T, 0.2)
+    solversa = probsa.solver
+    groups_sa = solversa.nlp.analytic.groups
+    modes = (solversa.fused_assembly_on, solversa.kkt_refine_n, solversa.kkt_aug_on,
+             len(groups_sa), solversa.nlp.d, solversa.nlp.s)
+    if modes != (False, 1, False, 3, 31, 29):
+        fail(f"sampling modes {modes} != (False, 1, False, 3, 31, 29)")
+    with torch.no_grad():
+        stsa, _, realsa, _ = first_iteration(solversa, bu.sampling_seeds(probsa, SA_B, 7))
+        Zsa = stsa.Z.contiguous()
+        resultssa = {f"prop_bank_group_{i}": bank_entry(Zsa, solversa.nlp.analytic,
+                                                         solversa.var_scale, group=i)
+                     for i in range(len(groups_sa))}
+        resultssa.update(sweep_entries(realsa, SA_B, SA_T, delta_c, factors=True, device=True))
+    finish(resultssa, bw, f32_peak)
+    shapessa = {"B": SA_B, "T": SA_T, "d": solversa.nlp.d, "s": solversa.nlp.s,
+                "dtype": "float32"}
+    for name, r in resultssa.items():
+        emit({"phase": "kernel", "path": "sampling", "name": name,
+              "shapes": r.pop("shapes", shapessa), **r})
+    bad = [n for n, r in resultssa.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the sampling shapes: {bad}")
+
+    # ---- 27. sampling main path, and the plain solve it must beat --------- #
+    solversa.solve(bu.sampling_seeds(probsa, SA_B, 6), max_iter=NEW_WARM)  # discarded warm-up
+    Zsa0 = bu.sampling_seeds(probsa, SA_B, 42)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ressa = solversa.solve(Zsa0, max_iter=SA_ITERS)
+    torch.cuda.synchronize()
+    wallsa = time.perf_counter() - t0
+    countssa = dict(build.launch_counts)
+    itsa, attsa = solversa.last_steps, solversa.kkt_attempts
+    Zssa = ressa.Z.double().cpu().numpy()
+    if Zssa.shape != (SA_B, SA_T, solversa.nlp.d) or not np.isfinite(Zssa).all():
+        fail(f"sampling solution has shape {Zssa.shape} or non-finite values")
+    trsa = probsa.trajectory
+    asa, dtsa = Zssa[:, :, trsa.comp_slice("a")], Zssa[:, :, trsa.comp_slice("Δt")][:, :, 0]
+    infsa = np.stack([
+        1.0 - q.batched_rollout_fidelity(asa, dtsa, bu.zeta_system(z),
+                                         trsa.goal[f"Ũ⃗_system_{i + 1}"],
+                                         trsa.initial[f"Ũ⃗_system_{i + 1}"], device="cuda")
+        for i, z in enumerate(bu.ZETAS)])
+    worst = infsa.max(axis=0)
+    frsa = {f"frac_all_systems_infid_{t}": float(np.mean(worst <= float(t)))
+            for t in ("1e-3", "1e-4", "1e-2")}
+    sweep_sa = bu.zeta_sweep_fidelity(asa, dtsa, trsa.goal["Ũ⃗_system_1"],
+                                      trsa.initial["Ũ⃗_system_1"], device="cuda")
+    # the non-robust solve at ζ = 0: the same settings, seeds and iterations
+    probpl = bu.sampling_plain_problem(SA_T, 0.2)
+    trpl = probpl.trajectory
+    Zpl0 = bu.sampling_seeds(probpl, SA_B, 42)
+    if not np.array_equal(Zpl0[:, :, trpl.comp_slice("a")], Zsa0[:, :, trsa.comp_slice("a")]):
+        fail("the plain solve's seeds differ from the sampled solve's controls")
+    t0 = time.perf_counter()
+    respl = probpl.solver.solve(Zpl0, max_iter=SA_ITERS)
+    torch.cuda.synchronize()
+    wallpl = time.perf_counter() - t0
+    Zspl = respl.Z.double().cpu().numpy()
+    if not np.isfinite(Zspl).all():
+        fail("the plain solve's solution has non-finite values")
+    sweep_pl = bu.zeta_sweep_fidelity(Zspl[:, :, trpl.comp_slice("a")],
+                                      Zspl[:, :, trpl.comp_slice("Δt")][:, :, 0],
+                                      trpl.goal["Ũ⃗"], trpl.initial["Ũ⃗"], device="cuda")
+    emit({"phase": "main_path", "path": "sampling", "batch": SA_B, "T": SA_T, "zetas": bu.ZETAS,
+          "ipm_iters": itsa, "wall_s": wallsa, "ipm_ms_per_iter": 1e3 * wallsa / max(itsa, 1),
+          "solves_per_s_at_1e-3": SA_B * frsa["frac_all_systems_infid_1e-3"] / wallsa, **frsa,
+          "median_infid_per_system": [float(x) for x in np.median(infsa, axis=1)],
+          "zeta_sweep_fid_median": float(np.median(sweep_sa)),
+          "plain_zeta_sweep_fid_median": float(np.median(sweep_pl)),
+          "frac_beats_plain": float(np.mean(sweep_sa > sweep_pl)),
+          "plain_wall_s": wallpl, "plain_ipm_iters": probpl.solver.last_steps,
+          "ipm_converged_frac": float(ressa.converged.float().mean()),
+          "launches": countssa, "kkt_attempts": attsa,
+          "kkt_attempts_per_iter": attsa / max(itsa, 1),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    sa_kernels = ("prop_bank", "kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+    if min(countssa[k] for k in sa_kernels) <= 0 or countssa["dyn_assembly"] != 0:
+        fail(f"a kernel of the sampling path was not launched, or the fused assembly was: "
+             f"{countssa}")
+    if countssa["prop_bank"] < 3 * itsa:
+        fail(f"sampling: fewer than three bank launches (one per group) an iteration: "
+             f"{countssa}, {itsa} iterations")
+    if countssa["kkt_rhs_fwd_sweep"] != countssa["kkt_fwd_sweep"] - 1:
+        fail(f"sampling: not one re-solve per KKT attempt: {countssa}")
+    if frsa["frac_all_systems_infid_1e-3"] < 0.9:
+        fail(f"sampling frac at infidelity 1e-3 on all systems "
+             f"{frsa['frac_all_systems_infid_1e-3']} < 0.9")
+    if not np.median(sweep_sa) > np.median(sweep_pl):
+        fail(f"sampling: the summed ζ-sweep fidelity {np.median(sweep_sa)} does not beat the "
+             f"plain solve's {np.median(sweep_pl)}")
+    emit({"phase": "launches_per_iter", "path": "sampling",
+          **{k: v / max(itsa, 1) for k, v in countssa.items()}})
+
+    # ---- 28. kernels, and the lifted reference, at robustness shapes ------- #
+    # 160 iterations: the JAX test's 60 leave 0.8906 of B=256 at the gate
+    # on the card (float32), 100 and 120 0.914, 160 0.930 (PERF.md, PR 12)
+    RB_B, RB_T, RB_ITERS = 256, 51, 160
+    probrb, warmrb = bu.robustness_problem(RB_T, 0.2)
+    solverrb = probrb.solver
+    modes = (solverrb.nlp.analytic is None, solverrb.fused_assembly_on, solverrb.kkt_refine_n,
+             solverrb.kkt_aug_on, solverrb.retry_warm_on, solverrb.nlp.m, solverrb.nlp.d,
+             solverrb.nlp.s)
+    if modes != (True, False, 0, True, True, 1, 23, 21):
+        fail(f"robustness modes {modes} != (True, False, 0, True, True, 1, 23, 21)")
+    with torch.no_grad():
+        strb, kkt_rb, aux_rb, dwrb, rho_accrb, realrb, lift_seededrb = lifted_first_iteration(
+            solverrb, bu.robustness_seeds(probrb, RB_B, 7))
+        resultsrb = sweep_entries(realrb, RB_B, RB_T, delta_c, factors=True, lift=lift_seededrb,
+                                  device=True)
+    finish(resultsrb, bw, f32_peak)
+    shapesrb = {"B": RB_B, "T": RB_T, "d": solverrb.nlp.d, "s": solverrb.nlp.s, "m": 1,
+                "dtype": "float32"}
+    for name, r in resultsrb.items():
+        emit({"phase": "kernel", "path": "robustness", "name": name,
+              "shapes": r.pop("shapes", shapesrb), "lifted": True, "blocks": "AD route", **r})
+    emit({"phase": "lift_system", "path": "robustness",
+          "rho0_median": float(aux_rb.rho0.median()), "rho0_max": float(aux_rb.rho0.max()),
+          "dw_median": float(dwrb.median()),
+          "accepted_lifted_frac": float((rho_accrb > 0).float().mean())})
+    bad = [n for n, r in resultsrb.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the robustness shapes: {bad}")
+    lifted_reference("robustness", solverrb, kkt_rb, aux_rb, dwrb, realrb)
+
+    # ---- 29. robustness main path ------------------------------------------ #
+    solverrb.solve(bu.robustness_seeds(probrb, RB_B, 6), max_iter=NEW_WARM)  # discarded warm-up
+    Zrb0 = bu.robustness_seeds(probrb, RB_B, 5)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resrb = solverrb.solve(Zrb0, max_iter=RB_ITERS)
+    torch.cuda.synchronize()
+    wallrb = time.perf_counter() - t0
+    countsrb = dict(build.launch_counts)
+    itrb, attrb = solverrb.last_steps, solverrb.kkt_attempts
+    lifted_sharerb = float(solverrb.kkt_lifted_rows) / max(solverrb.kkt_attempt_rows, 1)
+    Zsrb = resrb.Z.double().cpu().numpy()
+    if Zsrb.shape != (RB_B, RB_T, solverrb.nlp.d) or not np.isfinite(Zsrb).all():
+        fail(f"robustness solution has shape {Zsrb.shape} or non-finite values")
+    trrb = probrb.trajectory
+    arb, dtrb = trrb.comp_slice("a"), trrb.comp_slice("Δt")
+
+    def magnus(Zx):
+        return bu.magnus_cost(Zx[:, :, arb], Zx[:, :, dtrb][:, :, 0], warmrb.system,
+                              q.PAULIS["Z"], trrb.initial["Ũ⃗"], device="cuda")
+
+    mag0, mag1 = magnus(Zrb0), magnus(Zsrb)
+    fidrb = q.batched_rollout_fidelity(Zsrb[:, :, arb], Zsrb[:, :, dtrb][:, :, 0], warmrb.system,
+                                       trrb.goal["Ũ⃗"], trrb.initial["Ũ⃗"], device="cuda")
+    okrb = (mag1 < 0.5 * mag0) & (fidrb >= 0.989)
+    fracrb = float(okrb.mean())
+    emit({"phase": "main_path", "path": "robustness", "batch": RB_B, "T": RB_T,
+          "ipm_iters": itrb, "wall_s": wallrb, "ipm_ms_per_iter": 1e3 * wallrb / max(itrb, 1),
+          "frac_magnus_halved_at_fid_0.989": fracrb,
+          "solves_per_s_at_gate": RB_B * fracrb / wallrb,
+          "median_magnus_ratio": float(np.median(mag1 / mag0)),
+          "magnus_ratio_quantiles": [float(x) for x in np.quantile(mag1 / mag0,
+                                                                    [0.0, 0.1, 0.5, 0.9, 1.0])],
+          "median_magnus_before": float(np.median(mag0)),
+          "median_fid": float(np.median(fidrb)), "min_fid": float(fidrb.min()),
+          "ipm_converged_frac": float(resrb.converged.float().mean()),
+          "launches": countsrb, "kkt_attempts": attrb,
+          "kkt_attempts_per_iter": attrb / max(itrb, 1), "lifted_attempt_share": lifted_sharerb,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    rb_kernels = ("kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep")
+    if min(countsrb[k] for k in rb_kernels) <= 0:
+        fail(f"a kernel of the robustness path was not launched: {countsrb}")
+    if countsrb["dyn_assembly"] != 0 or countsrb["prop_bank"] != 0:
+        fail(f"robustness: the dynamics went through kernel 1 or 5, not the AD route: "
+             f"{countsrb}")
+    if countsrb["kkt_rhs_fwd_sweep"] != countsrb["kkt_fwd_sweep"] - 1:
+        fail(f"robustness: not one re-solve per KKT attempt: {countsrb}")
+    if fracrb < 0.9:
+        fail(f"robustness frac (Magnus cost halved at fidelity >= 0.989) {fracrb} < 0.9")
+    emit({"phase": "launches_per_iter", "path": "robustness",
+          **{k: v / max(itrb, 1) for k, v in countsrb.items()}})
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -1377,6 +1590,10 @@ def main():
     entries += [("min_time", n, r, countsm) for n, r in resultsm.items()]
     entries += [("min_time", "prop_bank", dict(resultsw["prop_bank"], stage="warm"), countsw)]
     entries += [("leakage", n, r, countsl) for n, r in resultsl.items()]
+    entries += [("sampling", "prop_bank", dict(r, group=int(n.rsplit("_", 1)[1])), countssa)
+                if n.startswith("prop_bank") else ("sampling", n, r, countssa)
+                for n, r in resultssa.items()]
+    entries += [("robustness", n, r, countsrb) for n, r in resultsrb.items()]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],
@@ -1384,7 +1601,7 @@ def main():
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"], "ok": r["ok"],
          "columns": r.get("columns", 1),
-         **{k: r[k] for k in ("launch", "ms_unit", "device_ms", "stage") if k in r}}
+         **{k: r[k] for k in ("launch", "ms_unit", "device_ms", "stage", "group") if k in r}}
         for path, name, r, cnt in entries
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

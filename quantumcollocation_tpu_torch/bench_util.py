@@ -1,6 +1,7 @@
 """Seeded KKT blocks, the propagator bank's inputs, CUDA timing, and the
-su4, min_time and leakage problems, shared by chip_smoke.py, profile_step,
-the build comparison (sweep_builds) and the GPU tests."""
+su4, min_time, leakage, sampling and robustness problems with their seeds
+and float64 checks, shared by chip_smoke.py, profile_step, the build
+comparison (sweep_builds) and the GPU tests."""
 
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import torch
 
 __all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "su4_system",
            "su4_problem", "min_time_warm", "min_time_problem", "min_time_seeds",
-           "leakage_problem", "leakage_seeds"]
+           "leakage_problem", "leakage_seeds", "ZETAS", "zeta_system", "sampling_problem",
+           "sampling_plain_problem", "sampling_seeds", "zeta_sweep_fidelity",
+           "robustness_problem", "robustness_seeds", "magnus_cost"]
 
 
 def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
@@ -39,11 +42,12 @@ def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
     return [torch.as_tensor(x, dtype=torch.float32, device=device) for x in out]
 
 
-def bank_args(analytic, Z, var_scale, second_order=True):
+def bank_args(analytic, Z, var_scale, second_order=True, group=0):
     """The propagator bank's inputs on the (instance, knot) pairs of a
-    problem's scaled Z (B, T, d), as the solver passes them: (a (M, na),
-    dt (M,), G_drift, G_drives, keywords of ops.prop_bank.prop_bank)."""
-    (g,) = analytic.groups
+    problem's scaled Z (B, T, d), as the solver passes them for one of its
+    propagator groups: (a (M, na), dt (M,), G_drift, G_drives, keywords of
+    ops.prop_bank.prop_bank)."""
+    g = analytic.groups[group]
     Zp = Z * torch.as_tensor(var_scale, dtype=Z.dtype, device=Z.device)
     na = g.G_drives.shape[0]
     a = Zp[:, :-1, g.a_slice[0]:g.a_slice[1]].reshape(-1, na).contiguous()
@@ -206,3 +210,118 @@ def leakage_seeds(prob, B, seed):
     Z0[:, 1:-1, a_sl] += 0.05 * np.random.default_rng(seed).standard_normal(
         (B, T - 2, a_sl.stop - a_sl.start))
     return Z0
+
+
+ZETAS = (-0.05, 0.0, 0.05)  # example 04's drift samples
+
+
+def zeta_system(zeta):
+    """Example 04's system: drift ζ Z, drives X and Y."""
+    from . import PAULIS, QuantumSystem
+
+    return QuantumSystem(zeta * PAULIS["Z"], [PAULIS["X"], PAULIS["Y"]])
+
+
+def sampling_problem(T=50, dt=0.2, zetas=ZETAS, device=None, dtype=None):
+    """Example 04: UnitarySamplingProblem over the drift samples ζ, the H
+    gate, Δt free, Q=1e4, R=1e-3, tol 1e-5, κ_μ 0.2, filter line search,
+    kkt_backend "lanes", rng default_rng(0): one propagator group per ζ.
+    dtype as SolverOptions.dtype (None: the device's)."""
+    from . import GATES, PiccoloOptions, UnitarySamplingProblem
+
+    return UnitarySamplingProblem(
+        [zeta_system(z) for z in zetas], GATES["H"], T, dt, Q=1e4, R=1e-3,
+        ipopt_options=_options(tol=1e-5, kkt_backend="lanes", dtype=dtype),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+        device=device,
+    )
+
+
+def sampling_plain_problem(T=50, dt=0.2, device=None):
+    """The non-robust counterpart: UnitarySmoothPulseProblem at ζ = 0 with
+    sampling_problem's settings (its first system's controls and state)."""
+    from . import GATES, PiccoloOptions, UnitarySmoothPulseProblem
+
+    return UnitarySmoothPulseProblem(
+        zeta_system(0.0), GATES["H"], T, dt, Q=1e4, R=1e-3,
+        ipopt_options=_options(tol=1e-5, kkt_backend="lanes"),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+        device=device,
+    )
+
+
+def _control_noise(prob, B, seed, sigma):
+    """(B, T, d) copies of the initial decision with sigma N(0, 1) noise on
+    the interior controls, drawn from default_rng(seed)."""
+    z0 = prob.initial_decision(1)[0]
+    a_sl = prob.trajectory.comp_slice("a")
+    Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
+    T = z0.shape[0]
+    Z0[:, 1:-1, a_sl] += sigma * np.random.default_rng(seed).standard_normal(
+        (B, T - 2, a_sl.stop - a_sl.start))
+    return Z0
+
+
+def sampling_seeds(prob, B, seed):
+    """(B, T, d) seeds: the initial decision with 0.1 N(0, 1) noise on the
+    interior controls (the Hadamard path's); the same draws on the plain
+    problem's controls."""
+    return _control_noise(prob, B, seed, 0.1)
+
+
+def zeta_sweep_fidelity(a, dts, goal, init, zetas=None, device="cpu"):
+    """(B,) float64 rollout fidelities of the controls a (B, T, 2) and
+    timesteps dts (B, T), summed over the drift sweep ζ ∈ -0.05:0.01:0.05
+    (BASELINE.md's sampling comparison)."""
+    from . import batched_rollout_fidelity
+
+    zetas = np.arange(-0.05, 0.0501, 0.01) if zetas is None else zetas
+    return sum(batched_rollout_fidelity(a, dts, zeta_system(z), goal, init, device=device)
+               for z in zetas)
+
+
+def robustness_problem(T=51, dt=0.2, final_fidelity=0.99, device=None, **solver_options):
+    """The robustness warm start of the JAX package's template test: a
+    drift-free qubit with X and Y drives, the X gate reached by a constant
+    π pulse on X (T=51, Δt=0.2 free, tol 1e-7, kkt_backend "lanes", and
+    solver_options, e.g. dtype), then UnitaryRobustnessProblem against
+    H_error = Z with the fidelity floor final_fidelity.  Returns (problem,
+    warm problem)."""
+    from . import (GATES, PAULIS, PiccoloOptions, QuantumSystem, SolverOptions,
+                   UnitaryRobustnessProblem, UnitarySmoothPulseProblem)
+
+    sysq = QuantumSystem(None, [PAULIS["X"], PAULIS["Y"]])
+    a_guess = np.zeros((T, 2))
+    a_guess[:, 0] = (np.pi / 2) / ((T - 1) * dt)
+    warm = UnitarySmoothPulseProblem(
+        sysq, GATES["X"], T, dt, a_guess=a_guess,
+        ipopt_options=SolverOptions(print_level=1, tol=1e-7, kkt_backend="lanes",
+                                    **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False), device=device,
+    )
+    return UnitaryRobustnessProblem(PAULIS["Z"], warm, sysq,
+                                    final_fidelity=final_fidelity), warm
+
+
+def robustness_seeds(prob, B, seed=5):
+    """(B, T, d) seeds: the warm decision with 0.02 N(0, 1) noise on the
+    interior controls, drawn from default_rng(seed)."""
+    return _control_noise(prob, B, seed, 0.02)
+
+
+def magnus_cost(a, dts, system, H_error, U_init, device="cpu"):
+    """(B,) first-order Magnus sensitivities ||Σ_{t<T-1} dt_t U_t† H_e U_t||_F²
+    / (N T_total)² of the float64 rollouts of the controls a (B, T, n_drives)
+    with timesteps dts (B, T), T_total each instance's duration (the JAX
+    package's test measure)."""
+    from . import unitary_rollout
+
+    Us = unitary_rollout(U_init, a, dts, system, device=device)  # (B, T, 2N²)
+    N = int(round((Us.shape[-1] / 2) ** 0.5))
+    V = Us.reshape(*Us.shape[:-1], N, 2 * N).transpose(-1, -2)
+    U = torch.complex(V[..., :N, :], V[..., N:, :])[:, :-1]
+    H = torch.as_tensor(np.asarray(H_error, dtype=np.complex128), device=U.device)
+    dt = torch.as_tensor(np.asarray(dts, dtype=np.float64), device=U.device)[:, :-1]
+    M = torch.einsum("bt,btji,jk,btkl->bil", dt.to(U.dtype), U.conj(), H, U)
+    total = dt.sum(1)
+    return ((M.abs() ** 2).sum((-1, -2)) / (N * total) ** 2).cpu().numpy()

@@ -1,10 +1,14 @@
 """Collocation integrators: defect rows F_t(z_t, z_{t+1}) = 0.
 
 Counterpart of quantumcollocation_tpu/dynamics/integrators.py (the
-integrators of the unitary and ket smooth-pulse templates).  `defect` takes knot rows with
-any leading batch axes, (..., dim), and returns (..., defect_dim).  The
-solver assembles these rows analytically (solver/analytic.py); `defect` is
-the direct definition the analytic assembly is held against.
+integrators of the unitary and ket smooth-pulse templates and the
+robustness accumulator).  `defect` takes knot rows with any leading batch
+axes, (..., dim), and returns (..., defect_dim).  The solver assembles the
+propagator, derivative and timestep rows analytically (solver/analytic.py),
+and `defect` is the direct definition that assembly is held against; an
+integrator list with a robustness accumulator goes through `defect` and
+torch.func instead (solver/stage_nlp.py, the AD route), so every defect is
+real arithmetic: torch.func's tangents stay real.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ __all__ = [
     "QuantumStatePadeIntegrator",
     "DerivativeIntegrator",
     "TimeStepEqualityIntegrator",
+    "RobustnessAccumulatorIntegrator",
 ]
 
 
@@ -35,6 +40,20 @@ def _norm_bound(system: QuantumSystem, drive_bounds, dt_max: float) -> float:
     if drive_bounds is None:
         drive_bounds = [1.0] * system.n_drives
     return float((G0 + sum(b * g for b, g in zip(drive_bounds, Gs))) * dt_max)
+
+
+class _Suffixable:
+    """add_suffix: a copy with its component names suffixed (direct sums)."""
+
+    _NAME_FIELDS = ("state_name", "control_name", "x_name", "dx_name", "accumulator_name",
+                    "timestep_name")
+
+    def add_suffix(self, suffix: str):
+        new = dataclasses.replace(self)
+        for field in self._NAME_FIELDS:
+            if getattr(new, field, None) is not None:
+                setattr(new, field, getattr(new, field) + suffix)
+        return new
 
 
 def _get(traj, z, name):
@@ -63,7 +82,7 @@ def _iso_vec(M):
 
 
 @dataclasses.dataclass
-class UnitaryExponentialIntegrator:
+class UnitaryExponentialIntegrator(_Suffixable):
     """Defect iso_vec(U_{t+1}) - exp(G(a_t) dt_t) U_t."""
 
     state_name: str
@@ -95,7 +114,7 @@ class UnitaryExponentialIntegrator:
 
 
 @dataclasses.dataclass
-class UnitaryPadeIntegrator:
+class UnitaryPadeIntegrator(_Suffixable):
     """Implicit Padé defect q(-X) U_{t+1} - q(X) U_t, X = G(a_t) dt_t."""
 
     state_name: str
@@ -122,7 +141,7 @@ def _apply(M, v):
 
 
 @dataclasses.dataclass
-class QuantumStateExponentialIntegrator:
+class QuantumStateExponentialIntegrator(_Suffixable):
     """Ket defect psi_{t+1} - exp(G(a_t) dt_t) psi_t on iso kets."""
 
     state_name: str
@@ -152,7 +171,7 @@ class QuantumStateExponentialIntegrator:
 
 
 @dataclasses.dataclass
-class QuantumStatePadeIntegrator:
+class QuantumStatePadeIntegrator(_Suffixable):
     """Ket implicit Padé defect q(-X) psi_{t+1} - q(X) psi_t."""
 
     state_name: str
@@ -173,7 +192,7 @@ class QuantumStatePadeIntegrator:
 
 
 @dataclasses.dataclass
-class DerivativeIntegrator:
+class DerivativeIntegrator(_Suffixable):
     """Defect x_{t+1} - x_t - dx_t dt_t."""
 
     x_name: str
@@ -192,7 +211,7 @@ class DerivativeIntegrator:
 
 
 @dataclasses.dataclass
-class TimeStepEqualityIntegrator:
+class TimeStepEqualityIntegrator(_Suffixable):
     """Defect dt_{t+1} - dt_t (equal timesteps, kept block-tridiagonal)."""
 
     timestep_name: str = "Δt"
@@ -202,3 +221,35 @@ class TimeStepEqualityIntegrator:
 
     def defect(self, zt, ztp1, traj):
         return _get(traj, ztp1, self.timestep_name) - _get(traj, zt, self.timestep_name)
+
+
+@dataclasses.dataclass
+class RobustnessAccumulatorIntegrator(_Suffixable):
+    """Defect M_{t+1} - M_t - dt_t iso_vec(U_t† H_e U_t) of the first-order
+    Magnus accumulator M (an iso-vec state, M_0 = 0), which makes the
+    robustness cost ||Σ_t dt_t U_t† H_e U_t||² a terminal cost on M_T.
+    U_t† H_e U_t is formed from the real blocks of the iso operator
+    [Re U; Im U] and of H_e = H_r + i H_i."""
+
+    state_name: str = "Ũ⃗"
+    accumulator_name: str = "m_rob"
+    control_name: str = "a"
+    H_error: Any = None
+    timestep_name: Any = None
+
+    def defect_dim(self, traj) -> int:
+        return traj.comp_size(self.accumulator_name)
+
+    def defect(self, zt, ztp1, traj):
+        H = np.asarray(self.H_error, dtype=np.complex128)
+        Hr, Hi = (torch.as_tensor(x, dtype=zt.dtype, device=zt.device) for x in (H.real, H.imag))
+        Ut = _iso_mats(traj, zt, self.state_name)
+        N = Ut.shape[-1]
+        Ur, Ui = Ut[..., :N, :], Ut[..., N:, :]
+        # W = H_e U, then U† W = (Ur^T Wr + Ui^T Wi) + i (Ur^T Wi - Ui^T Wr)
+        Wr, Wi = Hr @ Ur - Hi @ Ui, Hr @ Ui + Hi @ Ur
+        Urt, Uit = Ur.transpose(-1, -2), Ui.transpose(-1, -2)
+        V = _iso_vec(torch.cat([Urt @ Wr + Uit @ Wi, Urt @ Wi - Uit @ Wr], dim=-2))
+        dt = _dt(traj, zt, self.timestep_name)[..., None]
+        return (_get(traj, ztp1, self.accumulator_name) - _get(traj, zt, self.accumulator_name)
+                - dt * V)

@@ -5,10 +5,12 @@ This system has no weights: its parameters are the problem data.
 Hamiltonians and generators, the trajectory with its bounds and pins, the
 initial decision Z0, the solver's variable, defect, inequality-row and
 objective scales, each integrator's class, Padé order and squaring count,
-the inequality constraints (fidelity floors: class, state name, floor,
-subspace; L1 slack rows: class, names, indices) with m, the
-MinimumTimeObjective's weight, the goals of a multigoal batch, and an
-embedded goal's subspace and levels).  It
+the Hamiltonians of every propagator integrator's system (one per sampled
+system) and a robustness accumulator's error Hamiltonian, the inequality
+constraints (fidelity floors: class, state name, floor, subspace; L1 slack
+rows: class, names, indices) with m, the MinimumTimeObjective's weight,
+the goals of a multigoal batch, and an embedded goal's subspace and
+levels).  It
 only reads attributes, calls the problem's own methods and calls numpy, so
 it imports nothing of JAX.  The `*_from_arrays` functions build the port's
 problem from those arrays and check that the port derives the same
@@ -29,6 +31,8 @@ from .problems.multigoal import UnitaryMultiGoalProblem
 from .problems.quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .problems.quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
 from .problems.unitary_minimum_time import UnitaryMinimumTimeProblem
+from .problems.unitary_robustness import UnitaryRobustnessProblem
+from .problems.unitary_sampling import UnitarySamplingProblem
 from .problems.unitary_smooth_pulse import UnitarySmoothPulseProblem
 from .quantum.embedded import EmbeddedOperator, unembed
 from .quantum.isomorphisms import iso_to_ket, iso_vec_to_operator
@@ -45,6 +49,8 @@ __all__ = [
     "unitary_minimum_time_from_arrays",
     "quantum_state_minimum_time_from_arrays",
     "unitary_multigoal_from_arrays",
+    "unitary_sampling_from_arrays",
+    "unitary_robustness_from_arrays",
 ]
 
 
@@ -71,6 +77,19 @@ def _constraint_specs(constraints):
             specs.append((type(c).__name__, c.name, c.slack_name,
                           tuple(int(i) for i in c.indices)))
     return specs
+
+
+def _defect_scale(prob):
+    """The solver's defect-row scales r of a problem without an analytic
+    assembly, as the ratio of its scaled defect rows to the problem's
+    unscaled ones at a seeded point off the dynamics (z0 + N(0, 1) at
+    knot 0, where every row is nonzero)."""
+    solver = prob.solver
+    v = np.asarray(solver.var_scale, dtype=np.float64)
+    z0 = np.asarray(prob.nlp.z0, dtype=np.float64)
+    zt = z0[0] + np.random.default_rng(0).standard_normal(z0.shape[1])
+    scaled = np.asarray(solver.nlp.defect(zt / v, z0[1] / v, 0), dtype=np.float64)
+    return scaled / np.asarray(prob.nlp.defect(zt, z0[1], 0), dtype=np.float64)
 
 
 def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None) -> dict:
@@ -107,11 +126,15 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None) 
         "var_scale": np.asarray(solver.var_scale, dtype=np.float64),
         "obj_scale": float(solver.obj_scale),
         "defect_scale": (
-            np.asarray(analytic.defect_scale, dtype=np.float64)
-            if analytic is not None and analytic.defect_scale is not None
-            else None
+            _defect_scale(prob) if analytic is None
+            else np.asarray(analytic.defect_scale, dtype=np.float64)
+            if analytic.defect_scale is not None else None
         ),
         "integrators": _integrator_specs(prob.integrators),
+        "systems": [(np.asarray(ig.system.H_drift), np.asarray(ig.system.H_drives))
+                    for ig in prob.integrators if getattr(ig, "system", None) is not None],
+        "H_errors": [np.asarray(ig.H_error) for ig in prob.integrators
+                     if getattr(ig, "H_error", None) is not None],
         "constraints": _constraint_specs(prob.constraints),
         "m": int(nlp.m),
         "ineq_scale": ineq_scale,
@@ -292,3 +315,53 @@ def unitary_multigoal_from_arrays(
     )
     prob, Z0 = _checked(prob, arrays, rtol)
     return prob, Z0, arrays["goals"]
+
+
+def unitary_sampling_from_arrays(
+    arrays, *, Q, R, system_weights=None, ipopt_options=None, piccolo_options=None, device=None,
+    rtol=1e-5,
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    UnitarySamplingProblem built with the same Q, R, system weights and
+    integrator: one system per source propagator integrator, each the goal
+    of its Ũ⃗_system_i component; raises as
+    unitary_smooth_pulse_from_arrays."""
+    traj = trajectory_from_arrays(arrays)
+    systems = [QuantumSystem(Hd, list(Hs)) for Hd, Hs in arrays["systems"]]
+    operators = [iso_vec_to_operator(traj.goal[f"Ũ⃗_system_{i + 1}"])
+                 for i in range(len(systems))]
+    prob = UnitarySamplingProblem(
+        systems, operators, traj.T, float(np.mean(traj.get_timesteps())),
+        system_weights=system_weights, init_trajectory=traj, Q=Q, R=R,
+        ipopt_options=ipopt_options, piccolo_options=_free_time(traj, piccolo_options),
+        device=device,
+    )
+    return _checked(prob, arrays, rtol)
+
+
+def unitary_robustness_from_arrays(
+    arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
+    accumulator_name="m_rob",
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    UnitaryRobustnessProblem warm-started from a UnitarySmoothPulseProblem
+    with the same Q, R and integrator: the port builds that smooth-pulse
+    problem on the source's trajectory without its accumulator, then the
+    robustness problem with the source's error Hamiltonian and floor.
+    Raises as unitary_minimum_time_from_arrays."""
+    full = trajectory_from_arrays(arrays)
+    comps = {n: full[n] for n in full.names if n != accumulator_name}
+    initial = {k: v for k, v in full.initial.items() if k != accumulator_name}
+    traj = NamedTrajectory(comps, controls=full.controls, timestep=full.timestep,
+                           bounds=full.bounds, initial=initial, final=full.final,
+                           goal=full.goal)
+    base = UnitarySmoothPulseProblem(
+        system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
+        init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
+        piccolo_options=_free_time(traj, piccolo_options), device=device,
+    )
+    (H_error,) = arrays["H_errors"]
+    floor, subspace = _floor(arrays)
+    prob = UnitaryRobustnessProblem(H_error, base, final_fidelity=floor, subspace=subspace,
+                                    accumulator_name=accumulator_name)
+    return _checked(prob, arrays, rtol)

@@ -2,10 +2,11 @@
 
 Counterpart of quantumcollocation_tpu/objectives/objectives.py
 (UnitaryInfidelityObjective, QuantumStateObjective, QuadraticRegularizer,
-L1Regularizer, MinimumTimeObjective).  A term is classified
-by its stage structure so the problem compiler keeps the KKT system
-block-tridiagonal:
+QuadraticSmoothnessRegularizer, L1Regularizer, MinimumTimeObjective,
+UnitaryRobustnessObjective).  A term is classified by its stage structure
+so the problem compiler keeps the KKT system block-tridiagonal:
   - "stage":    fn(z_t, t) -> scalar, summed over all knots
+  - "pair":     fn(z_t, z_{t+1}, t) -> scalar, summed over t = 0..T-2
   - "terminal": fn(z_T) -> scalar
 
 Each term carries `make(dtype, device) -> fn`: its constants (goal,
@@ -30,14 +31,16 @@ __all__ = [
     "UnitaryInfidelityObjective",
     "QuantumStateObjective",
     "QuadraticRegularizer",
+    "QuadraticSmoothnessRegularizer",
     "L1Regularizer",
     "MinimumTimeObjective",
+    "UnitaryRobustnessObjective",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class ObjectiveTerm:
-    kind: str  # "stage" | "terminal"
+    kind: str  # "stage" | "pair" | "terminal"
     make: Callable  # (dtype, device) -> fn
     weight: float = 1.0
     label: str = ""
@@ -120,6 +123,40 @@ def QuadraticRegularizer(name, traj, R=1.0):
         return fn
 
     return Objective((ObjectiveTerm("stage", make, 1.0, f"quad_reg[{name}]"),))
+
+
+def QuadraticSmoothnessRegularizer(name, traj, R=1.0, *, eval_hessian=True):
+    """(1/2) Σ_t R ||v_{t+1} - v_t||², a pair term."""
+    start, stop = traj.components[name]
+    Rvec = np.broadcast_to(np.asarray(R, dtype=float), (stop - start,)).copy()
+
+    def make(dtype, device):
+        r = torch.as_tensor(Rvec, dtype=dtype, device=device)
+
+        def fn(zt, ztp1, t):
+            return 0.5 * torch.sum(r * (ztp1[start:stop] - zt[start:stop]) ** 2)
+
+        return fn
+
+    return Objective((ObjectiveTerm("pair", make, 1.0, f"smooth_reg[{name}]"),))
+
+
+def UnitaryRobustnessObjective(*, H_error=None, accumulator_name="m_rob", traj=None,
+                               eval_hessian=True):
+    """||M_T||², the first-order Magnus robustness cost as a terminal cost
+    on the accumulator component M (RobustnessAccumulatorIntegrator's
+    state); the robustness template adds its own normalized form."""
+    if traj is None:
+        raise ValueError("traj is needed to find the accumulator component")
+    start, stop = traj.components[accumulator_name]
+
+    def make(dtype, device):
+        def fn(zT):
+            return torch.sum(zT[start:stop] ** 2)
+
+        return fn
+
+    return Objective((ObjectiveTerm("terminal", make, 1.0, "unitary_robustness"),))
 
 
 def L1Regularizer(constraints: list, name: str, traj, *, R=1.0, R_value=None, indices=None,

@@ -8,6 +8,8 @@ from .problem import QuantumControlProblem, resolve_device
 from .quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
 from .unitary_minimum_time import UnitaryMinimumTimeProblem
+from .unitary_robustness import UnitaryRobustnessProblem
+from .unitary_sampling import UnitarySamplingProblem, UnitarySamplingProblemFromDistribution
 from .unitary_smooth_pulse import UnitarySmoothPulseProblem
 
 __all__ = [
@@ -16,6 +18,9 @@ __all__ = [
     "QuantumStateSmoothPulseProblem",
     "UnitaryMinimumTimeProblem",
     "UnitaryMultiGoalProblem",
+    "UnitaryRobustnessProblem",
+    "UnitarySamplingProblem",
+    "UnitarySamplingProblemFromDistribution",
     "UnitarySmoothPulseProblem",
     "multigoal_initial_decisions",
     "multigoal_rollout_fidelities",

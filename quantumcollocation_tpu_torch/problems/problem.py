@@ -5,7 +5,13 @@ Counterpart of quantumcollocation_tpu/problems/problem.py.  Lowering:
 integrators -> stacked defect rows; TimeStepsAllEqualConstraint -> extra
 defect rows; inequality constraints -> m = Σ ineq_dim rows per knot, the
 constraints' rows stacked, inactive knots +1; trajectory bounds -> barrier
-bounds; initial/final pins -> fixed masks.
+bounds; initial/final pins -> fixed masks; objective terms -> stage, pair
+and terminal costs.  The dynamics are assembled analytically where every
+integrator has an analytic form and PiccoloOptions.jacobian_structure is
+on; otherwise (a robustness accumulator, or jacobian_structure=False) the
+NLP has analytic=None and the solver differentiates the stacked defect
+function (the AD route), structured on the coordinates where the defects
+are nonlinear (`_nonlinear_defect_coords`).
 
 Device rule: `device=None` means CUDA; without CUDA that raises, and the
 caller passes device="cpu" to run on the CPU on purpose.  The dtype
@@ -23,6 +29,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..dynamics import integrators as igs
 from ..dynamics.integrators import (
     DerivativeIntegrator,
     QuantumStateExponentialIntegrator,
@@ -107,6 +114,9 @@ class QuantumControlProblem:
         term_fns = [
             (t.weight, t.make(**dt_dev)) for t in self.objective.terms if t.kind == "terminal"
         ]
+        pair_fns = [
+            (t.weight, t.make(**dt_dev)) for t in self.objective.terms if t.kind == "pair"
+        ]
 
         def stage_cost(z, t):
             total = z.new_zeros(())
@@ -119,6 +129,17 @@ class QuantumControlProblem:
             for w, fn in term_fns:
                 total = total + w * fn(zT)
             return total
+
+        def pair_cost(zt, ztp1, t):
+            total = zt.new_zeros(())
+            for w, fn in pair_fns:
+                total = total + w * fn(zt, ztp1, t)
+            return total
+
+        integrators = self.integrators
+
+        def defect(zt, ztp1, t):
+            return torch.cat([ig.defect(zt, ztp1, traj) for ig in integrators], dim=-1)
 
         ineq_cons = [c for c in self.constraints if c.ineq_dim(traj) > 0]
         m = sum(c.ineq_dim(traj) for c in ineq_cons)
@@ -142,21 +163,53 @@ class QuantumControlProblem:
                     z0[t, sl] = val
                     free[t, sl] = False
         self._d = d
+        structure = self.piccolo_options.jacobian_structure
         self.nlp = StageNLP(
             T=T, d=d, s=s, m=m,
             stage_cost=stage_cost, terminal_cost=terminal_cost,
             ineq=ineq if m > 0 else None,
+            pair_cost=pair_cost if pair_fns else None,
+            defect=defect,
+            nl_coords=self._nonlinear_defect_coords() if structure else None,
             lb=lb, ub=ub, free_mask=free, z0=z0,
             dtype=self.dtype, device=self.device,
-            analytic=(
-                build_analytic_dynamics(traj, self.integrators, d)
-                if self.piccolo_options.jacobian_structure else None
-            ),
+            analytic=build_analytic_dynamics(traj, integrators, d) if structure else None,
         )
         self.solver = InteriorPointSolver(
             self.nlp, self.ipopt_options, exact_hessian=self.piccolo_options.eval_hessian
         )
         self.result = None
+
+    def _nonlinear_defect_coords(self):
+        """The knot-row coordinates in which the defects are nonlinear:
+        (controls, timestep) for the propagator integrators, (dx, timestep)
+        for a derivative chain, (state, timestep) for the robustness
+        accumulator; none for equal timesteps.  None (the dense pair
+        Hessian) if an integrator is of another kind."""
+        traj = self.trajectory
+        tname = traj.timestep if isinstance(traj.timestep, str) else None
+        idx = set()
+
+        def add(name):
+            if name is not None and name in traj.components:
+                idx.update(range(*traj.components[name]))
+
+        propagators = (igs.UnitaryExponentialIntegrator, igs.UnitaryPadeIntegrator,
+                       igs.QuantumStateExponentialIntegrator, igs.QuantumStatePadeIntegrator)
+        for ig in self.integrators:
+            ig_t = getattr(ig, "timestep_name", None) or tname
+            if isinstance(ig, propagators):
+                add(ig.control_name)
+            elif isinstance(ig, igs.DerivativeIntegrator):
+                add(ig.dx_name)
+            elif isinstance(ig, igs.RobustnessAccumulatorIntegrator):
+                add(ig.state_name)
+            elif isinstance(ig, igs.TimeStepEqualityIntegrator):
+                continue
+            else:
+                return None
+            add(ig_t)
+        return tuple(sorted(idx))
 
     def initial_decision(self, batch: int = 1):
         """(batch, T, d) initial decisions (numpy, problem units)."""

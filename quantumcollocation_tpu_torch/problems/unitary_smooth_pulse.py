@@ -47,6 +47,7 @@ def UnitarySmoothPulseProblem(
     init_trajectory=None,
     a_bound: float = 1.0,
     a_bounds=None,
+    a_guess=None,
     da_bound: float = np.inf,
     da_bounds=None,
     zero_initial_and_final_derivative: bool = False,
@@ -64,7 +65,9 @@ def UnitarySmoothPulseProblem(
     device=None,
 ) -> QuantumControlProblem:
     """Build the smooth-pulse unitary gate-synthesis problem on `device`
-    (None = CUDA; see problems/problem.py for the device and dtype rule)."""
+    (None = CUDA; see problems/problem.py for the device and dtype rule).
+    With a_guess (T, n_drives) the state starts as its rollout and the
+    control chain as its differences."""
     if not isinstance(system, QuantumSystem):
         raise TypeError("system must be a QuantumSystem")
     ipopt_options = ipopt_options or SolverOptions()
@@ -90,7 +93,8 @@ def UnitarySmoothPulseProblem(
             dt_bounds=(dt_min, dt_max),
             zero_initial_and_final_derivative=zero_initial_and_final_derivative,
             geodesic=piccolo_options.geodesic,
-            bound_state=piccolo_options.bound_state, rng=rng,
+            rollout_integrator=piccolo_options.rollout_integrator,
+            bound_state=piccolo_options.bound_state, a_guess=a_guess, system=system, rng=rng,
         )
     embedded = isinstance(operator, EmbeddedOperator)
     J = UnitaryInfidelityObjective(state_name, traj, Q,

@@ -2,7 +2,7 @@
 
     python -m quantumcollocation_tpu_torch.profile_step
         [--config hadamard|hadamard_lbfgs|hadamard_scan|cnot|ket_exp|cnot_exp|su4|min_time|
-                  leakage]
+                  leakage|sampling|robustness]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -20,13 +20,21 @@ T=33, Δt=0.3 fixed, kkt_backend "lanes", bench_util.su4_problem) or
 stage has solved for 80 iterations; bench_util.min_time_problem) or
 "leakage" (BASELINE #4: the three-level transmon's embedded X gate with
 L1 leakage slacks, B=256, T=40, Δt=0.2 fixed, kkt_backend "lanes",
-bench_util.leakage_problem and leakage_seeds), float32 on CUDA.  Runs
-two warm-up iterations (eight for hadamard_lbfgs), then profiles
-`--steps` iterations with torch.profiler and prints one JSON line: host wall per
-iteration, device-busy time per iteration (the sum of kernel times), the
-idle share, the CUDA launch count, and the kernels with the most device
-time.  The profiler slows the host, so the wall and idle share read high;
-the kernel times do not.  Needs a CUDA GPU.
+bench_util.leakage_problem and leakage_seeds), "sampling" (example 04:
+three drift samples ζ ∈ {-0.05, 0, 0.05}, H, T=50, Δt=0.2 free,
+kkt_backend "lanes", B=512; bench_util.sampling_problem and
+sampling_seeds) or "robustness" (the robustness warm start against
+H_error = Z, floor 0.99, B=256: the AD route; bench_util.robustness_problem
+and robustness_seeds), float32 on CUDA.  Runs two warm-up iterations
+(eight for hadamard_lbfgs), then profiles `--steps` iterations with
+torch.profiler and prints one JSON line: host wall per iteration,
+device-busy time per iteration (the sum of kernel times), the idle share,
+the CUDA launch count, and the kernels with the most device time.  The
+profiler slows the host, so the wall and idle share read high; the kernel
+times do not.  Then, without the profiler, the wall per iteration and, on
+the AD route, the time of its dynamics blocks (F, A, B by jacrev and the
+curvature -λ·∇²F, CUDA events around the calls) and their share of the
+iteration.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -68,6 +76,12 @@ def build(config, batch):
     if config == "leakage":
         prob, _ = bu.leakage_problem()
         return prob.solver, bu.leakage_seeds(prob, batch or 256, 42)
+    if config == "sampling":
+        prob = bu.sampling_problem()
+        return prob.solver, bu.sampling_seeds(prob, batch or 512, 42)
+    if config == "robustness":
+        prob, _ = bu.robustness_problem()
+        return prob.solver, bu.robustness_seeds(prob, batch or 256, 42)
     if config == "min_time":
         warm = bu.min_time_warm()
         warm.solve(max_iter=80)
@@ -118,7 +132,8 @@ def build(config, batch):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan", "cnot",
-                                         "ket_exp", "cnot_exp", "su4", "min_time", "leakage"),
+                                         "ket_exp", "cnot_exp", "su4", "min_time", "leakage",
+                                         "sampling", "robustness"),
                     default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)
@@ -157,6 +172,20 @@ def main():
             for e in top
         ],
     }), flush=True)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        st = solver.step(st)
+    torch.cuda.synchronize()
+    line = {"phase": "unprofiled", "config": args.config,
+            "wall_ms_per_iter": 1e3 * (time.perf_counter() - t0) / args.steps}
+    f = solver.funcs
+    if f.dyn_eval is not None:
+        Z, lam = st.Z, st.lam
+        line["ad_dyn_eval_ms"] = bu.time_ms(lambda: f.dyn_eval(Z), n=5, warm=1)
+        line["ad_curvature_ms"] = bu.time_ms(lambda: f.defect_curvature(Z, lam), n=5, warm=1)
+        line["ad_route_share"] = ((line["ad_dyn_eval_ms"] + line["ad_curvature_ms"])
+                                  / line["wall_ms_per_iter"])
+    print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,11 @@ freezes).  One iteration (`_step`):
      solver/options.py::resolve_modes) one kernel (ops/dyn_assembly.py)
      gives F, A, B and the defect curvature; off, the propagator-bank
      kernel (ops/prop_bank.py) gives the banks and solver/analytic.py
-     assembles the blocks from them.  torch.func gives the cost blocks
+     assembles the blocks from them.  An NLP without an analytic assembly
+     (a robustness accumulator, or jacobian_structure=False) takes the AD
+     route instead: torch.func over its defect function gives F, A, B and
+     the curvature -λ·∇²F (solver/stage_nlp.py), and the same sweep
+     kernels solve its blocks.  torch.func gives the cost blocks
      and the stage inequality rows g (m per knot), their Jacobian Jg and
      the curvature -w·∇²g.  With eval_hessian=False
      (quasi_newton="lbfgs") the bank runs first order, and the Hessian is
@@ -386,6 +390,8 @@ class InteriorPointSolver:
         an = self.nlp.analytic
         if self.fused_assembly_on:
             F, A, Bj, Hc, Cc = an.assembly_batched(Z, lam)
+        elif an is None:  # the AD route: torch.func over the defects
+            F, A, Bj = self.funcs.dyn_eval(Z)
         else:
             banks = an.banks_batched(Z, second_order=self.exact_hessian)
             F, A, Bj, dyn_aux = an.dyn_eval(Z, banks)
@@ -441,7 +447,8 @@ class InteriorPointSolver:
             good = ok_ls & (E_pr <= o.recalc_y_feas_tol) & (res_ls < res_cur)
             lam = torch.where(_col(good, 3), nu_ls, lam)
         if not self.fused_assembly_on and self.exact_hessian:
-            Hc, Cc = an.defect_curvature(lam, dyn_aux)
+            Hc, Cc = (self.funcs.defect_curvature(Z, lam) if an is None
+                      else an.defect_curvature(lam, dyn_aux))
 
         jt_lam = jt_blocks(A, Bj, lam) + jg_w
         gL = gcost - jt_lam

@@ -857,3 +857,148 @@ def test_leakage_path_solves_on_the_card(cuda):
     # every attempt refines once through its kept factors (the lift's pass)
     assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
     assert int(s.kkt_lifted_rows) > 0
+
+
+@pytest.mark.parametrize("Bt", [1, 37, 512])
+def test_assembly_kernel_on_two_sampling_groups(cuda, Bt):
+    # kernel 1 on a two-system sampling problem (d=23, s=21): two
+    # propagator groups of one (n, K) with different drifts, sharing the
+    # controls and Δt; outputs into memory poisoned with NaN
+    prob = bu.sampling_problem(T=11, zetas=(-0.05, 0.05), device="cpu")
+    an = prob.solver.nlp.analytic
+    assert (prob.solver.nlp.d, prob.solver.nlp.s) == (23, 21) and prob.solver.fused_assembly_on
+    assert len(an.groups) == 2 and not np.array_equal(an.groups[0].G_drift,
+                                                      an.groups[1].G_drift)
+    rng = np.random.default_rng(Bt)
+    z0 = np.asarray(prob.solver.nlp.z0)
+    Z = torch.as_tensor(z0 + 0.05 * rng.standard_normal((Bt, *z0.shape)),
+                        dtype=torch.float32, device=cuda)
+    lam = torch.as_tensor(rng.standard_normal((Bt, an.T - 1, an.s)), dtype=torch.float32,
+                          device=cuda)
+    ref = da.dyn_assembly_reference(an, Z, lam)
+    da.dyn_assembly(an, Z, lam)  # packs the argument table before the poisoning
+    torch.cuda.synchronize()
+    poison = [torch.full(r.shape, float("nan"), device=cuda) for r in ref]
+    ptrs = sorted(x.data_ptr() for x in poison)
+    del poison
+    before = build.launch_counts["dyn_assembly"]
+    out = da.dyn_assembly(an, Z, lam)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dyn_assembly"] == before + 1
+    assert sorted(x.data_ptr() for x in out) == ptrs
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+    # each group's rows come from its own drift: the two state blocks differ
+    F = out[0]
+    assert (F[..., :8] - F[..., 8:16]).abs().max() > 0
+
+
+@pytest.mark.parametrize("M", [301, 25088])
+@pytest.mark.parametrize("group", [0, 1, 2])
+def test_bank_kernel_on_the_sampling_groups(cuda, monkeypatch, group, M):
+    # kernel 5 as the sampling path runs it, once per group an evaluation:
+    # n=4, 2 drives, a free Δt, Padé 4, second order; 25,088 = 512 x 49
+    # pairs, on NaN-poisoned outputs
+    prob = bu.sampling_problem(T=5, device="cpu")
+    g = prob.solver.nlp.analytic.groups[group]
+    rng = np.random.default_rng(M + group)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    args = [torch.as_tensor(rng.uniform(-1.0, 1.0, (M, 2)), **f32),
+            torch.as_tensor(rng.uniform(0.1, 0.3, M), **f32),
+            torch.as_tensor(g.G_drift, **f32), torch.as_tensor(g.G_drives, **f32)]
+    _check_bank(args, dict(kind="pade", order=4, free_dt=True, second_order=True), monkeypatch)
+
+
+@pytest.mark.parametrize("T", [2, 51])
+@pytest.mark.parametrize("Bt", [1, 133, 256])
+def test_sweeps_at_the_robustness_shape_match_plain_version(cuda, monkeypatch, Bt, T):
+    # the robustness path's KKT attempt at (d, s) = (23, 21): seeded blocks
+    # lifted by the solver's ρ rule
+    _check_lifted_sweeps(cuda, monkeypatch, Bt, T, 23, 21)
+
+
+def test_sweeps_on_the_robustness_ad_route_blocks(cuda, monkeypatch):
+    # kernels 2 (kept factors), 3 and 4 (the refinement's re-solve on the
+    # kept factors) on the robustness problem's own first-iteration blocks
+    # from the AD route, lifted (H + δ_w I + ρS_AA, C + ρS_AB,
+    # rz + ρJᵀrnu), outputs into memory poisoned with NaN.  These blocks
+    # span ~1e8 (their factors' entries reach 1e4), beyond what a float32
+    # factor comparison at 1e-4 resolves, so the kernel path's solves are
+    # held, as chip_smoke.py's reference phases hold them, against the
+    # float64 solve of the same float32 blocks: no worse than ten times the
+    # plain float32 solve's error.  At the small δ_w of a first attempt the
+    # kernel and its plain version each fail or succeed on their own
+    # rounding; there the kernel's outputs are finite exactly on the
+    # instances it reports solved
+    prob, _ = bu.robustness_problem(T=51, device=cuda)
+    s = prob.solver
+    assert s.nlp.analytic is None and (s.nlp.d, s.nlp.s, s.nlp.m) == (23, 21, 1)
+    st = s.init_state(bu.robustness_seeds(prob, 64, 7))
+    kkt, aux = s._iteration_pre(st)
+    kkt = [x.contiguous() for x in kkt]
+    S = s._lift_S(kkt[2], kkt[3])
+    small = [x.contiguous() for x in s._lifted(kkt, torch.full_like(aux.rho0, 1e-4), aux.rho0, S)]
+    dz, nu, ok = kl.solve_kkt_lanes(*small, 1e-8)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(dz).flatten(1).all(1) & torch.isfinite(nu).flatten(1).all(1)
+    assert torch.equal(finite, ok) and bool(ok.any())
+    args = [x.contiguous() for x in s._lifted(kkt, torch.full_like(aux.rho0, 1e3), aux.rho0, S)]
+    rng = np.random.default_rng(3)
+    rhs2 = [torch.as_tensor(rng.standard_normal(tuple(x.shape)), dtype=torch.float32,
+                            device=cuda) for x in args[4:]]
+    full = torch.full
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", lambda *shape, **k: full(
+            shape[0] if len(shape) == 1 and not isinstance(shape[0], int) else shape,
+            float("nan"), **k))
+        dz, nu, ok, fac = kl.solve_kkt_lanes(*args, 1e-8, want_factors=True)
+        dz2, nu2, ok2 = kl.resolve_kkt_lanes(fac, *rhs2)
+    torch.cuda.synchronize()
+    assert bool(ok.all()) and bool(ok2.all())
+    for rz, rnu, out_k in ((args[4], args[5], (dz, nu)), (rhs2[0], rhs2[1], (dz2, nu2))):
+        blocks = list(args[:4]) + [rz, rnu]
+        ref = solve_kkt(*[x.double() for x in blocks], 1e-8)
+        plain = solve_kkt(*blocks, 1e-8)
+        for k_out, p_out, r_out in zip(out_k, plain[:2], ref[:2]):
+            assert torch.isfinite(k_out).all()
+            scale = max(1.0, r_out.abs().max().item())
+            e_k = (k_out.double() - r_out).abs().max().item() / scale
+            e_p = (p_out.double() - r_out).abs().max().item() / scale
+            assert e_k <= 10 * e_p + 1e-6, (e_k, e_p)
+
+
+def test_sampling_path_solves_on_the_card(cuda):
+    prob = bu.sampling_problem(T=11)
+    s = prob.solver
+    assert (s.fused_assembly_on, s.kkt_refine_n, s.kkt_aug_on) == (False, 1, False)
+    Z0 = bu.sampling_seeds(prob, 8, 0)
+    build.reset_launch_counts()
+    res = s.solve(Z0, max_iter=10)
+    c = dict(build.launch_counts)
+    assert torch.isfinite(res.Z).all()
+    # one bank launch per group an evaluation, none fused
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] >= 3 * s.last_steps > 0, c
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+
+
+def test_robustness_path_solves_on_the_card(cuda):
+    prob, warm = bu.robustness_problem()
+    s = prob.solver
+    assert (s.fused_assembly_on, s.kkt_aug_on, s.nlp.m) == (False, True, 1)
+    Z0 = bu.robustness_seeds(prob, 8, 5)
+    build.reset_launch_counts()
+    res = s.solve(Z0, max_iter=20)
+    c = dict(build.launch_counts)
+    Z = res.Z.double().cpu().numpy()
+    assert np.isfinite(Z).all()
+    # the AD route: no assembly, no bank; every attempt refined once
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] == 0, c
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0 and c["kkt_bwd_sweep"] > 0, c
+    tr = prob.trajectory
+    a, dt = tr.comp_slice("a"), tr.comp_slice("Δt")
+    before = bu.magnus_cost(Z0[:, :, a], Z0[:, :, dt][..., 0], warm.system, qt.PAULIS["Z"],
+                            tr.initial["Ũ⃗"])
+    after = bu.magnus_cost(Z[:, :, a], Z[:, :, dt][..., 0], warm.system, qt.PAULIS["Z"],
+                           tr.initial["Ũ⃗"])
+    assert np.median(after / before) < 0.9, after / before

@@ -1,6 +1,7 @@
 """Port parity: Padé / exponential banks and rollouts against the JAX
 package, float64 on the CPU (atol 1e-10)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,6 +81,6 @@ def test_unitary_rollout_fidelity_matches_jax():
     # the full rollout, knot by knot
     a, dts = np.asarray(pj.trajectory["a"]), np.asarray(pj.trajectory.get_timesteps())
     v0 = np.asarray(pj.trajectory.initial["Ũ⃗"])
-    Uj = np.asarray(qct.unitary_rollout(v0, a, dts, sj))
+    Uj = np.asarray(jax.jit(lambda v, x, t: qct.unitary_rollout(v, x, t, sj))(v0, a, dts))
     Ut = qt.unitary_rollout(v0, a, dts, st).numpy()
     np.testing.assert_allclose(Ut, Uj, atol=ATOL)

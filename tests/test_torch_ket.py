@@ -80,10 +80,11 @@ def test_ket_maps_fidelities_and_rollouts_match_jax():
     # the ket rollout knot by knot, and the rollout fidelity of each ket
     pj, pt = _problem("jax"), _problem("port")
     a, dts = np.asarray(pj.trajectory["a"]), np.asarray(pj.trajectory.get_timesteps())
+    roll_j = jax.jit(lambda v, x, t: qct.rollout(v, x, t, pj.system))
     for name in ("ψ̃1", "ψ̃2"):
         v0 = np.asarray(pj.trajectory.initial[name])
         np.testing.assert_allclose(qt.rollout(v0, a, dts, pt.system).numpy(),
-                                   np.asarray(qct.rollout(v0, a, dts, pj.system)), atol=ATOL)
+                                   np.asarray(roll_j(v0, a, dts)), atol=ATOL)
         np.testing.assert_allclose(
             qt.rollout_fidelity(pt.trajectory, pt.system, state_name=name),
             float(qct.rollout_fidelity(pj.trajectory, pj.system, state_name=name)), atol=ATOL)
@@ -125,7 +126,7 @@ def test_state_objective_value_and_gradient_match_jax():
         np.testing.assert_allclose(float(fn(torch.as_tensor(z))), float(tj.fn(zj, {})),
                                    atol=1e-12)
         g_t = torch.func.grad(fn)(torch.as_tensor(z)).numpy()
-        g_j = np.asarray(jax.grad(lambda x: tj.fn(x, {}))(zj))
+        g_j = np.asarray(jax.jit(jax.grad(lambda x: tj.fn(x, {})))(zj))
         np.testing.assert_allclose(g_t, g_j, atol=1e-12)
     assert tt.weight == tj.weight == 1e4
 

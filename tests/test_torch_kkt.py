@@ -50,7 +50,7 @@ def _jax_lanes(args):
 
 
 def _jax_xla(args):
-    return jax.vmap(lambda h, c, a, b, r1, r2: jax_solve_kkt(h, c, a, b, r1, r2, DC))(
+    return jax.jit(jax.vmap(lambda h, c, a, b, r1, r2: jax_solve_kkt(h, c, a, b, r1, r2, DC)))(
         *[jnp.asarray(x) for x in args]
     )
 

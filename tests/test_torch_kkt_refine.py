@@ -89,13 +89,14 @@ def test_resolve_at_two_qubit_stage_size_matches_jax_xla():
     t = [torch.as_tensor(x) for x in (H, C, A, B, rz, rnu)]
     _, _, ok, fac = kl.solve_kkt_lanes(*t, DC, want_factors=True)
     assert bool(ok.all())
-    jfac = jax.vmap(lambda h, c, a, b: jax_factor_kkt(h, c, a, b, DC))(
+    jfac = jax.jit(jax.vmap(lambda h, c, a, b: jax_factor_kkt(h, c, a, b, DC)))(
         *[jnp.asarray(x) for x in (H, C, A, B)]
     )
     _close(fac.G, jfac.G, "G")
     _close(fac.L_Pf, jfac.L_final, "L_Pf")
     ez, enu, _ = kl.resolve_kkt_lanes(fac, torch.as_tensor(rz2), torch.as_tensor(rnu2))
-    jez, jenu, _ = jax.vmap(jax_solve_with_factors)(jfac, jnp.asarray(rz2), jnp.asarray(rnu2))
+    jez, jenu, _ = jax.jit(jax.vmap(jax_solve_with_factors))(jfac, jnp.asarray(rz2),
+                                                              jnp.asarray(rnu2))
     _close(ez, jez, "re-solve dz")
     _close(enu, jenu, "re-solve nu")
 

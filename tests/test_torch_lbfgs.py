@@ -34,7 +34,7 @@ def test_lbfgs_update_and_compact_match_jax():
     S, Y = np.zeros((3, m, n)), np.zeros((3, m, n))
     sty, count, sigma = np.zeros((3, m)), np.zeros(3, np.int32), np.ones(3)
     state_t = [torch.as_tensor(x) for x in (S, Y, sty, count)]
-    jupd, jcomp = jax.vmap(jax_update), jax.vmap(jax_compact)
+    jupd, jcomp = jax.jit(jax.vmap(jax_update)), jax.jit(jax.vmap(jax_compact))
     seen_reject = False
     for step in range(8):
         s = rng.normal(size=(3, n))
@@ -83,5 +83,5 @@ def test_ten_lbfgs_iterations_match_jax():
     np.testing.assert_array_equal(st_t.qn_count.numpy(), np.asarray(st_j.qn_count))
     np.testing.assert_array_equal(st_t.n_iter.numpy(), np.asarray(st_j.n_iter))
     obj_t = solver.funcs.total_cost(st_t.Z).numpy()
-    obj_j = np.asarray(jax.vmap(pj.solver.funcs.total_cost)(st_j.Z))
+    obj_j = np.asarray(jax.jit(jax.vmap(pj.solver.funcs.total_cost))(st_j.Z))
     np.testing.assert_allclose(obj_t, obj_j, rtol=1e-8)

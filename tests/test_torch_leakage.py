@@ -135,8 +135,8 @@ def test_subspace_fidelity_and_gradient_match_jax():
         np.testing.assert_allclose(qt.unitary_fidelity(U, goal.operator, subspace=subspace),
                                    qct.unitary_fidelity(U, goal.operator, subspace=subspace),
                                    atol=ATOL)
-        gj = jax.grad(lambda x: qct.iso_vec_unitary_fidelity(x, jnp.asarray(g),
-                                                             subspace=subspace))(u)
+        gj = jax.jit(jax.grad(lambda x: qct.iso_vec_unitary_fidelity(x, jnp.asarray(g),
+                                                                     subspace=subspace)))(u)
         gt = grad(lambda x: qt.iso_vec_unitary_fidelity(x, torch.as_tensor(g),
                                                          subspace=subspace))(torch.as_tensor(u))
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=ATOL)
@@ -148,7 +148,8 @@ def test_subspace_fidelity_and_gradient_match_jax():
     z = np.asarray(traj.data)[-1] + 0.02 * rng.standard_normal(traj.dim)
     np.testing.assert_allclose(float(fn(torch.as_tensor(z))), float(Jj.fn(z, {})), atol=ATOL)
     np.testing.assert_allclose(hessian(fn)(torch.as_tensor(z)).numpy(),
-                               np.asarray(jax.hessian(lambda x: Jj.fn(x, {}))(z)), atol=1e-9)
+                               np.asarray(jax.jit(jax.hessian(lambda x: Jj.fn(x, {})))(z)),
+                               atol=1e-9)
 
 
 def test_constraint_rows_match_jax():
@@ -170,12 +171,12 @@ def test_constraint_rows_match_jax():
         gt = lambda x: fn(x, torch.tensor(3))  # noqa: E731
         zt = torch.as_tensor(z)
         np.testing.assert_allclose(gt(zt).numpy(), np.asarray(gj(z)), atol=ATOL)
-        np.testing.assert_allclose(jacrev(gt)(zt).numpy(), np.asarray(jax.jacfwd(gj)(z)),
-                                   atol=ATOL)
+        np.testing.assert_allclose(jacrev(gt)(zt).numpy(),
+                                   np.asarray(jax.jit(jax.jacfwd(gj))(z)), atol=ATOL)
         w = rng.uniform(0.5, 2.0, con_j.ineq_dim(traj))
-        np.testing.assert_allclose(hessian(lambda x: (torch.as_tensor(w) * gt(x)).sum())(zt),
-                                   np.asarray(jax.hessian(lambda x: jnp.asarray(w) @ gj(x))(z)),
-                                   atol=ATOL)
+        np.testing.assert_allclose(
+            hessian(lambda x: (torch.as_tensor(w) * gt(x)).sum())(zt),
+            np.asarray(jax.jit(jax.hessian(lambda x: jnp.asarray(w) @ gj(x)))(z)), atol=ATOL)
         # every knot is active, also vectorized over t
         rows = torch.vmap(fn)(torch.as_tensor(np.array(traj.data)), torch.arange(traj.T))
         np.testing.assert_allclose(rows.numpy(), np.stack(

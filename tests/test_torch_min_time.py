@@ -118,10 +118,10 @@ def test_fidelity_constraints_match_jax(kind):
         np.testing.assert_allclose(gt(zt).numpy(), np.asarray(gj(z)), atol=ATOL)
         np.testing.assert_allclose(con_t.ineq(zt, torch.tensor(t), traj).numpy(),
                                    np.asarray(gj(z)), atol=ATOL)
-        np.testing.assert_allclose(jacrev(gt)(zt).numpy(), np.asarray(jax.jacfwd(gj)(z)),
-                                   atol=ATOL)
+        np.testing.assert_allclose(jacrev(gt)(zt).numpy(),
+                                   np.asarray(jax.jit(jax.jacfwd(gj))(z)), atol=ATOL)
         h_t = hessian(lambda x: torch.as_tensor(w) @ gt(x))(zt).numpy()
-        h_j = np.asarray(jax.hessian(lambda x: jnp.asarray(w) @ gj(x))(z))
+        h_j = np.asarray(jax.jit(jax.hessian(lambda x: jnp.asarray(w) @ gj(x)))(z))
         np.testing.assert_allclose(h_t, h_j, atol=ATOL)
     # inactive knots give +1 and no derivative, also vectorized over t
     ts = torch.arange(traj.T)

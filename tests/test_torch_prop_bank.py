@@ -73,7 +73,7 @@ def test_bank_matches_pure_jax_at_two_qubit_width():
     a, dt, Gd, Gs = _inputs(8, 5, 24, seed=1)
     X = (Gd + np.tensordot(a, Gs, axes=1)) * dt[:, None, None]
     dX = Gs[None] * dt[:, None, None, None]
-    ref = jax.vmap(lambda x, dx: jax_pade_poly_frechet(x, dx, None, order=4))(
+    ref = jax.jit(jax.vmap(lambda x, dx: jax_pade_poly_frechet(x, dx, None, order=4)))(
         jnp.asarray(X), jnp.asarray(dX)
     )
     out = pb.prop_bank_reference(*[torch.as_tensor(x) for x in (a, dt, Gd, Gs)],
@@ -86,7 +86,8 @@ def test_exp_bank_matches_pure_jax_at_two_qubit_width():
     a, dt, Gd, Gs = _inputs(8, 5, 24, seed=2)
     X = (Gd + np.tensordot(a, Gs, axes=1)) * dt[:, None, None]
     dX = Gs[None] * dt[:, None, None, None]
-    ref = jax.vmap(lambda x, dx: jax_expm_frechet_bank(x, dx, None, order=8, num_squarings=2))(
+    ref = jax.jit(jax.vmap(
+        lambda x, dx: jax_expm_frechet_bank(x, dx, None, order=8, num_squarings=2)))(
         jnp.asarray(X), jnp.asarray(dX)
     )
     out = pb.prop_bank_reference(*[torch.as_tensor(x) for x in (a, dt, Gd, Gs)],
@@ -106,8 +107,8 @@ def test_exp_bank_second_order_free_dt_matches_pure_jax():
     dX = np.concatenate([Gs[None] * dt[:, None, None, None], G[:, None]], axis=1)
     d2X = np.stack([Gs[k] if l == 2 and k < 2 else np.zeros((4, 4))
                     for k, l in frechet_pairs(3)])
-    ref = jax.vmap(lambda x, dx: jax_expm_frechet_bank(x, dx, jnp.asarray(d2X), order=8,
-                                                       num_squarings=1))(
+    ref = jax.jit(jax.vmap(lambda x, dx: jax_expm_frechet_bank(x, dx, jnp.asarray(d2X), order=8,
+                                                               num_squarings=1)))(
         jnp.asarray(X), jnp.asarray(dX)
     )
     out = pb.prop_bank_reference(*[torch.as_tensor(x) for x in (a, dt, Gd, Gs)],

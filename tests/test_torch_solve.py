@@ -7,6 +7,7 @@ tests/test_analytic.py::TestFusedAssemblyKernel::test_full_solve_fused_matches_u
 Z within 1e-6 after 12 iterations), float64 on the CPU.  Also: the device
 rule, and that the port runs without JAX."""
 
+import functools
 import os
 import pathlib
 import re
@@ -28,6 +29,7 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
+@functools.lru_cache(maxsize=None)  # one build per line search for the whole file
 def _jax_problem(line_search="filter", T=11):
     return qct.UnitarySmoothPulseProblem(
         qct.QuantumSystem(qct.GATES["Z"], [qct.GATES["X"], qct.GATES["Y"]]),
