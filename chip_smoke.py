@@ -144,8 +144,33 @@ Phases, one JSON object per line on stdout:
      control noise, default_rng(5)), 160 iterations after a discarded
      warm-up; an instance counts when the float64 Magnus cost of its
      rollout falls below half its seed's and its float64 fidelity is >=
-     0.989 (fraction >= 0.9); kernels 1 and 5 never launch (the AD route).
-The sweep rows of phases 18, 21, 23, 26 and 28 also give device_ms (a CUDA graph of
+     0.989 (fraction >= 0.9); kernels 1 and 5 never launch (the AD route);
+ 30. kernels, cnot_soc shapes (phase 7's problem with soc=True): the bank
+     and the three sweeps with kept factors on the first iteration, as
+     phase 6, and the first iteration's second-order-correction rhs
+     re-solved on each instance's kept factors by kernel 4 and kernel 3
+     against their plain versions on the same factors;
+ 31. main path, cnot_soc: phase 7's seeds and 80 iterations after a
+     discarded warm-up; the iterations that tried the correction and the
+     instances an iteration that took it; the launches against the
+     prediction from the run's own KKT attempts A and iterations I
+     (kernel 2: A + 1, kernel 4: A + I, kernel 3: 2A + I + 1, the one
+     solve of the multiplier initialisation included); frac@1e-4 >= 0.9;
+ 32. hadamard_gn: phase 4's problem with PiccoloOptions(eval_hessian=False)
+     and quasi_newton="gauss-newton": the bank (first order), kernels 2 and
+     3 on its first iteration, then 48 iterations: a bank launch an
+     iteration, no kernel 1; gate: a median infidelity at most
+     GN_MEDIAN_GATE and the seeds';
+ 33. hadamard_adaptive: phase 4's problem with mu_strategy="adaptive"
+     (kernels 1, 5, 2, 3 as phase 3, on its own first iteration); μ's range
+     over the solve and the filter resets; frac@1e-3 >= AD_GATE;
+ 34. hadamard_watchdog: phase 4's problem with watchdog_trials=3; the
+     activations and rewinds and the instances they touched;
+     frac@1e-4 >= WD_GATE;
+ 35. the live iteration table: a 5-iteration hadamard solve at
+     print_level=5 with stdout captured; its header against the JAX
+     package's and its row count.
+The sweep rows of phases 18, 21, 23, 26, 28 and 30-34 also give device_ms (a CUDA graph of
 the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
 the bank's rows give, beside a call's time (ms, the host's enqueue
@@ -161,6 +186,8 @@ nonzero before the last line.  Without CUDA it exits 1.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -174,6 +201,18 @@ B, T, ITERS = 512, 51, 48
 CX_B, CX_T, CX_DT, CX_ITERS, CX_WARM = 128, 40, 0.3, 80, 3
 KET_T = 50  # ket_exp: B and ITERS as the Hadamard path
 QN_ITERS, QN_AT, NEW_WARM = 300, 8, 3  # hadamard_lbfgs; warm-up of the new paths
+# the solver-mode paths' gates (phases 32-34), from the JAX package's
+# float32 solves of the same problem, seeds and 48 iterations on the CPU
+# (B=16, scripts/solver_modes_gate_jax.py): adaptive μ's fraction at
+# infidelity 1e-3 (0.5625) and the watchdog's at 1e-4 (1.0), each less two
+# instances' share of 16; Gauss-Newton reaches no instance at 1e-3 there
+# (it trails the exact Hessian, JAX tests/test_unitary_smooth_pulse.py:86),
+# so its gate is a median infidelity at most 1.5 times JAX's float32
+# median (0.20936329440805868)
+GN_MEDIAN_GATE, AD_GATE, WD_GATE = 1.5 * 0.20936329440805868, 0.5625 - 0.125, 1.0 - 0.125
+LIVE_ITERS = 5
+LIVE_HEADER = ("iter      objective    inf_pr    inf_du  lg(mu)     ||d||  lg(rg)  alpha_du  "
+               "alpha_pr  ls")
 # float32 tolerances, relative to the largest entry of the plain output:
 # the kernel and its plain version round in different orders (a Horner
 # chain per thread vs batched matmuls; scalar Cholesky loops vs batched
@@ -596,25 +635,13 @@ def main():
             fail(f"the {path} kernel KKT solve failed on the first iteration's lifted system")
 
     # ---- the Hadamard problem -------------------------------------------- #
-    sysq = q.QuantumSystem(q.GATES["Z"], [q.GATES["X"], q.GATES["Y"]])
-    prob = q.UnitarySmoothPulseProblem(
-        sysq, q.GATES["H"], T, 0.2, Q=1e4, R=1e-3,
-        ipopt_options=q.SolverOptions(
-            print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter"
-        ),
-        piccolo_options=q.PiccoloOptions(verbose=False),
-        rng=np.random.default_rng(0),
-    )
-    solver = prob.solver
-    z0 = prob.initial_decision(1)[0]
+    prob = bu.hadamard_problem()
+    solver, sysq = prob.solver, prob.system
     a_sl = prob.trajectory.comp_slice("a")
     dt_sl = prob.trajectory.comp_slice("Δt")
 
     def seeds(seed):
-        rng = np.random.default_rng(seed)
-        Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
-        Z0[:, 1:-1, a_sl] += 0.1 * rng.standard_normal((B, T - 2, a_sl.stop - a_sl.start))
-        return Z0
+        return bu.hadamard_seeds(prob, B, seed)
 
     # ---- 3. kernels on the first Hadamard iteration's inputs -------------- #
     with torch.no_grad():
@@ -707,24 +734,14 @@ def main():
           **{k: v / max(iters, 1) for k, v in counts.items()}})
 
     # ---- the CNOT problem (BASELINE #3), Padé and exponential ------------- #
-    P, kron = q.PAULIS, np.kron
-    sys2 = q.QuantumSystem(0.1 * kron(P["Z"], P["Z"]),
-                           [kron(P["Z"], P["X"]), kron(P["X"], P["I"]), kron(P["Y"], P["I"]),
-                            kron(P["I"], P["X"]), kron(P["I"], P["Y"])])
+    sys2 = bu.su4_system()
 
     def cnot_phases(path, integrator):
         """Phases 6-8 (integrator "pade") or 11-13 ("exponential"): the
         kernels at this path's shapes, the timed B=128 solve with its
         checks, and the first iteration's KKT system against float64.
         Returns (kernel results, launch counts of the timed solve)."""
-        prob2 = q.UnitarySmoothPulseProblem(
-            sys2, q.GATES["CX"], CX_T, CX_DT, Q=1e4, R=1e-3,
-            ipopt_options=q.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2,
-                                          line_search="filter", kkt_backend="lanes"),
-            piccolo_options=q.PiccoloOptions(verbose=False, free_time=False,
-                                             integrator=integrator),
-            rng=np.random.default_rng(7),
-        )
+        prob2 = bu.cnot_problem(integrator)
         solver2 = prob2.solver
         if (solver2.fused_assembly_on, solver2.kkt_refine_n) != (False, 1):
             fail(f"{path} modes {(solver2.fused_assembly_on, solver2.kkt_refine_n)} != (False, 1)")
@@ -922,24 +939,18 @@ def main():
     # ---- the Hadamard problem with other solver modes ---------------------- #
     def had_variant(solver_kw, piccolo_kw):
         """Phase 4's problem with other solver or framework options."""
-        return q.UnitarySmoothPulseProblem(
-            sysq, q.GATES["H"], T, 0.2, Q=1e4, R=1e-3,
-            ipopt_options=q.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2,
-                                          line_search="filter", **solver_kw),
-            piccolo_options=q.PiccoloOptions(verbose=False, **piccolo_kw),
-            rng=np.random.default_rng(0),
-        ).solver
+        return bu.hadamard_problem(piccolo=piccolo_kw, **solver_kw).solver
 
-    def timed_solve(solver_, iters_):
+    def timed_solve(solver_, iters_, callback=None):
         """A discarded warm-up solve of a few iterations, then the timed
-        solve of phase 4's seeds: (result, wall s, launch counts,
-        iterations, KKT attempts)."""
+        solve of phase 4's seeds (with the callback, if given): (result,
+        wall s, launch counts, iterations, KKT attempts)."""
         solver_.solve(seeds(6), max_iter=NEW_WARM)
         torch.cuda.synchronize()
         build.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res_ = solver_.solve(seeds(42), max_iter=iters_)
+        res_ = solver_.solve(seeds(42), max_iter=iters_, callback=callback)
         torch.cuda.synchronize()
         return (res_, time.perf_counter() - t0, dict(build.launch_counts), solver_.last_steps,
                 solver_.kkt_attempts)
@@ -959,7 +970,7 @@ def main():
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
         emit({"phase": "launches_per_iter", "path": path,
               **{k: v / max(iters_, 1) for k, v in counts_.items()}})
-        return fr_
+        return dict(fr_, median_infid=float(np.median(infid_)))
 
     # ---- 14. kernels on the hadamard_lbfgs system with a full memory ------ #
     solverq = had_variant({}, dict(eval_hessian=False))
@@ -1577,6 +1588,241 @@ def main():
     emit({"phase": "launches_per_iter", "path": "robustness",
           **{k: v / max(itrb, 1) for k, v in countsrb.items()}})
 
+    # ---- 30. kernels, and the SOC re-solve, at cnot_soc shapes ------------ #
+    # phase 7's problem with soc=True: every iteration re-solves the
+    # corrected rhs on each instance's kept factors (kernel 4, then 3)
+    probcs = bu.cnot_problem(soc=True)
+    solvercs = probcs.solver
+    modes = (solvercs.soc_on, solvercs.fused_assembly_on, solvercs.kkt_refine_n)
+    if modes != (True, False, 1):
+        fail(f"cnot_soc modes {modes} != (True, False, 1)")
+
+    def seedscs(seed):
+        return probcs.multistart_initial_decisions(CX_B, sigma=0.3,
+                                                   rng=np.random.default_rng(seed))
+
+    with torch.no_grad():
+        stcs = solvercs.init_state(seedscs(7))
+        kkt_cs, aux_cs = solvercs._iteration_pre(stcs)
+        dzcs, _, okcs, dwcs, _, rhocs, faccs = solvercs._solve_kkt_batched(
+            kkt_cs, stcs.delta_w, stcs, False)
+        kkt_cs = [x.contiguous() for x in kkt_cs]
+        realcs = [x.contiguous() for x in solvercs._lifted(kkt_cs, dwcs, None)]
+        resultscs = {"prop_bank": bank_entry(stcs.Z.contiguous(), solvercs.nlp.analytic,
+                                             solvercs.var_scale)}
+        resultscs.update(sweep_entries(realcs, CX_B, CX_T, delta_c, factors=True, device=True))
+        # the first iteration's SOC rhs re-solved on the kept factors by
+        # kernels 4 and 3 and by their plain versions, each against the
+        # float64 re-solve on the same (float32) factors: the first
+        # iteration's factors are near-singular in float32, where the two
+        # orders of rounding differ by more than TOL (phase 8), so, as the
+        # reference phases do, the kernels must be no worse than ten times
+        # the plain version
+        rz_s, rnu_s, grew_s = solvercs._soc_rhs(stcs, aux_cs, dzcs, rhocs, kkt_cs)
+        dzs_k, nus_k, oks_k = kl.resolve_kkt_lanes(faccs, rz_s, rnu_s)
+        f = faccs
+        q_p, dzl_p = kl.rhs_fwd_sweep_reference(f.L_P, f.L_S, f.G, f.C, f.A, rz_s, rnu_s, f.L_Pf)
+        dzs_p, nus_p = kl.bwd_sweep_reference(f.L_P, f.L_S, f.X_A, q_p, f.C, f.A, f.B, rnu_s,
+                                              dzl_p)
+        f64 = [x.double().cpu() for x in f]
+        q_r, dzl_r = kl.rhs_fwd_sweep_reference(f64[0], f64[1], f64[3], f64[5], f64[6],
+                                                rz_s.double().cpu(), rnu_s.double().cpu(),
+                                                f64[4])
+        dzs_r, nus_r = kl.bwd_sweep_reference(f64[0], f64[1], f64[2], q_r, f64[5], f64[6],
+                                              f64[7], rnu_s.double().cpu(), dzl_r)
+        keep = okcs.cpu() & oks_k.cpu()
+        e_soc_k = max(rel_err(dzs_k.cpu(), dzs_r, keep)[1], rel_err(nus_k.cpu(), nus_r, keep)[1])
+        e_soc_p = max(rel_err(dzs_p.cpu(), dzs_r, keep)[1], rel_err(nus_p.cpu(), nus_r, keep)[1])
+    finish(resultscs, bw, f32_peak)
+    shapescs = {"B": CX_B, "T": CX_T, "d": solvercs.nlp.d, "s": solvercs.nlp.s,
+                "dtype": "float32"}
+    for name, r in resultscs.items():
+        emit({"phase": "kernel", "path": "cnot_soc", "name": name,
+              "shapes": r.pop("shapes", shapescs), **r})
+    emit({"phase": "soc_system", "path": "cnot_soc", "kernel_rel_err_vs_f64": e_soc_k,
+          "plain_rel_err_vs_f64": e_soc_p, "compared": int(keep.sum()),
+          "factored": int(okcs.sum()), "theta_grew": int(grew_s.sum())})
+    if not (e_soc_k <= 10 * e_soc_p + 1e-6 and int(keep.sum()) == int(okcs.sum())):
+        fail("the cnot_soc SOC re-solve on the kept factors is less accurate than the plain "
+             "float32 re-solve, or not finite where the factorization succeeded")
+    bad = [n for n, r in resultscs.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the cnot_soc shapes: {bad}")
+
+    # ---- 31. cnot_soc main path ------------------------------------------- #
+    solvercs.solve(seedscs(6), max_iter=CX_WARM)  # discarded warm-up
+    Zcs0 = seedscs(42)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rescs = solvercs.solve(Zcs0, max_iter=CX_ITERS)
+    torch.cuda.synchronize()
+    wallcs = time.perf_counter() - t0
+    countscs = dict(build.launch_counts)
+    itcs, attcs = solvercs.last_steps, solvercs.kkt_attempts
+    Zscs = rescs.Z.double().cpu().numpy()
+    if Zscs.shape != (CX_B, CX_T, solvercs.nlp.d) or not np.isfinite(Zscs).all():
+        fail(f"cnot_soc solution has shape {Zscs.shape} or non-finite values")
+    infidcs = 1.0 - q.batched_rollout_fidelity(
+        Zscs[:, :, probcs.trajectory.comp_slice("a")], np.full((CX_B, CX_T), CX_DT), sys2,
+        probcs.trajectory.goal["Ũ⃗"], probcs.trajectory.initial["Ũ⃗"], device="cuda")
+    frcs = {f"frac_infid_{t}": float(np.mean(infidcs <= float(t)))
+            for t in ("1e-4", "1e-3", "1e-2")}
+    trig = solvercs.mode_events("soc_trigger")
+    taken = solvercs.mode_events("soc_taken")
+    # the prediction, from this run's own attempts and iterations: each
+    # attempt sweeps forward once and backward twice (its refinement pass
+    # re-solves once on its factors), each iteration re-solves the SOC rhs
+    # once, and the multiplier initialisation solves once
+    predicted = {"kkt_fwd_sweep": attcs + 1, "kkt_rhs_fwd_sweep": attcs + itcs,
+                 "kkt_bwd_sweep": 2 * attcs + itcs + 1}
+    emit({"phase": "main_path", "path": "cnot_soc", "batch": CX_B, "T": CX_T,
+          "ipm_iters": itcs, "wall_s": wallcs, "ipm_ms_per_iter": 1e3 * wallcs / max(itcs, 1),
+          "solves_per_s_at_1e-4": CX_B * frcs["frac_infid_1e-4"] / wallcs, **frcs,
+          "best_infid": float(infidcs.min()), "median_infid": float(np.median(infidcs)),
+          "ipm_converged_frac": float(rescs.converged.float().mean()),
+          "launches": countscs, "predicted_launches": predicted, "kkt_attempts": attcs,
+          "kkt_attempts_per_iter": attcs / max(itcs, 1),
+          "soc_trial_iterations": [int(k) for k in np.flatnonzero(trig.any(1))],
+          "soc_taken_per_iteration": [int(x) for x in taken.sum(1)],
+          "soc_taken_instances": int(taken.any(0).sum()),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    emit({"phase": "launches_per_iter", "path": "cnot_soc",
+          **{k: v / max(itcs, 1) for k, v in countscs.items()}})
+    if any(countscs[k] != v for k, v in predicted.items()):
+        fail(f"cnot_soc launches {countscs} != the prediction {predicted}")
+    if countscs["dyn_assembly"] != 0 or countscs["prop_bank"] < itcs:
+        fail(f"cnot_soc: the fused assembly ran, or fewer bank launches than iterations: "
+             f"{countscs}")
+    if frcs["frac_infid_1e-4"] < 0.9:
+        fail(f"cnot_soc frac@1e-4 {frcs['frac_infid_1e-4']} < 0.9")
+
+    def mode_rows(path, solver_, second_order_bank):
+        """The kernels of a Hadamard-mode path on its own first iteration:
+        the fused assembly where it is on, the bank and kernels 2, 3."""
+        with torch.no_grad():
+            st_, _, real_, _ = first_iteration(solver_, seeds(7))
+            an_ = solver_.nlp.analytic
+            rows = {}
+            if solver_.fused_assembly_on:
+                Z_, lam_ = st_.Z.contiguous(), st_.lam.contiguous()
+                k_out = dyn_assembly_cuda(an_, Z_, lam_)
+                r_out = dyn_assembly_reference(an_, Z_, lam_)
+                errs = [rel_err(a, b) for a, b in zip(k_out, r_out)]
+                rows["dyn_assembly"] = dict(results["dyn_assembly"],
+                                            max_abs_err=max(e[0] for e in errs),
+                                            max_rel_err=max(e[1] for e in errs),
+                                            ms=time_ms(lambda: dyn_assembly_cuda(an_, Z_, lam_)),
+                                            plain_ms=time_ms(
+                                                lambda: dyn_assembly_reference(an_, Z_, lam_)))
+                for k in ("bound_ms", "bound_by", "tol", "ok"):
+                    rows["dyn_assembly"].pop(k, None)
+            rows["prop_bank"] = bank_entry(st_.Z.contiguous(), an_, solver_.var_scale,
+                                           second_order=second_order_bank)
+            rows.update(sweep_entries(real_, B, T, delta_c, factors=False, device=True))
+        finish(rows, bw, f32_peak)
+        for name, r in rows.items():
+            emit({"phase": "kernel", "path": path, "name": name,
+                  "shapes": r.pop("shapes", shapes), **r})
+        bad_ = [n for n, r in rows.items() if not r["ok"]]
+        if bad_:
+            fail(f"kernels disagree with their plain versions at the {path} shapes: {bad_}")
+        return rows
+
+    # ---- 32. hadamard_gn: Gauss-Newton Hessians ---------------------------- #
+    solvergn = had_variant(dict(quasi_newton="gauss-newton"), dict(eval_hessian=False))
+    modes = (solvergn.exact_hessian, solvergn.qn_lbfgs, solvergn.fused_assembly_on,
+             solvergn.resto_on, solvergn.kkt_refine_n)
+    if modes != (False, False, False, True, 0):
+        fail(f"hadamard_gn modes {modes} != (False, False, False, True, 0)")
+    resultsgn = mode_rows("hadamard_gn", solvergn, second_order_bank=False)
+    resgn, wallgn, countsgn, itgn, attgn = timed_solve(solvergn, ITERS)
+    frgn = main_path_line("hadamard_gn", resgn, wallgn, countsgn, itgn, attgn)
+    # the bank once for the multiplier initialisation, once an iteration
+    # (and once more for the iteration that found every instance converged)
+    bank_gn = itgn + 1 + int(itgn < ITERS)
+    if countsgn["dyn_assembly"] != 0 or countsgn["prop_bank"] != bank_gn:
+        fail(f"hadamard_gn: kernel 1 launched, or not {bank_gn} bank launches: {countsgn}")
+    if not countsgn["kkt_fwd_sweep"] == countsgn["kkt_bwd_sweep"] == attgn + 1:
+        fail(f"hadamard_gn: sweeps {countsgn} != KKT attempts {attgn} + 1")
+    if countsgn["kkt_rhs_fwd_sweep"] != 0:
+        fail(f"hadamard_gn re-solved through kept factors: {countsgn}")
+    Zseed = seeds(42)
+    seed_infid = float(np.median(1.0 - q.batched_rollout_fidelity(
+        Zseed[:, :, a_sl], Zseed[:, :, dt_sl][:, :, 0], sysq, prob.trajectory.goal["Ũ⃗"],
+        prob.trajectory.initial["Ũ⃗"], device="cuda")))
+    emit({"phase": "gauss_newton", "path": "hadamard_gn", "median_infid": frgn["median_infid"],
+          "median_gate": GN_MEDIAN_GATE, "seed_median_infid": seed_infid})
+    if not frgn["median_infid"] <= min(GN_MEDIAN_GATE, seed_infid):
+        fail(f"hadamard_gn median infidelity {frgn['median_infid']} above the gate "
+             f"{GN_MEDIAN_GATE} or the seeds' {seed_infid}")
+
+    # ---- 33. hadamard_adaptive: the LOQO μ oracle -------------------------- #
+    solverad = had_variant(dict(mu_strategy="adaptive"), {})
+    if not solverad.fused_assembly_on:
+        fail("hadamard_adaptive: the fused assembly is off")
+    resultsad = mode_rows("hadamard_adaptive", solverad, second_order_bank=True)
+    mu_hist = []
+    resad, wallad, countsad, itad, attad = timed_solve(
+        solverad, ITERS, callback=lambda k, st_: mu_hist.append(st_.mu.clone()))
+    mus = torch.stack(mu_hist).cpu().numpy()  # (iterations, B)
+    resets = solverad.mode_events("filter_reset")
+    frad = main_path_line("hadamard_adaptive", resad, wallad, countsad, itad, attad)
+    # μ turns NaN where a bound slack reaches its float32 floor (z/s
+    # overflows; the JAX package's float32 solve does the same): such an
+    # instance stops moving, and is counted here
+    nan_mu = np.isnan(mus).any(0)
+    emit({"phase": "adaptive_mu", "path": "hadamard_adaptive",
+          "mu_min": float(np.nanmin(mus)), "mu_max": float(np.nanmax(mus)),
+          "mu_median_last": float(np.nanmedian(mus[-1])),
+          "mu_nan_instances": int(nan_mu.sum()),
+          "filter_resets": int(resets.sum()),
+          "filter_reset_iterations": int(resets.any(1).sum())})
+    if countsad["dyn_assembly"] < itad or countsad["kkt_rhs_fwd_sweep"] != 0:
+        fail(f"hadamard_adaptive: fewer assembly launches than iterations, or a re-solve: "
+             f"{countsad}")
+    if frad["frac_infid_1e-3"] < AD_GATE:
+        fail(f"hadamard_adaptive frac@1e-3 {frad['frac_infid_1e-3']} < {AD_GATE}")
+
+    # ---- 34. hadamard_watchdog --------------------------------------------- #
+    solverwd = had_variant(dict(watchdog_trials=3), {})
+    if not (solverwd.wd_on and solverwd.fused_assembly_on):
+        fail("hadamard_watchdog: the watchdog or the fused assembly is off")
+    resultswd = mode_rows("hadamard_watchdog", solverwd, second_order_bank=True)
+    reswd, wallwd, countswd, itwd, attwd = timed_solve(solverwd, ITERS)
+    act = solverwd.mode_events("wd_activate").reshape(-1, B)
+    rew = solverwd.mode_events("wd_rewind").reshape(-1, B)
+    frwd = main_path_line("hadamard_watchdog", reswd, wallwd, countswd, itwd, attwd)
+    emit({"phase": "watchdog", "path": "hadamard_watchdog", "activations": int(act.sum()),
+          "rewinds": int(rew.sum()), "instances_activated": [int(i) for i in
+                                                              np.flatnonzero(act.any(0))],
+          "instances_rewound": [int(i) for i in np.flatnonzero(rew.any(0))],
+          "activation_iterations": [int(k) for k in np.flatnonzero(act.any(1))]})
+    if countswd["dyn_assembly"] < itwd or countswd["kkt_rhs_fwd_sweep"] != 0:
+        fail(f"hadamard_watchdog: fewer assembly launches than iterations, or a re-solve: "
+             f"{countswd}")
+    if frwd["frac_infid_1e-4"] < WD_GATE:
+        fail(f"hadamard_watchdog frac@1e-4 {frwd['frac_infid_1e-4']} < {WD_GATE}")
+
+    # ---- 35. the live iteration table (print_level 5) ---------------------- #
+    solverlt = had_variant(dict(print_level=5), {})
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        solverlt.solve(seeds(42), max_iter=LIVE_ITERS)
+    lines = table.getvalue().splitlines()
+    rows_lt = [line.split() for line in lines[1:]]
+    numbers_ok = all(len(r) == 10 and all(np.isfinite(float(x)) for x in r[1:-1] if x != "-")
+                     for r in rows_lt)
+    emit({"phase": "live_table", "path": "hadamard", "header": lines[0] if lines else None,
+          "header_ok": bool(lines) and lines[0] == LIVE_HEADER, "rows": len(rows_lt),
+          "iterations": solverlt.last_steps, "rows_parse": numbers_ok,
+          "last_row": lines[-1] if lines else None})
+    if not (lines and lines[0] == LIVE_HEADER and len(rows_lt) == solverlt.last_steps
+            == LIVE_ITERS and numbers_ok
+            and [int(r[0]) for r in rows_lt] == list(range(LIVE_ITERS))):
+        fail(f"the live iteration table is not as expected: {lines[:2]}, {len(rows_lt)} rows")
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -1594,6 +1840,10 @@ def main():
                 if n.startswith("prop_bank") else ("sampling", n, r, countssa)
                 for n, r in resultssa.items()]
     entries += [("robustness", n, r, countsrb) for n, r in resultsrb.items()]
+    entries += [("cnot_soc", n, r, countscs) for n, r in resultscs.items()]
+    entries += [("hadamard_gn", n, r, countsgn) for n, r in resultsgn.items()]
+    entries += [("hadamard_adaptive", n, r, countsad) for n, r in resultsad.items()]
+    entries += [("hadamard_watchdog", n, r, countswd) for n, r in resultswd.items()]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],

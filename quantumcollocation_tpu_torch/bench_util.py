@@ -1,7 +1,8 @@
 """Seeded KKT blocks, the propagator bank's inputs, CUDA timing, and the
-su4, min_time, leakage, sampling and robustness problems with their seeds
-and float64 checks, shared by chip_smoke.py, profile_step, the build
-comparison (sweep_builds) and the GPU tests."""
+hadamard, cnot, su4, min_time, leakage, sampling and robustness problems
+(the first two also in other solver modes) with their seeds and float64
+checks, shared by chip_smoke.py, profile_step, the build comparison
+(sweep_builds) and the GPU tests."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ import statistics
 import numpy as np
 import torch
 
-__all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "su4_system",
+__all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "hadamard_problem",
+           "hadamard_seeds", "cnot_problem", "su4_system",
            "su4_problem", "min_time_warm", "min_time_problem", "min_time_seeds",
            "leakage_problem", "leakage_seeds", "ZETAS", "zeta_system", "sampling_problem",
            "sampling_plain_problem", "sampling_seeds", "zeta_sweep_fidelity",
@@ -105,7 +107,44 @@ def graph_ms(fn, n=20):
 def _options(**kw):
     from . import SolverOptions
 
-    return SolverOptions(print_level=1, kappa_mu=0.2, line_search="filter", **kw)
+    return SolverOptions(**{**dict(print_level=1, kappa_mu=0.2, line_search="filter"), **kw})
+
+
+def hadamard_problem(device=None, piccolo=None, **solver_options):
+    """BASELINE #1's problem: Z drift, X and Y drives, the H gate, T=51,
+    Δt=0.2 free, Q=1e4, R=1e-3, tol 1e-5, κ_μ 0.2, filter line search, with
+    solver_options (e.g. kkt_backend, mu_strategy, watchdog_trials) and
+    the PiccoloOptions fields in piccolo (e.g. eval_hessian=False)."""
+    from . import GATES, PiccoloOptions, QuantumSystem, UnitarySmoothPulseProblem
+
+    return UnitarySmoothPulseProblem(
+        QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]]), GATES["H"], 51, 0.2, Q=1e4, R=1e-3,
+        ipopt_options=_options(tol=1e-5, **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False, **(piccolo or {})),
+        rng=np.random.default_rng(0), device=device,
+    )
+
+
+def hadamard_seeds(prob, B, seed):
+    """(B, T, d) seeds: the initial decision with 0.1 N(0, 1) noise on the
+    interior controls, drawn from default_rng(seed)."""
+    return _control_noise(prob, B, seed, 0.1)
+
+
+def cnot_problem(integrator="pade", **solver_options):
+    """BASELINE #3's problem: su4_system's two qubits, the CX gate, T=40,
+    Δt=0.3 fixed, Q=1e4, R=1e-3, tol 1e-5, κ_μ 0.2, filter line search,
+    kkt_backend "lanes", the integrator ("pade" or "exponential"), with
+    solver_options (e.g. soc=True).  Its seeds are
+    multistart_initial_decisions(B, sigma=0.3)."""
+    from . import GATES, PiccoloOptions, UnitarySmoothPulseProblem
+
+    return UnitarySmoothPulseProblem(
+        su4_system(), GATES["CX"], 40, 0.3, Q=1e4, R=1e-3,
+        ipopt_options=_options(tol=1e-5, kkt_backend="lanes", **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False, free_time=False, integrator=integrator),
+        rng=np.random.default_rng(7),
+    )
 
 
 def su4_system():
@@ -146,11 +185,12 @@ def min_time_warm(T=51, dt=0.2, device=None):
     )
 
 
-def min_time_problem(warm, final_fidelity=0.99995, D=1000.0):
+def min_time_problem(warm, final_fidelity=0.99995, D=1000.0, **solver_options):
     """BASELINE #2's minimum-time stage on a solved warm stage: the
     free-time trajectory rolled out from the warm controls, the warm
     objective and integrators, the floor and D, tol 1e-6, kkt_backend
-    "lanes".  Returns (problem, duration before)."""
+    "lanes", and solver_options (e.g. soc=True).  Returns (problem,
+    duration before)."""
     from . import GATES, UnitaryMinimumTimeProblem, initialize_unitary_trajectory
 
     T = warm.trajectory.T
@@ -162,7 +202,8 @@ def min_time_problem(warm, final_fidelity=0.99995, D=1000.0):
     prob = UnitaryMinimumTimeProblem(
         traj, warm.system, warm.get_objective(), warm.integrators, [],
         final_fidelity=final_fidelity, D=D,
-        ipopt_options=_options(tol=1e-6, kkt_backend="lanes"), device=warm.device,
+        ipopt_options=_options(tol=1e-6, kkt_backend="lanes", **solver_options),
+        device=warm.device,
     )
     return prob, float(traj.duration())
 

@@ -1,8 +1,8 @@
 """Where one IPM iteration of a main-path solve spends its time.
 
     python -m quantumcollocation_tpu_torch.profile_step
-        [--config hadamard|hadamard_lbfgs|hadamard_scan|cnot|ket_exp|cnot_exp|su4|min_time|
-                  leakage|sampling|robustness]
+        [--config hadamard|hadamard_lbfgs|hadamard_scan|hadamard_gn|cnot|cnot_soc|ket_exp|
+                  cnot_exp|su4|min_time|leakage|sampling|robustness]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -10,10 +10,14 @@ T=51, Q=1e4, R=1e-3, filter line search, seeds = the initial guess plus
 0.1-σ control noise), "hadamard_lbfgs" (hadamard with
 PiccoloOptions(eval_hessian=False): the L-BFGS mode, profiled after 8
 iterations so that its memory is full), "hadamard_scan" (hadamard with
-kkt_backend "lanes_scan"), "ket_exp" (the two-ket transfer |0>->|1>, |1>->|0>
+kkt_backend "lanes_scan"), "hadamard_gn" (hadamard with
+PiccoloOptions(eval_hessian=False) and quasi_newton="gauss-newton": the
+bank first order, no defect curvature), "ket_exp" (the two-ket transfer |0>->|1>, |1>->|0>
 with the exponential integrator, T=50, seeds as hadamard's), "cnot"
 (BASELINE #3: two qubits, fixed Δt=0.3, B=128, T=40, kkt_backend "lanes",
-seeds from multistart_initial_decisions), "cnot_exp" (cnot with the
+seeds from multistart_initial_decisions), "cnot_soc" (cnot with soc=True:
+the second-order correction re-solves on the kept factors every
+iteration, bench_util.cnot_problem), "cnot_exp" (cnot with the
 exponential integrator), "su4" (BASELINE #5: 128 Haar goals x 4 seeds,
 T=33, Δt=0.3 fixed, kkt_backend "lanes", bench_util.su4_problem) or
 "min_time" (BASELINE #2's minimum-time stage, B=512, after its B=1 warm
@@ -50,13 +54,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import bench_util as bu
 from . import (
-    GATES,
     PAULIS,
     PiccoloOptions,
     QuantumStateSmoothPulseProblem,
     QuantumSystem,
     SolverOptions,
-    UnitarySmoothPulseProblem,
     multigoal_initial_decisions,
     random_su,
 )
@@ -64,7 +66,6 @@ from . import (
 
 def build(config, batch):
     """(solver, Z0) of a main-path configuration; batch None = its own."""
-    opts = dict(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter")
     rng = np.random.default_rng(42)
     if config == "su4":
         prob = bu.su4_problem()
@@ -87,41 +88,27 @@ def build(config, batch):
         warm.solve(max_iter=80)
         prob, _ = bu.min_time_problem(warm)
         return prob.solver, bu.min_time_seeds(prob, batch or 512, 42)
-    integrator = "exponential" if config.endswith("_exp") else "pade"
     if config.startswith("cnot"):
-        P, k = PAULIS, np.kron
-        sysq = QuantumSystem(0.1 * k(P["Z"], P["Z"]), [k(P["Z"], P["X"]), k(P["X"], P["I"]),
-                                                      k(P["Y"], P["I"]), k(P["I"], P["X"]),
-                                                      k(P["I"], P["Y"])])
-        prob = UnitarySmoothPulseProblem(
-            sysq, GATES["CX"], 40, 0.3, Q=1e4, R=1e-3,
-            ipopt_options=SolverOptions(kkt_backend="lanes", **opts),
-            piccolo_options=PiccoloOptions(verbose=False, free_time=False,
-                                           integrator=integrator),
-            rng=np.random.default_rng(7),
-        )
+        prob = bu.cnot_problem("exponential" if config == "cnot_exp" else "pade",
+                               soc=config == "cnot_soc")
         return prob.solver, prob.multistart_initial_decisions(batch or 128, sigma=0.3, rng=rng)
-    B = batch or 512
-    if config == "ket_exp":
-        T = 50
-        sysq = QuantumSystem(0.1 * PAULIS["Z"], [PAULIS["X"], PAULIS["Y"]])
-        prob = QuantumStateSmoothPulseProblem(
-            sysq, [[1, 0], [0, 1]], [[0, 1], [1, 0]], T, 0.2, Q=1e4, R=1e-3,
-            ipopt_options=SolverOptions(**opts),
-            piccolo_options=PiccoloOptions(verbose=False, integrator=integrator),
-            rng=np.random.default_rng(1),
-        )
-    else:
-        T = 51
-        sysq = QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]])
-        backend = "lanes_scan" if config == "hadamard_scan" else "xla"
-        prob = UnitarySmoothPulseProblem(
-            sysq, GATES["H"], T, 0.2, Q=1e4, R=1e-3,
-            ipopt_options=SolverOptions(kkt_backend=backend, **opts),
-            piccolo_options=PiccoloOptions(verbose=False,
-                                           eval_hessian=config != "hadamard_lbfgs"),
-            rng=np.random.default_rng(0),
-        )
+    if config.startswith("hadamard"):
+        solver_kw, piccolo = {
+            "hadamard": ({}, {}),
+            "hadamard_lbfgs": ({}, dict(eval_hessian=False)),
+            "hadamard_scan": (dict(kkt_backend="lanes_scan"), {}),
+            "hadamard_gn": (dict(quasi_newton="gauss-newton"), dict(eval_hessian=False)),
+        }[config]
+        prob = bu.hadamard_problem(piccolo=piccolo, **solver_kw)
+        return prob.solver, bu.hadamard_seeds(prob, batch or 512, 42)
+    B, T = batch or 512, 50
+    sysq = QuantumSystem(0.1 * PAULIS["Z"], [PAULIS["X"], PAULIS["Y"]])
+    prob = QuantumStateSmoothPulseProblem(
+        sysq, [[1, 0], [0, 1]], [[0, 1], [1, 0]], T, 0.2, Q=1e4, R=1e-3,
+        ipopt_options=SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter"),
+        piccolo_options=PiccoloOptions(verbose=False, integrator="exponential"),
+        rng=np.random.default_rng(1),
+    )
     z0 = prob.initial_decision(1)[0]
     a_sl = prob.trajectory.comp_slice("a")
     Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
@@ -131,9 +118,10 @@ def build(config, batch):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan", "cnot",
-                                         "ket_exp", "cnot_exp", "su4", "min_time", "leakage",
-                                         "sampling", "robustness"),
+    ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan",
+                                         "hadamard_gn", "cnot", "cnot_soc", "ket_exp",
+                                         "cnot_exp", "su4", "min_time", "leakage", "sampling",
+                                         "robustness"),
                     default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)

@@ -50,6 +50,24 @@ freezes).  One iteration (`_step`):
      merit line search, and the update with Ipopt's κ_Σ safeguard on the
      bound duals and w.
 
+The solver modes of the JAX package: with soc=True (Ipopt A-5.1) every
+attempt keeps its factors, merged per instance like dz, so each
+instance's second-order correction re-solves on the factors of its own
+accepted attempt: the corrected defect rhs at the full
+fraction-to-boundary step goes through the rhs-only forward sweep and the
+backward sweep once for the whole batch every iteration, and the line
+search takes the corrected step where it wins on merit (inert, with a
+note, on lanes_scan and under L-BFGS, which keep no factors).  The
+watchdog (watchdog_trials > 0, filter line search) takes the full step
+where the filter rejects every trial, up to watchdog_trials times, then
+rewinds to its snapshot and cools down for 3 iterations.
+quasi_newton="gauss-newton" with eval_hessian=False drops the defect
+curvature (the bank runs first order, the AD route skips its -λ·∇²F
+passes) and keeps the exact cost Hessians.  mu_strategy="adaptive" sets μ
+by the LOQO centrality oracle every iteration, within [0.01μ, 10μ] and
+[tol/10, mu_max], and resets the filter only on a 10x drop.  print_level
+>= 5 prints the live iteration table of instance 0.
+
 The JAX solve is one lax.while_loop on the device.  Here the loop runs in
 Python; each iteration synchronizes with the host once, to read "did every
 factorization succeed" and "had every instance converged" together (a
@@ -58,14 +76,14 @@ candidates in one batched pass and picks the first acceptable one per
 instance, which gives the sequential loop's result without a host read per
 trial.
 
-Not ported yet (the solver raises NotImplementedError): second-order
-correction, Gauss-Newton Hessians, the watchdog, adaptive μ, and the
+Not ported yet (the solver raises NotImplementedError): the
 cyclic-reduction KKT backend.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -109,6 +127,15 @@ class IPMState:
     flt_phi: Any = None
     flt_ptr: Any = None  # (B,) ring pointer
     theta_ref: Any = None  # (B,) max(1, theta_0)
+    # watchdog (None unless watchdog_trials > 0 with the filter line search)
+    wd_count: Any = None  # (B,) int32 non-monotone steps taken in a row
+    wd_cool: Any = None  # (B,) int32 iterations left of the cool-down
+    wd_Z: Any = None  # the snapshot: the iterate before the excursion
+    wd_lam: Any = None
+    wd_sig: Any = None
+    wd_w: Any = None
+    wd_zl: Any = None
+    wd_zu: Any = None
     # limited-memory BFGS (None unless quasi_newton == "lbfgs")
     qn_S: Any = None  # (B, mem, T*d) step history (chronological)
     qn_Y: Any = None  # (B, mem, T*d) Lagrangian-gradient differences
@@ -189,25 +216,29 @@ class InteriorPointSolver:
         o = options or SolverOptions()
         self.options = o
         self.exact_hessian = exact_hessian
-        unsupported = {
-            "eval_hessian=False with quasi_newton='gauss-newton'": (
-                not exact_hessian and o.quasi_newton != "lbfgs"
-            ),
-            "mu_strategy='adaptive'": o.mu_strategy != "monotone",
-            "soc=True": bool(o.soc),
-            "watchdog_trials > 0": o.watchdog_trials > 0,
-            f"kkt_backend={o.kkt_backend!r}": o.kkt_backend == "cr",
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError("not ported yet: " + ", ".join(bad))
-        self.qn_lbfgs = not exact_hessian
+        if o.kkt_backend == "cr":
+            raise NotImplementedError("not ported yet: kkt_backend='cr'")
+        # without an exact Hessian: L-BFGS, or Gauss-Newton (the exact cost
+        # Hessians without the defect curvature)
+        self.qn_lbfgs = not exact_hessian and o.quasi_newton == "lbfgs"
         self.scan = o.kkt_backend == "lanes_scan"
         if self.qn_lbfgs and self.scan:
             raise ValueError(
                 "kkt_backend='lanes_scan' (the per-knot backend) supports exact Hessians "
                 "only; use kkt_backend='lanes' or 'xla' with quasi_newton='lbfgs'"
             )
+        if o.soc and (self.scan or self.qn_lbfgs):
+            # the JAX package's note, word for word
+            print(
+                "[qct] note: soc=True is inert with "
+                f"kkt_backend={o.kkt_backend!r}"
+                + (" + quasi_newton='lbfgs'" if self.qn_lbfgs else "")
+                + " (no reusable KKT factors); steps fall back to the "
+                "plain filter/merit line search"
+            )
+        # second-order correction on each instance's kept factors
+        self.soc_on = bool(o.soc) and not (self.scan or self.qn_lbfgs)
+        self.wd_on = o.watchdog_trials > 0 and o.line_search == "filter"
         # L-BFGS: no restoration, and no refinement (the SMW-combined step
         # keeps no factors), as in JAX
         self.resto_on = bool(o.restoration) and not self.qn_lbfgs
@@ -230,6 +261,8 @@ class InteriorPointSolver:
         if self.qn_lbfgs:
             self.kkt_refine_n = 0
         self.kkt_attempts = 0  # KKT attempts since the last solve began
+        # per-iteration events of the solver modes (mode_events)
+        self.mode_log = {}
         # instance rows of those attempts, and those that ran lifted (a
         # device count, read when wanted)
         self.kkt_attempt_rows, self.kkt_lifted_rows = 0, 0
@@ -325,6 +358,7 @@ class InteriorPointSolver:
         lam = torch.where(_col(_bmax(lam.abs()) > 1e3, 3), torch.zeros_like(lam), lam)
 
         zeros = lambda: Z.new_zeros(Bt)  # noqa: E731
+        zl0, zu0 = has_lb.expand_as(Z).clone(), has_ub.expand_as(Z).clone()
         izeros = lambda: torch.zeros(Bt, dtype=torch.int32, device=self.device)  # noqa: E731
         extra = {}
         if o.line_search == "filter":
@@ -334,6 +368,12 @@ class InteriorPointSolver:
                 flt_phi=Z.new_full((Bt, o.filter_size), float("inf")),
                 flt_ptr=izeros(),
                 theta_ref=torch.clamp_min(theta0, 1.0),
+            )
+        if self.wd_on:
+            extra.update(
+                wd_count=izeros(), wd_cool=izeros(),
+                wd_Z=Z.clone(), wd_lam=lam.clone(), wd_sig=sig.clone(), wd_w=w.clone(),
+                wd_zl=zl0.clone(), wd_zu=zu0.clone(),
             )
         if self.qn_lbfgs:
             mem, n = o.lbfgs_memory, nlp.T * nlp.d
@@ -354,7 +394,7 @@ class InteriorPointSolver:
             )
         return IPMState(
             Z=Z, lam=lam, sig=sig, w=w,
-            zl=has_lb.expand_as(Z).clone(), zu=has_ub.expand_as(Z).clone(),
+            zl=zl0, zu=zu0,
             mu=mu0, delta_w=zeros(),
             converged=torch.zeros(Bt, dtype=torch.bool, device=self.device),
             n_iter=izeros(), kkt_err=Z.new_full((Bt,), float("inf")),
@@ -446,6 +486,7 @@ class InteriorPointSolver:
             res_ls = _bmax((gother - jt_blocks(A_m, B_m, nu_ls)).abs())
             good = ok_ls & (E_pr <= o.recalc_y_feas_tol) & (res_ls < res_cur)
             lam = torch.where(_col(good, 3), nu_ls, lam)
+        # the defect curvature -λ·∇²F: none under Gauss-Newton or L-BFGS
         if not self.fused_assembly_on and self.exact_hessian:
             Hc, Cc = (self.funcs.defect_curvature(Z, lam) if an is None
                       else an.defect_curvature(lam, dyn_aux))
@@ -475,14 +516,33 @@ class InteriorPointSolver:
         E0 = torch.maximum(torch.maximum(E_dual, E_pr), E_comp0)
         now_converged = E0 <= o.tol
 
-        # monotone (Fiacco-McCormick) barrier update
-        E_mu = torch.maximum(torch.maximum(E_dual, E_pr), comp_err(mu))
-        mu_new = torch.where(
-            E_mu <= o.kappa_epsilon * mu,
-            torch.clamp_min(torch.minimum(o.kappa_mu * mu, mu**o.theta_mu), o.tol / 10.0),
-            mu,
-        )
-        mu_changed = mu_new != mu
+        n_comp = self._n_bounds + T * m
+        if o.mu_strategy == "adaptive" and n_comp > 0:
+            # LOQO centrality oracle: μ = σ·avg(comp), σ = 0.1 min(0.05
+            # (1-ξ)/ξ, 2)³, ξ = min(comp)/avg(comp), held to [0.01μ, 10μ]
+            # an iteration and to [tol/10, mu_max]
+            inf = torch.full_like(Z, float("inf"))
+            csum = _bsum(sl * zl * has_lb) + _bsum(su * zu * has_ub) + _bsum(sig * w)
+            cmin = torch.minimum(-_bmax(-torch.where(has_lb > 0, sl * zl, inf)),
+                                 -_bmax(-torch.where(has_ub > 0, su * zu, inf)))
+            if m > 0:
+                cmin = torch.minimum(cmin, -_bmax(-sig * w))
+            avg = csum / n_comp
+            xi = torch.clamp(cmin / torch.clamp_min(avg, 1e-300), 1e-12, 1.0)
+            mu_loqo = 0.1 * torch.clamp_max(0.05 * (1.0 - xi) / xi, 2.0) ** 3 * avg
+            mu_loqo = torch.minimum(torch.maximum(mu_loqo, 1e-2 * mu), 1e1 * mu)
+            mu_new = torch.clamp(mu_loqo, o.tol / 10.0, o.mu_max)
+        else:
+            # monotone (Fiacco-McCormick) barrier update
+            E_mu = torch.maximum(torch.maximum(E_dual, E_pr), comp_err(mu))
+            mu_new = torch.where(
+                E_mu <= o.kappa_epsilon * mu,
+                torch.clamp_min(torch.minimum(o.kappa_mu * mu, mu**o.theta_mu), o.tol / 10.0),
+                mu,
+            )
+        # the oracle moves μ every iteration: reset the filter only on a
+        # 10x drop
+        mu_changed = mu_new < 0.1 * mu if o.mu_strategy == "adaptive" else mu_new != mu
         if self.resto_on:
             mu_changed = mu_changed | resto_flip
         mu = mu_new
@@ -509,8 +569,9 @@ class InteriorPointSolver:
             C = Z.new_zeros(Bt, T - 1, nlp.d, nlp.d)
         else:
             H, C = self.funcs.cost_hess(Z, w)
-            H = H + Hc
-            C = C + Cc
+            if self.exact_hessian:
+                H = H + Hc
+                C = C + Cc
         if self.resto_on:
             ir4 = _col(in_resto, 4)
             H = torch.where(ir4, torch.diag_embed(o.resto_zeta * Dr2), H)
@@ -630,12 +691,16 @@ class InteriorPointSolver:
         lowrank = (U, M) of the L-BFGS Hessian; rho0 (B,) the lift scale,
         engaged from attempt kkt_aug_start, and on a warm-started δ_w > 0
         first attempt.  Returns None when every instance had already
-        converged on entry, else (dz, dλ, ok, δ_w used, new δ_w, ρ used)."""
+        converged on entry, else (dz, dλ, ok, δ_w used, new δ_w, ρ used,
+        the kept factors of each instance's accepted attempt (soc only,
+        else None))."""
         o = self.options
         kkt_in = [x.contiguous() for x in kkt_in]
         H, C, A, Bj, rz, rnu = kkt_in
         aug = self.kkt_aug_on and rho0 is not None
         n_ref = max(self.kkt_refine_n, int(aug))
+        keep = self.soc_on and lowrank is None
+        fac_acc = None
         Bt = H.shape[0]
         ok = torch.zeros(Bt, dtype=torch.bool, device=self.device)
         dz = torch.zeros_like(rz)
@@ -683,7 +748,7 @@ class InteriorPointSolver:
                 dz2, nu2, ok2 = self._lbfgs_solve(Hreg, C_in, A, Bj, rz_in, rnu, *lowrank)
             else:
                 dz2, nu2, ok2, *fac = solve_kkt_lanes(
-                    Hreg, C_in, A, Bj, rz_in, rnu, o.delta_c, want_factors=n_ref > 0
+                    Hreg, C_in, A, Bj, rz_in, rnu, o.delta_c, want_factors=n_ref > 0 or keep
                 )
 
                 def resolve(r1, r2, fac=fac):
@@ -693,6 +758,14 @@ class InteriorPointSolver:
                                         rho=rho, n_pass=n_ref)
             dz = torch.where(_col(ok, 3), dz, dz2)
             nu = torch.where(_col(ok, 3), nu, nu2)
+            if keep and fac_acc is None:
+                fac_acc = fac[0]
+            elif keep:
+                # each instance keeps the factors of the attempt it accepts
+                fac_acc = fac[0]._replace(**{
+                    name: torch.where(_col(ok, new.ndim), getattr(fac_acc, name), new)
+                    for name, new in zip(("L_P", "L_S", "X_A", "G", "L_Pf", "C"), fac[0][:6])
+                })
             dw_used = torch.where(ok, dw_used, dw_next)
             rho_used = torch.where(ok, rho_used, 0.0 if rho is None else rho)
             ok = ok | ok2
@@ -709,7 +782,42 @@ class InteriorPointSolver:
         delta_w_new = torch.where(dw_used > 0, dw_used, delta_w0)
         dz = torch.where(_col(ok, 3), dz, torch.zeros_like(dz))
         dlam = -torch.where(_col(ok, 3), nu, torch.zeros_like(nu))
-        return dz, dlam, ok, dw_used, delta_w_new, rho_used
+        return dz, dlam, ok, dw_used, delta_w_new, rho_used, fac_acc
+
+    def _soc_rhs(self, st: IPMState, aux: _Aux, dz, rho_used, kkt_in):
+        """The second-order correction's right-hand side (Ipopt A-5.1), per
+        instance: the corrected defect rhs at the full fraction-to-boundary
+        step, rnu = -(a·F + F(Z + a·dz)), and whether the violation grew
+        (θ(Z + a·dz) >= κ_soc θ(Z), the slacks' rows included).  Where the
+        accepted factorization was lifted the rhs becomes rz + ρJᵀrnu; with
+        δ_c > 0 that transform is exact only to O(ρδ_c), which the line
+        search guards (the corrected step is taken only where it wins on
+        merit).  Returns (rz, rnu, θ grew)."""
+        o, f = self.options, self.funcs
+        dsig, _, _, _, a_pri, _ = self._dir_quants(st, aux, dz)
+        a3 = _col(a_pri, 3)
+        Z1 = st.Z + a3 * dz
+        F1 = f.defects(Z1)
+        theta0, theta1 = _bsum(aux.F.abs()), _bsum(F1.abs())
+        if self.nlp.m > 0:
+            theta0 = theta0 + _bsum((aux.g - st.sig).abs())
+            theta1 = theta1 + _bsum((f.ineqs(Z1) - (st.sig + a3 * dsig)).abs())
+        rnu = -(a3 * aux.F + F1)
+        rz = kkt_in[4]
+        if self.kkt_aug_on:
+            rz = rz + _col(rho_used, 3) * jt_blocks(kkt_in[2], kkt_in[3], rnu)
+        return rz.contiguous(), rnu.contiguous(), theta1 >= o.kappa_soc * theta0
+
+    def _soc_step(self, st: IPMState, aux: _Aux, dz, ok, fac, rho_used, kkt_in):
+        """The batched second-order correction: its rhs (_soc_rhs)
+        re-solved once for the whole batch on each instance's kept factors
+        (kernel 4, then kernel 3).  ok_c holds only where the instance's
+        factorization succeeded: a failed one leaves NaN in the kernels'
+        factors (and in JAX's), but finite values in the plain version's.
+        Returns (dz_c, ν_c, ok_c, θ grew)."""
+        rz, rnu, theta_grew = self._soc_rhs(st, aux, dz, rho_used, kkt_in)
+        dz_c, nu_c, ok_c = resolve_kkt_lanes(fac, rz, rnu)
+        return dz_c, nu_c, ok_c & ok, theta_grew
 
     # ------------------------------------------------------------------ #
     def _line_search(self, st: IPMState, aux: _Aux, dz, dlam, dsig, dw_ineq, a_pri):
@@ -718,7 +826,9 @@ class InteriorPointSolver:
         α_k = a_pri 2^-k are evaluated in one batched pass; per instance
         the first acceptable one wins, else the best-merit candidate
         (restoration-phase fallback) — the result of the sequential
-        loop."""
+        loop.  Returns (α, trials, accepted, the filter's new fields, the
+        merit at α (the least of the candidates where none was accepted),
+        the merit m0 at the iterate, and merit(Z, σ) for other points)."""
         o, f = self.options, self.funcs
         Z, mu, sig = st.Z, aux.mu, st.sig
         Bt, T, d = Z.shape
@@ -806,26 +916,28 @@ class InteriorPointSolver:
                     do_aug, (st.flt_ptr + 1) % o.filter_size, st.flt_ptr
                 ).to(torch.int32),
             )
-        return alpha, k_ls, accepted, flt
+        # the sequential loop's merit at α: the accepted candidate's, else
+        # the least over all candidates (NaN if one is NaN)
+        m_alpha = torch.where(accepted, mval.gather(1, k_first[:, None])[:, 0], mval.amin(1))
 
-    def _iteration_post(self, st: IPMState, aux: _Aux, dz, dlam, ok, dw_used, delta_w):
-        o = self.options
-        Z, lam, zl, zu = st.Z, aux.lam, st.zl, st.zu
-        sig, w = st.sig, st.w
-        has_lb, has_ub, free = self._has_lb, self._has_ub, self._free
-        mu, tau = aux.mu, aux.tau
-        mu3 = _col(mu, 3)
-        now_converged = aux.now_converged
-        acc_count = st.acc_count
-        if o.acceptable_iter > 0:
-            acc_count = torch.where(aux.E0 <= o.acceptable_tol, acc_count + 1, 0).to(torch.int32)
-            now_converged = now_converged | (acc_count >= o.acceptable_iter)
+        def merit(Zc, sigc):
+            th_, ph_ = theta_phi(Zc, f.defects(Zc), f.ineqs(Zc), sigc, aux.in_resto,
+                                 aux.resto_zR, mu)
+            return ph_ + nu_pen * th_
 
-        # bound-dual directions and fraction-to-boundary steps
-        zero = torch.zeros_like(Z)
+        return alpha, k_ls, accepted, flt, m_alpha, m0, merit
+
+    def _dir_quants(self, st: IPMState, aux: _Aux, dz):
+        """The slack, inequality-dual and bound-dual directions of a primal
+        direction dz and its fraction-to-boundary steps (shared by the
+        Newton step and the second-order correction): (dσ, dw, dzl, dzu,
+        a_pri, a_dual)."""
+        has_lb, has_ub = self._has_lb, self._has_ub
+        sig, w, zl, zu = st.sig, st.w, st.zl, st.zu
+        mu3, tau3 = _col(aux.mu, 3), _col(aux.tau, 3)
+        zero = torch.zeros_like(dz)
         dzl = torch.where(has_lb > 0, mu3 / aux.sl - zl - aux.Sig_l * dz, zero)
         dzu = torch.where(has_ub > 0, mu3 / aux.su - zu + aux.Sig_u * dz, zero)
-        tau3 = _col(tau, 3)
 
         def max_step(val, dval, mask):
             neg = (dval < 0) & (mask > 0)
@@ -834,19 +946,71 @@ class InteriorPointSolver:
 
         a_pri = torch.minimum(max_step(aux.sl, dz, has_lb), max_step(aux.su, -dz, has_ub))
         a_dual = torch.minimum(max_step(zl, dzl, has_lb), max_step(zu, dzu, has_ub))
-        if self.nlp.m > 0:
-            # slack and inequality-dual directions, and their
-            # fraction-to-boundary steps
-            dsig = torch.einsum("btmi,bti->btm", aux.Jg, dz) + (aux.g - sig)
-            dw_ineq = mu3 / sig - w - (w / sig) * dsig
-            ones = torch.ones_like(sig)
-            a_pri = torch.minimum(a_pri, max_step(sig, dsig, ones))
-            a_dual = torch.minimum(a_dual, max_step(w, dw_ineq, ones))
-        else:
-            dsig, dw_ineq = sig, w
+        if self.nlp.m == 0:
+            return sig, w, dzl, dzu, a_pri, a_dual
+        # slack and inequality-dual directions, and their
+        # fraction-to-boundary steps
+        dsig = torch.einsum("btmi,bti->btm", aux.Jg, dz) + (aux.g - sig)
+        dw_ineq = mu3 / sig - w - (w / sig) * dsig
+        ones = torch.ones_like(sig)
+        a_pri = torch.minimum(a_pri, max_step(sig, dsig, ones))
+        a_dual = torch.minimum(a_dual, max_step(w, dw_ineq, ones))
+        return dsig, dw_ineq, dzl, dzu, a_pri, a_dual
 
-        alpha, k_ls, accepted, flt = self._line_search(st, aux, dz, dlam, dsig, dw_ineq, a_pri)
+    def _iteration_post(self, st: IPMState, aux: _Aux, dz, dlam, ok, dw_used, delta_w,
+                        soc=None):
+        o = self.options
+        Z, lam, zl, zu = st.Z, aux.lam, st.zl, st.zu
+        sig, w = st.sig, st.w
+        has_lb, has_ub, free = self._has_lb, self._has_ub, self._free
+        mu = aux.mu
+        mu3 = _col(mu, 3)
+        now_converged = aux.now_converged
+        acc_count = st.acc_count
+        if o.acceptable_iter > 0:
+            acc_count = torch.where(aux.E0 <= o.acceptable_tol, acc_count + 1, 0).to(torch.int32)
+            now_converged = now_converged | (acc_count >= o.acceptable_iter)
+
+        dsig, dw_ineq, dzl, dzu, a_pri, a_dual = self._dir_quants(st, aux, dz)
+        alpha, k_ls, accepted, flt, m_alpha, m0, merit = self._line_search(
+            st, aux, dz, dlam, dsig, dw_ineq, a_pri)
         alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
+
+        soc_used = torch.zeros_like(ok)
+        if soc is not None:
+            # the corrected step where the full step was cut or rejected,
+            # the violation grew, and the correction wins on merit
+            dz_c, nu_c, ok_c, theta_grew = soc
+            dz_c = dz_c * free
+            dsig_c, dw_c, dzl_c, dzu_c, a_p_c, a_d_c = self._dir_quants(st, aux, dz_c)
+            m_soc = merit(Z + _col(a_p_c, 3) * dz_c, sig + _col(a_p_c, 3) * dsig_c)
+            trigger = ((alpha < a_pri) | ~accepted) & theta_grew
+            soc_used = (trigger & ok_c & (m_soc <= m0 - 1e-12 * m0.abs())
+                        & (m_soc < m_alpha))
+            u3 = _col(soc_used, 3)
+            dz, dlam = torch.where(u3, dz_c, dz), torch.where(u3, -nu_c, dlam)
+            dsig, dw_ineq = torch.where(u3, dsig_c, dsig), torch.where(u3, dw_c, dw_ineq)
+            dzl, dzu = torch.where(u3, dzl_c, dzl), torch.where(u3, dzu_c, dzu)
+            alpha = torch.where(soc_used, a_p_c, alpha)
+            a_dual = torch.where(soc_used, a_d_c, a_dual)
+            self._log("soc_trigger", trigger)
+            self._log("soc_taken", soc_used)
+
+        if self.wd_on:
+            # where the filter rejects every trial, the full step anyway,
+            # up to watchdog_trials times in a row; then rewind to the
+            # snapshot and cool down
+            acc_eff = accepted | soc_used
+            active = st.wd_count > 0
+            failed = ~acc_eff & ok
+            activate = ~active & failed & (st.wd_cool <= 0)
+            succeed = active & acc_eff
+            go_on = active & failed & (st.wd_count < o.watchdog_trials)
+            rewind = active & failed & (st.wd_count >= o.watchdog_trials)
+            alpha = torch.where(activate | go_on, a_pri, alpha)
+            wd_count = torch.where(activate, 1, torch.where(
+                go_on, st.wd_count + 1, torch.where(succeed | rewind, 0, st.wd_count)))
+            wd_cool = torch.where(rewind, 3, torch.clamp_min(st.wd_cool - 1, 0))
 
         upd = ~st.converged & ~now_converged
         scale = upd.to(Z.dtype)
@@ -880,12 +1044,34 @@ class InteriorPointSolver:
                 upd3, torch.clamp(w_new, mu3 / (ks * sig_new), ks * mu3 / sig_new), w
             )
         extra = dict(flt)
+        upd_qn = upd
+        if self.wd_on:
+            # the snapshot of the pre-step iterate on activation; a rewind
+            # restores it as it was
+            snap, rw = activate & upd, rewind & upd
+            self._log("wd_activate", snap)
+            self._log("wd_rewind", rw)
+            extra.update(
+                wd_count=torch.where(upd, wd_count, st.wd_count).to(torch.int32),
+                wd_cool=torch.where(upd, wd_cool, st.wd_cool).to(torch.int32),
+            )
+            for name, cur in (("Z", Z), ("lam", lam), ("sig", sig), ("w", w), ("zl", zl),
+                              ("zu", zu)):
+                old = getattr(st, "wd_" + name)
+                extra["wd_" + name] = torch.where(_col(snap, cur.ndim), cur, old)
+            Z_new, lam_new, sig_new, w_new, zl_new, zu_new = (
+                torch.where(_col(rw, new.ndim), old, new) for new, old in (
+                    (Z_new, st.wd_Z), (lam_new, st.wd_lam), (sig_new, st.wd_sig),
+                    (w_new, st.wd_w), (zl_new, st.wd_zl), (zu_new, st.wd_zu)))
+            # a rewind keeps the memory from before the excursion
+            upd_qn = upd & ~rw
         if self.qn_lbfgs:
             # keep the memory updated in _iteration_pre, and advance prevZ to
             # the current iterate (the next pair spans this transition)
             extra.update(
-                {k: torch.where(_col(upd, v.ndim), v, getattr(st, k)) for k, v in aux.qn.items()},
-                qn_prevZ=torch.where(upd3, Z, st.qn_prevZ),
+                {k: torch.where(_col(upd_qn, v.ndim), v, getattr(st, k))
+                 for k, v in aux.qn.items()},
+                qn_prevZ=torch.where(_col(upd_qn, 3), Z, st.qn_prevZ),
             )
         if self.resto_on:
             extra.update(
@@ -915,7 +1101,29 @@ class InteriorPointSolver:
                                           aux.lowrank, aux.rho0)
             if out is None:
                 return None
-            return self._iteration_post(st, aux, *out[:5])
+            dz, dlam, ok, dw_used, delta_w, rho_used, fac = out
+            soc = (self._soc_step(st, aux, dz, ok, fac, rho_used, kkt_in) if self.soc_on
+                   else None)
+            if self.options.mu_strategy == "adaptive":
+                self._log("filter_reset", aux.mu_changed)
+            return self._iteration_post(st, aux, dz, dlam, ok, dw_used, delta_w, soc)
+
+    def _log(self, name, value):
+        self.mode_log.setdefault(name, []).append(value)
+
+    def mode_events(self, name):
+        """The per-iteration record of one of the solver modes' events
+        since the last solve began, as a numpy array (iterations, ...):
+        "soc_trigger", "soc_taken" (per instance: the correction was tried,
+        taken) with soc; "wd_activate",
+        "wd_rewind" with the watchdog; "filter_reset" with adaptive μ.
+        Empty when the mode is off."""
+        vals = self.mode_log.get(name, [])
+        if not vals:
+            return np.zeros((0,))
+        if torch.is_tensor(vals[0]):
+            return torch.stack(vals).cpu().numpy()
+        return np.asarray(vals)
 
     def step(self, st: IPMState) -> IPMState:
         """One batched IPM iteration."""
@@ -930,12 +1138,22 @@ class InteriorPointSolver:
         self.last_steps = 0  # iterations the last solve ran
         self.kkt_attempts = 0
         self.kkt_attempt_rows, self.kkt_lifted_rows = 0, 0
+        self.mode_log = {}
+        live_table = self.options.print_level >= 5
+        if live_table:
+            print(
+                f"{'iter':>4} {'objective':>14} {'inf_pr':>9} "
+                f"{'inf_du':>9} {'lg(mu)':>7} {'||d||':>9} "
+                f"{'lg(rg)':>7} {'alpha_du':>9} {'alpha_pr':>9} {'ls':>3}"
+            )
         for k in range(max_iter):
             new = self._step(state, True)
             if new is None:
                 break
             state = new
             self.last_steps += 1
+            if live_table:
+                self._print_iter_row(k, state)
             if callback is not None and callback(k, state) is False:
                 break
         with torch.no_grad():
@@ -944,4 +1162,33 @@ class InteriorPointSolver:
             Z=state.Z * self._v if self.options.nlp_scaling else state.Z,
             lam=state.lam, converged=state.converged, n_iter=state.n_iter,
             kkt_err=state.kkt_err, mu=state.mu, objective=obj,
+        )
+
+    def iteration_stats(self, state: IPMState, b: int = 0) -> dict:
+        """Instance b's numbers of an iteration, as Ipopt's intermediate
+        callback gives them; the objective in problem units."""
+        with torch.no_grad():
+            obj = self.funcs.total_cost(state.Z[b:b + 1])
+        row = torch.stack([obj[0] / self.obj_scale] + [
+            getattr(state, k)[b].to(obj.dtype)
+            for k in ("n_iter", "e_pr", "e_dual", "mu", "d_norm", "reg_dw", "alpha_du",
+                      "alpha", "ls_k")]).tolist()
+        keys = ("obj_value", "iter_count", "inf_pr", "inf_du", "mu", "d_norm",
+                "regularization_size", "alpha_du", "alpha_pr", "ls_trials")
+        out = dict(zip(keys, row))
+        out["iter_count"], out["ls_trials"] = int(out["iter_count"]), int(out["ls_trials"])
+        return out
+
+    def _print_iter_row(self, k: int, state: IPMState):
+        """A row of the live iteration table (print_level >= 5), the JAX
+        package's format: instance 0."""
+        st = self.iteration_stats(state, 0)
+        rg = st["regularization_size"]
+        lg_rg = f"{math.log10(rg):7.1f}" if rg > 0 else "      -"
+        mu = max(st["mu"], 1e-300)
+        print(
+            f"{k:>4} {st['obj_value']:>14.7e} {st['inf_pr']:>9.2e} "
+            f"{st['inf_du']:>9.2e} {math.log10(mu):>7.1f} "
+            f"{st['d_norm']:>9.2e} {lg_rg} {st['alpha_du']:>9.2e} "
+            f"{st['alpha_pr']:>9.2e} {st['ls_trials']:>3}"
         )

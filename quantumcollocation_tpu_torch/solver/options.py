@@ -27,10 +27,13 @@ matmul_precision and eval_precision are kept for surface parity and
 ignored: the port's precision is its dtype (float32 on the GPU with TF32
 off, float64 on the CPU).  kkt_backend "xla" and "lanes" both take the
 fused sweep kernels (the name only feeds the kkt_refine rule);
-"lanes_scan" takes the per-knot step kernels.  quasi_newton "lbfgs" (with
-PiccoloOptions(eval_hessian=False)) runs the L-BFGS mode, lbfgs_memory
-pairs.  The solver raises NotImplementedError for options whose code paths
-are not ported yet (see InteriorPointSolver).
+"lanes_scan" takes the per-knot step kernels.  With
+PiccoloOptions(eval_hessian=False), quasi_newton "lbfgs" runs the L-BFGS
+mode (lbfgs_memory pairs) and "gauss-newton" keeps the exact cost
+Hessians without the defect curvature, which also keeps the fused assembly
+off (it computes the curvature).  soc, watchdog_trials, mu_strategy
+"adaptive" and print_level >= 5 run as in the JAX solver; kkt_backend "cr"
+is not ported yet (the solver raises NotImplementedError).
 """
 
 from __future__ import annotations

@@ -817,6 +817,50 @@ def test_min_time_path_solves_on_the_card(cuda):
     assert int(s.kkt_lifted_rows) > 0 and dur0 > 0
 
 
+def test_soc_resolve_on_lifted_min_time_factors(cuda):
+    # the second-order correction on min_time's first lifted system (m = 1,
+    # ρ > 0): its rhs rz + ρJᵀrnu re-solved on the kept factors by kernel
+    # 4 then kernel 3, once each, against the plain re-solve on the same
+    # factors.  These factors are far from float32's reach (PERF.md: the
+    # first lifted min_time system), where the float32 re-solve of either
+    # order carries errors of order one, so both are held, as chip_smoke.py's
+    # reference phases hold solves, against the float64 re-solve on the
+    # same (float32) factors: the kernels no worse than ten times the plain
+    # version
+    warm = bu.min_time_warm(T=11)
+    warm.solve(max_iter=10)
+    mt, _ = bu.min_time_problem(warm, soc=True)
+    s = mt.solver
+    assert s.soc_on and s.kkt_aug_on and s.nlp.m == 1
+    st = s.init_state(bu.min_time_seeds(mt, 8, 0))
+    kkt, aux = s._iteration_pre(st)
+    dz, _, ok, _, _, rho, fac = s._solve_kkt_batched(kkt, st.delta_w, st, False, None, aux.rho0)
+    kkt = [x.contiguous() for x in kkt]
+    rz, rnu, _ = s._soc_rhs(st, aux, dz, rho, kkt)
+    assert bool(ok.all()) and bool((rho > 0).all())
+    assert (rz - kkt[4]).abs().max() > 0  # the lifted branch of the rhs
+    build.reset_launch_counts()
+    dz_k, nu_k, ok_k = kl.resolve_kkt_lanes(fac, rz, rnu)
+    torch.cuda.synchronize()
+    c = dict(build.launch_counts)
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_bwd_sweep"] == 1 and c["kkt_fwd_sweep"] == 0, c
+    q_p, dzl_p = kl.rhs_fwd_sweep_reference(fac.L_P, fac.L_S, fac.G, fac.C, fac.A, rz, rnu,
+                                            fac.L_Pf)
+    plain = kl.bwd_sweep_reference(fac.L_P, fac.L_S, fac.X_A, q_p, fac.C, fac.A, fac.B, rnu,
+                                   dzl_p)
+    f64 = [x.double() for x in fac[:6]] + [fac.A.double(), fac.B.double()]
+    L_P, L_S, X_A, G, L_Pf, C, A, Bj = f64
+    q_r, dzl_r = kl.rhs_fwd_sweep_reference(L_P, L_S, G, C, A, rz.double(), rnu.double(), L_Pf)
+    ref = kl.bwd_sweep_reference(L_P, L_S, X_A, q_r, C, A, Bj, rnu.double(), dzl_r)
+    assert bool(ok_k.all())
+    for k_out, p_out, r_out in zip((dz_k, nu_k), plain, ref):
+        assert torch.isfinite(k_out).all()
+        scale = max(1.0, r_out.abs().max().item())
+        e_k = (k_out.double() - r_out).abs().max().item() / scale
+        e_p = (p_out.double() - r_out).abs().max().item() / scale
+        assert e_k <= 10 * e_p + 1e-6, (e_k, e_p)
+
+
 @pytest.mark.parametrize("M", [1, 301, 9984])
 def test_bank_kernel_at_the_leakage_shape(cuda, monkeypatch, M):
     # kernel 5 as the leakage path runs it every iteration: the transmon's

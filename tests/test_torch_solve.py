@@ -104,19 +104,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    # soc, the watchdog, the cr backend, Gauss-Newton Hessians and the
-    # free-phase minimum-time floor are not ported
-    cases = [
-        (dict(soc=True), {}), (dict(watchdog_trials=1), {}), (dict(kkt_backend="cr"), {}),
-        (dict(quasi_newton="gauss-newton"), dict(eval_hessian=False)),
-    ]
-    for solver_kw, piccolo_kw in cases:
-        with pytest.raises(NotImplementedError):
-            qt.UnitarySmoothPulseProblem(
-                qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
-                ipopt_options=qt.SolverOptions(**solver_kw),
-                piccolo_options=qt.PiccoloOptions(verbose=False, **piccolo_kw), device="cpu",
-            )
+    # the cr backend and the free-phase minimum-time floor are not ported
+    with pytest.raises(NotImplementedError, match="kkt_backend='cr'"):
+        qt.UnitarySmoothPulseProblem(
+            qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
+            ipopt_options=qt.SolverOptions(kkt_backend="cr"),
+            piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
+        )
     base = qt.UnitarySmoothPulseProblem(
         qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
         piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
