@@ -169,7 +169,36 @@ Phases, one JSON object per line on stdout:
      frac@1e-4 >= WD_GATE;
  35. the live iteration table: a 5-iteration hadamard solve at
      print_level=5 with stdout captured; its header against the JAX
-     package's and its row count.
+     package's and its row count;
+ 36. kernels at the free-phase shapes: kernel 1 on the free_phase
+     problem's first iteration (a drift-free qubit, an X drive alone, the Y
+     gate up to a global Z phase ϕ: d=13, s=11, the global column last)
+     and on the bang-bang problem with that phase (d=16, s=11, m=4), each
+     writing into outputs poisoned with NaN, against its plain version, its
+     global column's A, B, Hc and Cc entries zero; kernels 2 and 3 on the
+     free_phase first iteration's blocks as phase 3; the bank first order
+     (the multiplier initialisation);
+ 37. main path, free_phase (JAX tests/test_free_phase_chaining.py: T=31,
+     Δt=0.2 free, tol 1e-6, rng 1234): B=512 seeds (0.1-σ control noise
+     and π N(0, 1) phases), 60 iterations after a discarded warm-up; the
+     float64 rollout fidelity up to each instance's phase (frac at
+     infidelity <= 1e-3 >= FP_GATE) and without it (median below 0.5: the
+     phase carries the gate); launches against the prediction from the
+     run's KKT attempts A (kernels 2 and 3: A + 1, kernel 4: 0);
+ 38. free_phase_min_time: a B=1 free_phase warm stage (60 iterations), then
+     UnitaryMinimumTimeProblem(phase_operators=[Z], D=50, floor 0.98): m=1,
+     lifted; kernel 1 and kernels 2, 4, 3 on its first iteration's lifted
+     blocks as phase 21 (and against float64 as phase 24); B=512 seeds
+     (1e-4 control noise), 100 iterations; success = free-phase fidelity
+     >= 0.98 - 1e-4 and a duration below 0.9 of the warm stage's
+     (fraction >= FPM_GATE); launches: kernel 2 A + 1, kernel 4 A, kernel
+     3 2A + 1;
+ 39. bang_bang (JAX tests/test_problem_templates.py: Z drift, X and Y
+     drives, H, T=51, R_bang_bang 0.5, da_bound 1.0): d=15, s=11, m=4
+     (L1 slack rows on da), lifted; kernels as phase 38; B=512 seeds
+     (0.1-σ control noise), 40 iterations; frac at infidelity <= BB_BAR
+     >= BB_GATE, and the median count of |da| > 5e-2 no larger than the
+     hadamard path's (phase 4); launches as phase 38.
 The sweep rows of phases 18, 21, 23, 26, 28 and 30-34 also give device_ms (a CUDA graph of
 the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
@@ -211,6 +240,12 @@ QN_ITERS, QN_AT, NEW_WARM = 300, 8, 3  # hadamard_lbfgs; warm-up of the new path
 # median (0.20936329440805868)
 GN_MEDIAN_GATE, AD_GATE, WD_GATE = 1.5 * 0.20936329440805868, 0.5625 - 0.125, 1.0 - 0.125
 LIVE_ITERS = 5
+# the free-phase and bang-bang paths (phases 36-39): T, iterations, the
+# minimum-time floor (the JAX package's free-phase tests), and their gates,
+# from the JAX package's float32 solves of the same problems and seeds on the
+# CPU (B=16, scripts/free_phase_gate_jax.py)
+FP_T, FP_ITERS, FPM_ITERS, FPM_FLOOR, BB_T, BB_ITERS = 31, 60, 100, 0.98, 51, 40
+FP_GATE, FPM_GATE, BB_BAR, BB_GATE = 0.9, 0.9, 1e-1, 0.9
 LIVE_HEADER = ("iter      objective    inf_pr    inf_du  lg(mu)     ||d||  lg(rg)  alpha_du  "
                "alpha_pr  ls")
 # float32 tolerances, relative to the largest entry of the plain output:
@@ -633,6 +668,75 @@ def main():
         if (line["compared_unlifted"] < line["ok_f64_unlifted"] - Bn // 100
                 or not np.isfinite(line["refine1_rel_err_vs_f64_unlifted"])):
             fail(f"the {path} kernel KKT solve failed on the first iteration's lifted system")
+
+    def assembly_entry(an, Z, lam, global_slices=None):
+        """Kernel 1 against its plain version, writing into memory poisoned
+        with NaN just before the call (the caching allocator hands the freed
+        poisoned blocks back); with global_slices, also whether the global
+        columns of A, B, Hc and Cc came out zero."""
+        Z, lam = Z.contiguous(), lam.contiguous()
+        r_out = dyn_assembly_reference(an, Z, lam)
+        dyn_assembly_cuda(an, Z, lam)  # packs the argument table first
+        torch.cuda.synchronize()
+        poison = [torch.full(x.shape, float("nan"), device=Z.device) for x in r_out]
+        ptrs = sorted(x.data_ptr() for x in poison)
+        del poison
+        k_out = dyn_assembly_cuda(an, Z, lam)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(k_out, r_out)]
+        (g,) = an.groups
+        n_, na_, free_ = g.G_drift.shape[0], g.G_drives.shape[0], g.dt_col is not None
+        Bn, Tn, d_ = Z.shape
+        n_pairs = Bn * (Tn - 1)
+        row = dict(
+            max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+            poisoned=sorted(x.data_ptr() for x in k_out) == ptrs,
+            finite=all(bool(torch.isfinite(x).all()) for x in k_out),
+            ms=time_ms(lambda: dyn_assembly_cuda(an, Z, lam)),
+            device_ms=graph_ms(lambda: dyn_assembly_cuda(an, Z, lam)),
+            plain_ms=time_ms(lambda: dyn_assembly_reference(an, Z, lam)),
+            bytes=F4 * (Z.numel() + lam.numel() + sum(x.numel() for x in k_out)),
+            flops=(bank_counts(n_pairs, n_, na_, free_, g.order)[1]
+                   + n_pairs * sum(member_flops(n_, na_ + int(free_), mb[4], False)
+                                   for mb in g.members)),
+            launch=assembly_config(an),
+            shapes={"B": Bn, "T": Tn, "d": d_, "s": an.s, "dtype": "float32"},
+        )
+        if global_slices:
+            _, A_, B_, Hc_, Cc_ = k_out
+            cols = [c for gs, ge in global_slices.values() for c in range(gs, ge)]
+            row["global_cols"] = cols
+            row["global_cols_zero"] = row["poisoned"] and row["finite"] and all(
+                bool((x[..., cols] == 0).all()) for x in (A_, B_, Hc_, Cc_)) and all(
+                bool((x[..., cols, :] == 0).all()) for x in (Hc_, Cc_))
+        return row
+
+    def timed_run(solver_, Z0_, iters_):
+        """The timed solve of Z0_: (result, wall s, launch counts,
+        iterations, KKT attempts)."""
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0_ = time.perf_counter()
+        res_ = solver_.solve(Z0_, max_iter=iters_)
+        torch.cuda.synchronize()
+        return (res_, time.perf_counter() - t0_, dict(build.launch_counts), solver_.last_steps,
+                solver_.kkt_attempts)
+
+    def checked_solution(path, res_, shape):
+        """The solution as float64 numpy; fails unless finite of shape."""
+        Zs_ = res_.Z.double().cpu().numpy()
+        if Zs_.shape != shape or not np.isfinite(Zs_).all():
+            fail(f"{path} solution has shape {Zs_.shape} or non-finite values")
+        return Zs_
+
+    def launch_fields(counts_, predicted_, iters_, att_):
+        """The main-path line's launch fields: the counts, the prediction
+        from the run's own KKT attempts, attempts per iteration, peak memory."""
+        return {"launches": counts_, "predicted_launches": predicted_, "kkt_attempts": att_,
+                "kkt_attempts_per_iter": att_ / max(iters_, 1),
+                "launches_per_iter": {k: v / max(iters_, 1) for k, v in counts_.items()},
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
     # ---- the Hadamard problem -------------------------------------------- #
     prob = bu.hadamard_problem()
@@ -1823,6 +1927,207 @@ def main():
             and [int(r[0]) for r in rows_lt] == list(range(LIVE_ITERS))):
         fail(f"the live iteration table is not as expected: {lines[:2]}, {len(rows_lt)} rows")
 
+    # ---- 36. kernels at the free-phase shapes ------------------------------ #
+    probfp = bu.free_phase_problem(T=FP_T)
+    solverfp = probfp.solver
+    nfp = solverfp.nlp
+    modes = (solverfp.fused_assembly_on, solverfp.kkt_aug_on, nfp.d, nfp.s, nfp.m)
+    if modes != (True, False, 13, 11, 0):
+        fail(f"free_phase modes (fused, lift, d, s, m) {modes} != (True, False, 13, 11, 0)")
+    probbp = bu.bang_bang_problem(T=BB_T, phase=True)
+    nbp = probbp.solver.nlp
+    if (nbp.d, nbp.s, nbp.m, probbp.solver.fused_assembly_on) != (16, 11, 4, True):
+        fail(f"bang_bang with a phase: (d, s, m, fused) {(nbp.d, nbp.s, nbp.m)}")
+
+    def seedsfp(seed):
+        return bu.free_phase_seeds(probfp, B, seed)
+
+    with torch.no_grad():
+        stfp, _, realfp, _ = first_iteration(solverfp, seedsfp(7))
+        resultsfp = {"dyn_assembly": assembly_entry(nfp.analytic, stfp.Z, stfp.lam,
+                                                    probfp.global_slices)}
+        resultsfp.update(sweep_entries(realfp, B, FP_T, delta_c, factors=False, device=True))
+        # the multiplier initialisation's Jacobian (first order); the
+        # iterations run kernel 1
+        resultsfp["prop_bank"] = bank_entry(stfp.Z.contiguous(), nfp.analytic,
+                                            solverfp.var_scale, second_order=False)
+        stbp = probbp.solver.init_state(bu.hadamard_seeds(probbp, B, 7))
+        row_bp = {"dyn_assembly": assembly_entry(nbp.analytic, stbp.Z, stbp.lam,
+                                                 probbp.global_slices)}
+    finish(resultsfp, bw, f32_peak)
+    finish(row_bp, bw, f32_peak)
+    shapesfp = {"B": B, "T": FP_T, "d": nfp.d, "s": nfp.s, "m": 0, "dtype": "float32"}
+    for path, rows in (("free_phase", resultsfp), ("bang_bang_phase", row_bp)):
+        for name, r in rows.items():
+            emit({"phase": "kernel", "path": path, "name": name,
+                  "shapes": r.pop("shapes", shapesfp), **r})
+    bad = [n for rows in (resultsfp, row_bp) for n, r in rows.items()
+           if not r["ok"] or not r.get("global_cols_zero", True)]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the free-phase shapes, or kernel 1 "
+             f"left a global column unwritten: {bad}")
+
+    # ---- 37. free_phase main path ------------------------------------------ #
+    solverfp.solve(seedsfp(6), max_iter=NEW_WARM)  # discarded warm-up
+    Zfp0 = seedsfp(42)
+    resfp, wallfp, countsfp, itfp, attfp = timed_run(solverfp, Zfp0, FP_ITERS)
+    Zsfp = checked_solution("free_phase", resfp, (B, FP_T, nfp.d))
+    fidfp, plainfp = bu.free_phase_fidelity(probfp, Zsfp, probfp.system, device="cuda")
+    frfp = {f"frac_infid_{t}": float(np.mean(1.0 - fidfp <= float(t)))
+            for t in ("1e-4", "1e-3", "1e-2")}
+    gfp = probfp.global_slices["ϕ"][0]
+    predfp = {"kkt_fwd_sweep": attfp + 1, "kkt_bwd_sweep": attfp + 1, "kkt_rhs_fwd_sweep": 0}
+    emit({"phase": "main_path", "path": "free_phase", "batch": B, "T": FP_T, "ipm_iters": itfp,
+          "wall_s": wallfp, "ipm_ms_per_iter": 1e3 * wallfp / max(itfp, 1),
+          "solves_per_s_at_1e-3": B * frfp["frac_infid_1e-3"] / wallfp, **frfp,
+          "gate_frac_infid_1e-3": FP_GATE, "median_infid": float(np.median(1.0 - fidfp)),
+          "median_plain_fid": float(np.median(plainfp)),
+          "phase_quantiles": [float(x) for x in np.quantile(Zsfp[:, -1, gfp],
+                                                            [0.0, 0.25, 0.5, 0.75, 1.0])],
+          "ipm_converged_frac": float(resfp.converged.float().mean()),
+          **launch_fields(countsfp, predfp, itfp, attfp)})
+    emit({"phase": "launches_per_iter", "path": "free_phase",
+          **{k: v / max(itfp, 1) for k, v in countsfp.items()}})
+    if any(countsfp[k] != v for k, v in predfp.items()):
+        fail(f"free_phase launches {countsfp} != the prediction {predfp}")
+    if countsfp["dyn_assembly"] < itfp or countsfp["prop_bank"] < 1:
+        fail(f"free_phase: fewer assembly launches than iterations, or no bank: {countsfp}")
+    if frfp["frac_infid_1e-3"] < FP_GATE or not np.median(plainfp) < 0.5:
+        fail(f"free_phase frac@1e-3 {frfp['frac_infid_1e-3']} < {FP_GATE}, or median plain "
+             f"fidelity {np.median(plainfp)} >= 0.5")
+
+    # ---- 38. free_phase_min_time: a B=1 warm stage, then B=512 lifted ------- #
+    warmf = bu.free_phase_problem(T=FP_T)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    warmf.solve(max_iter=FP_ITERS)
+    torch.cuda.synchronize()
+    wallfw = time.perf_counter() - t0
+    countsfw = dict(build.launch_counts)
+    trw = warmf.trajectory
+    fid_fw = float(q.unitary_rollout_fidelity(trw, warmf.system, phases=trw.global_data["ϕ"],
+                                              phase_operators=[q.PAULIS["Z"]]))
+    emit({"phase": "main_path", "path": "free_phase_min_time_warm", "batch": 1, "T": FP_T,
+          "ipm_iters": warmf.solver.last_steps, "wall_s": wallfw,
+          "ipm_ms_per_iter": 1e3 * wallfw / max(warmf.solver.last_steps, 1),
+          "warm_free_phase_fid": fid_fw, "warm_phase": float(trw.global_data["ϕ"][0]),
+          "converged": bool(warmf.result.converged[0]), "launches": countsfw,
+          "kkt_attempts": warmf.solver.kkt_attempts})
+    if not fid_fw > 0.98:
+        fail(f"free_phase_min_time warm stage free-phase fidelity {fid_fw}")
+    mtf, durf0 = bu.free_phase_min_time_problem(warmf)
+    solvermf = mtf.solver
+    nmf = solvermf.nlp
+    modes = (solvermf.fused_assembly_on, solvermf.kkt_aug_on, nmf.d, nmf.s, nmf.m)
+    if modes != (True, True, 13, 11, 1):
+        fail(f"free_phase_min_time modes (fused, lift, d, s, m) {modes} != "
+             f"(True, True, 13, 11, 1)")
+    with torch.no_grad():
+        stmf, kkt_mf, aux_mf, dwmf, _, realmf, lift_mf = lifted_first_iteration(
+            solvermf, bu.min_time_seeds(mtf, B, 7))
+        resultsmf = {"dyn_assembly": assembly_entry(nmf.analytic, stmf.Z, stmf.lam,
+                                                    mtf.global_slices)}
+        resultsmf.update(sweep_entries(realmf, B, FP_T, delta_c, factors=True, lift=lift_mf,
+                                       device=True))
+    finish(resultsmf, bw, f32_peak)
+    shapesmf = {"B": B, "T": FP_T, "d": nmf.d, "s": nmf.s, "m": 1, "dtype": "float32"}
+    for name, r in resultsmf.items():
+        emit({"phase": "kernel", "path": "free_phase_min_time", "name": name,
+              "shapes": r.pop("shapes", shapesmf),
+              **({"lifted": True} if name.startswith("kkt") else {}), **r})
+    bad = [n for n, r in resultsmf.items() if not r["ok"] or not r.get("global_cols_zero", True)]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the free_phase_min_time shapes: "
+             f"{bad}")
+    lifted_reference("free_phase_min_time", solvermf, kkt_mf, aux_mf, dwmf, realmf)
+    solvermf.solve(bu.min_time_seeds(mtf, B, 6), max_iter=NEW_WARM)  # discarded warm-up
+    resmf, wallmf, countsmf, itmf, attmf = timed_run(solvermf, bu.min_time_seeds(mtf, B, 42),
+                                                     FPM_ITERS)
+    Zsmf = checked_solution("free_phase_min_time", resmf, (B, FP_T, nmf.d))
+    fidmf, _ = bu.free_phase_fidelity(mtf, Zsmf, warmf.system, device="cuda")
+    dursmf = Zsmf[:, :-1, mtf.trajectory.comp_slice("Δt")][:, :, 0].sum(1)
+    okmf = (fidmf >= FPM_FLOOR - 1e-4) & (dursmf < 0.9 * durf0)
+    predmf = {"kkt_fwd_sweep": attmf + 1, "kkt_rhs_fwd_sweep": attmf,
+              "kkt_bwd_sweep": 2 * attmf + 1}
+    emit({"phase": "main_path", "path": "free_phase_min_time", "batch": B, "T": FP_T,
+          "ipm_iters": itmf, "wall_s": wallmf, "ipm_ms_per_iter": 1e3 * wallmf / max(itmf, 1),
+          "success_frac": float(okmf.mean()), "gate_success_frac": FPM_GATE,
+          "solves_per_s_at_success": B * float(okmf.mean()) / wallmf,
+          "frac_fid": float(np.mean(fidmf >= FPM_FLOOR - 1e-4)),
+          "frac_shorter": float(np.mean(dursmf < 0.9 * durf0)), "duration_before": durf0,
+          "median_duration_after": float(np.median(dursmf)), "median_fid": float(np.median(fidmf)),
+          "fid_quantiles": [float(x) for x in np.quantile(fidmf, [0.0, 0.01, 0.1, 0.5, 0.9])],
+          "lifted_attempt_share": (float(solvermf.kkt_lifted_rows)
+                                   / max(solvermf.kkt_attempt_rows, 1)),
+          "ipm_converged_frac": float(resmf.converged.float().mean()),
+          **launch_fields(countsmf, predmf, itmf, attmf)})
+    emit({"phase": "launches_per_iter", "path": "free_phase_min_time",
+          **{k: v / max(itmf, 1) for k, v in countsmf.items()}})
+    if any(countsmf[k] != v for k, v in predmf.items()):
+        fail(f"free_phase_min_time launches {countsmf} != the prediction {predmf}")
+    if countsmf["dyn_assembly"] < itmf or countsmf["prop_bank"] != 1:
+        fail(f"free_phase_min_time: fewer assembly launches than iterations, or not one bank "
+             f"launch: {countsmf}")
+    if float(okmf.mean()) < FPM_GATE:
+        fail(f"free_phase_min_time success_frac {float(okmf.mean())} < {FPM_GATE}")
+
+    # ---- 39. bang_bang ---------------------------------------------------- #
+    probbb = bu.bang_bang_problem(T=BB_T)
+    solverbb = probbb.solver
+    nbb = solverbb.nlp
+    modes = (solverbb.fused_assembly_on, solverbb.kkt_aug_on, nbb.d, nbb.s, nbb.m)
+    if modes != (True, True, 15, 11, 4):
+        fail(f"bang_bang modes (fused, lift, d, s, m) {modes} != (True, True, 15, 11, 4)")
+    with torch.no_grad():
+        stbb, kkt_bb, aux_bb, dwbb, _, realbb, lift_bb = lifted_first_iteration(
+            solverbb, bu.hadamard_seeds(probbb, B, 7))
+        resultsbb = {"dyn_assembly": assembly_entry(nbb.analytic, stbb.Z, stbb.lam)}
+        resultsbb.update(sweep_entries(realbb, B, BB_T, delta_c, factors=True, lift=lift_bb,
+                                       device=True))
+    finish(resultsbb, bw, f32_peak)
+    shapesbb = {"B": B, "T": BB_T, "d": nbb.d, "s": nbb.s, "m": 4, "dtype": "float32"}
+    for name, r in resultsbb.items():
+        emit({"phase": "kernel", "path": "bang_bang", "name": name,
+              "shapes": r.pop("shapes", shapesbb),
+              **({"lifted": True} if name.startswith("kkt") else {}), **r})
+    bad = [n for n, r in resultsbb.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the bang_bang shapes: {bad}")
+    lifted_reference("bang_bang", solverbb, kkt_bb, aux_bb, dwbb, realbb)
+    solverbb.solve(bu.hadamard_seeds(probbb, B, 6), max_iter=NEW_WARM)  # discarded warm-up
+    resbb, wallbb, countsbb, itbb, attbb = timed_run(solverbb, bu.hadamard_seeds(probbb, B, 42),
+                                                     BB_ITERS)
+    Zsbb = checked_solution("bang_bang", resbb, (B, BB_T, nbb.d))
+    trb = probbb.trajectory
+    infidbb = 1.0 - q.batched_rollout_fidelity(
+        Zsbb[:, :, trb.comp_slice("a")], Zsbb[:, :, trb.comp_slice("Δt")][:, :, 0],
+        probbb.system, trb.goal["Ũ⃗"], trb.initial["Ũ⃗"], device="cuda")
+    frbb = {f"frac_infid_{t}": float(np.mean(infidbb <= float(t)))
+            for t in ("1e-4", "1e-3", "1e-2", "1e-1")}
+    da_bb = float(np.median(bu.da_count(Zsbb, trb.comp_slice("da"))))
+    da_had = float(np.median(bu.da_count(res.Z.cpu().numpy(), prob.trajectory.comp_slice("da"))))
+    predbb = {"kkt_fwd_sweep": attbb + 1, "kkt_rhs_fwd_sweep": attbb,
+              "kkt_bwd_sweep": 2 * attbb + 1}
+    emit({"phase": "main_path", "path": "bang_bang", "batch": B, "T": BB_T, "ipm_iters": itbb,
+          "wall_s": wallbb, "ipm_ms_per_iter": 1e3 * wallbb / max(itbb, 1), **frbb,
+          "gate": {"bar": BB_BAR, "frac": BB_GATE},
+          "solves_per_s_at_bar": B * float(np.mean(infidbb <= BB_BAR)) / wallbb,
+          "median_infid": float(np.median(infidbb)), "median_da_count": da_bb,
+          "hadamard_median_da_count": da_had,
+          "ipm_converged_frac": float(resbb.converged.float().mean()),
+          **launch_fields(countsbb, predbb, itbb, attbb)})
+    emit({"phase": "launches_per_iter", "path": "bang_bang",
+          **{k: v / max(itbb, 1) for k, v in countsbb.items()}})
+    if any(countsbb[k] != v for k, v in predbb.items()):
+        fail(f"bang_bang launches {countsbb} != the prediction {predbb}")
+    if countsbb["dyn_assembly"] < itbb or countsbb["prop_bank"] != 1:
+        fail(f"bang_bang: fewer assembly launches than iterations, or not one bank launch: "
+             f"{countsbb}")
+    if float(np.mean(infidbb <= BB_BAR)) < BB_GATE or da_bb > da_had:
+        fail(f"bang_bang frac@{BB_BAR} {float(np.mean(infidbb <= BB_BAR))} < {BB_GATE}, or "
+             f"its median |da| > 5e-2 count {da_bb} above the hadamard path's {da_had}")
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -1844,6 +2149,9 @@ def main():
     entries += [("hadamard_gn", n, r, countsgn) for n, r in resultsgn.items()]
     entries += [("hadamard_adaptive", n, r, countsad) for n, r in resultsad.items()]
     entries += [("hadamard_watchdog", n, r, countswd) for n, r in resultswd.items()]
+    entries += [("free_phase", n, r, countsfp) for n, r in resultsfp.items()]
+    entries += [("free_phase_min_time", n, r, countsmf) for n, r in resultsmf.items()]
+    entries += [("bang_bang", n, r, countsbb) for n, r in resultsbb.items()]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],

@@ -1,8 +1,9 @@
 """Seeded KKT blocks, the propagator bank's inputs, CUDA timing, and the
-hadamard, cnot, su4, min_time, leakage, sampling and robustness problems
-(the first two also in other solver modes) with their seeds and float64
-checks, shared by chip_smoke.py, profile_step, the build comparison
-(sweep_builds) and the GPU tests."""
+hadamard, cnot, su4, min_time, leakage, sampling, robustness, free_phase,
+free_phase_min_time and bang_bang problems (the first two also in other
+solver modes) with their seeds and float64 checks, shared by
+chip_smoke.py, profile_step, the build comparison (sweep_builds) and the
+GPU tests."""
 
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ __all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "had
            "su4_problem", "min_time_warm", "min_time_problem", "min_time_seeds",
            "leakage_problem", "leakage_seeds", "ZETAS", "zeta_system", "sampling_problem",
            "sampling_plain_problem", "sampling_seeds", "zeta_sweep_fidelity",
-           "robustness_problem", "robustness_seeds", "magnus_cost"]
+           "robustness_problem", "robustness_seeds", "magnus_cost", "free_phase_problem",
+           "free_phase_seeds", "free_phase_min_time_problem", "free_phase_fidelity",
+           "bang_bang_problem", "da_count"]
 
 
 def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
@@ -366,3 +369,89 @@ def magnus_cost(a, dts, system, H_error, U_init, device="cpu"):
     M = torch.einsum("bt,btji,jk,btkl->bil", dt.to(U.dtype), U.conj(), H, U)
     total = dt.sum(1)
     return ((M.abs() ** 2).sum((-1, -2)) / (N * total) ** 2).cpu().numpy()
+
+
+def free_phase_problem(T=31, dt=0.2, device=None, **solver_options):
+    """The JAX package's free-phase test (tests/test_free_phase_chaining.py):
+    a drift-free qubit with an X drive alone, the Y gate up to a global Z
+    phase (phase_operators [Z], the global variable ϕ), T=31, Δt=0.2
+    free, Q=100, R=1e-2, tol 1e-6, rng default_rng(1234), with
+    solver_options (e.g. dtype)."""
+    from . import GATES, PAULIS, PiccoloOptions, QuantumSystem, SolverOptions
+    from . import UnitarySmoothPulseProblem
+
+    return UnitarySmoothPulseProblem(
+        QuantumSystem([PAULIS["X"]]), GATES["Y"], T, dt, phase_operators=[PAULIS["Z"]],
+        ipopt_options=SolverOptions(print_level=1, tol=1e-6, **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(1234),
+        device=device,
+    )
+
+
+def free_phase_seeds(prob, B, seed):
+    """(B, T, d_aug) seeds: the initial decision with 0.1 N(0, 1) noise on
+    the interior controls, then each instance's phases π N(0, 1) at the
+    last knot, both drawn from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    z0 = prob.initial_decision(1)[0]
+    a_sl = prob.trajectory.comp_slice("a")
+    Z0 = np.broadcast_to(z0, (B, *z0.shape)).copy()
+    T = z0.shape[0]
+    Z0[:, 1:-1, a_sl] += 0.1 * rng.standard_normal((B, T - 2, a_sl.stop - a_sl.start))
+    for gs, ge in prob.global_slices.values():
+        Z0[:, -1, gs:ge] = np.pi * rng.standard_normal((B, ge - gs))
+    return Z0
+
+
+def free_phase_min_time_problem(warm, final_fidelity=0.98, D=50.0):
+    """The JAX free-phase test's chained stage: UnitaryMinimumTimeProblem
+    warm-started from a solved free_phase_problem (its trajectory carries
+    the solved phases), phase_operators [Z], the floor and D.  Returns
+    (problem, duration before)."""
+    from . import PAULIS, UnitaryMinimumTimeProblem
+
+    prob = UnitaryMinimumTimeProblem(warm, phase_operators=[PAULIS["Z"]], D=D,
+                                     final_fidelity=final_fidelity)
+    return prob, float(warm.trajectory.duration())
+
+
+def free_phase_fidelity(prob, Z, system, device="cpu"):
+    """(up to the phases, plain): two (B,) float64 rollout fidelities of a
+    free-phase problem's solutions Z (B, T, d_aug), the first up to each
+    instance's phases (its last knot's global columns), the second
+    without them."""
+    from . import PAULIS, batched_rollout_fidelity
+
+    traj = prob.trajectory
+    Z = np.asarray(Z, dtype=np.float64)
+    (gs, ge), = prob.global_slices.values()
+    out = {}
+    for key, phases in (("phase", Z[:, -1, gs:ge]), ("plain", None)):
+        out[key] = batched_rollout_fidelity(
+            Z[:, :, traj.comp_slice("a")], Z[:, :, traj.comp_slice("Δt")][:, :, 0], system,
+            traj.goal["Ũ⃗"], traj.initial["Ũ⃗"], phases=phases,
+            phase_operators=None if phases is None else [PAULIS["Z"]], device=device)
+    return out["phase"], out["plain"]
+
+
+def bang_bang_problem(T=51, dt=0.2, phase=False, device=None, **solver_options):
+    """The JAX package's bang-bang template test
+    (tests/test_problem_templates.py): Z drift, X and Y drives, the H
+    gate, T=51, Δt=0.2 free, R_bang_bang=0.5, da_bound 1.0, Q=100,
+    R=1e-2, tol 1e-6, rng default_rng(1234); with phase, also the global
+    Z phase of free_phase_problem."""
+    from . import GATES, PAULIS, PiccoloOptions, QuantumSystem, SolverOptions
+    from . import UnitaryBangBangProblem
+
+    return UnitaryBangBangProblem(
+        QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]]), GATES["H"], T, dt,
+        R_bang_bang=0.5, da_bound=1.0, phase_operators=[PAULIS["Z"]] if phase else None,
+        ipopt_options=SolverOptions(print_level=1, tol=1e-6, **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(1234),
+        device=device,
+    )
+
+
+def da_count(Z, da_slice, threshold=5e-2):
+    """(B,) count of the entries |da| > threshold of each solution."""
+    return (np.abs(np.asarray(Z)[:, :, da_slice]) > threshold).sum(axis=(1, 2))

@@ -16,6 +16,7 @@ __all__ = [
     "pade_numerator_denominator",
     "expm_pade",
     "expm_squaring",
+    "expm_taylor",
     "default_num_squarings",
     "frechet_pairs",
     "pade_poly_frechet",
@@ -74,6 +75,24 @@ def default_num_squarings(norm_bound: float, order: int = 8) -> int:
 def expm_squaring(X, order: int = 8, num_squarings: int = 4):
     """exp(X) by scaling and squaring with a static squaring count."""
     P = expm_pade(X * 2.0 ** (-num_squarings), order=order)
+    for _ in range(num_squarings):
+        P = P @ P
+    return P
+
+
+def expm_taylor(X, degree: int = 18, num_squarings: int = 6):
+    """exp(X) by a degree-`degree` Taylor polynomial (Horner) of X 2^-s,
+    then s squarings: matmuls only, so torch.func's vmap of a Hessian
+    through it stays exact (it has no linear solve, whose batched
+    forward-mode derivative returns NaN for all but the first instance in
+    torch 2.13 on the CPU).  Degree 18 with 6 squarings is within float64
+    rounding of scipy's expm for ||X|| up to 60
+    (scripts/free_phase_expm_probe.py)."""
+    Xs = X * 2.0 ** (-num_squarings)
+    eye = _eye_like(X)
+    P = eye.expand_as(X)
+    for k in range(degree, 0, -1):
+        P = eye + (Xs @ P) / k
     for _ in range(num_squarings):
         P = P @ P
     return P

@@ -11,7 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..quantum.fidelities import iso_fidelity, iso_vec_unitary_fidelity
+from ..quantum.fidelities import (
+    iso_fidelity,
+    iso_vec_unitary_fidelity,
+    iso_vec_unitary_free_phase_fidelity,
+)
 from .expm import expm_squaring
 
 __all__ = [
@@ -72,14 +76,23 @@ def batched_ket_rollout_fidelity(
 
 
 def batched_rollout_fidelity(
-    controls, dts, system, U_goal_iso_vec, U_init_iso_vec, *, subspace=None, device="cpu"
+    controls, dts, system, U_goal_iso_vec, U_init_iso_vec, *, subspace=None, phases=None,
+    phase_operators=None, device="cpu"
 ):
     """Rollout fidelity for a batch: controls (B, T, n_drives), dts (B, T),
-    on the subspace block where one is given.  Returns a (B,) float64
-    numpy array."""
+    on the subspace block where one is given; with phases (B, k) and
+    phase_operators, up to each instance's global phases
+    exp(i Σ_k φ_k G_k).  Returns a (B,) float64 numpy array."""
     Us = unitary_rollout(U_init_iso_vec, controls, dts, system, device=device)
     goal = torch.as_tensor(np.asarray(U_goal_iso_vec), dtype=torch.float64, device=device)
-    return iso_vec_unitary_fidelity(Us[..., -1, :], goal, subspace=subspace).cpu().numpy()
+    if phases is None:
+        fid = iso_vec_unitary_fidelity(Us[..., -1, :], goal, subspace=subspace)
+    else:
+        fid = iso_vec_unitary_free_phase_fidelity(
+            Us[..., -1, :], goal,
+            torch.as_tensor(np.array(phases), dtype=torch.float64, device=device),
+            phase_operators, subspace=subspace)
+    return fid.cpu().numpy()
 
 
 def rollout_fidelity(traj, system, *, state_name="ψ̃", drive_name="a"):
@@ -92,12 +105,15 @@ def rollout_fidelity(traj, system, *, state_name="ψ̃", drive_name="a"):
     )
 
 
-def unitary_rollout_fidelity(traj, system, *, state_name="Ũ⃗", drive_name="a", subspace=None):
+def unitary_rollout_fidelity(traj, system, *, state_name="Ũ⃗", drive_name="a", subspace=None,
+                             phases=None, phase_operators=None):
     """Ground-truth unitary fidelity of a trajectory by rollout (float), on
-    the subspace block where one is given."""
+    the subspace block where one is given; with phases (k,) and
+    phase_operators, up to the global phases exp(i Σ_k φ_k G_k)."""
     return float(
         batched_rollout_fidelity(
             traj[drive_name], traj.get_timesteps(), system,
             traj.goal[state_name], traj.initial[state_name], subspace=subspace,
+            phases=phases, phase_operators=phase_operators,
         )
     )

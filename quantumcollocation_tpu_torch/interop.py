@@ -9,14 +9,18 @@ the Hamiltonians of every propagator integrator's system (one per sampled
 system) and a robustness accumulator's error Hamiltonian, the inequality
 constraints (fidelity floors: class, state name, floor, subspace; L1 slack
 rows: class, names, indices) with m, the MinimumTimeObjective's weight,
-the goals of a multigoal batch, and an embedded goal's subspace and
-levels).  It
+the goals of a multigoal batch, an embedded goal's subspace and levels,
+the global variables (the free phases: their values, name, operators and
+slices of the knot row; each instance's phases sit in Z0's global columns
+at the last knot), and the NLP's (d, s, m), bounds, free mask and z0).  It
 only reads attributes, calls the problem's own methods and calls numpy, so
 it imports nothing of JAX.  The `*_from_arrays` functions build the port's
 problem from those arrays and check that the port derives the same
 integrators, constraints, trajectory and NLP scaling: an exponential
 integrator's squaring count comes from a host-side norm bound, and a port
-that derived another count would build another NLP.  A leakage problem's
+that derived another count would build another NLP.  The check also
+holds the port's NLP dimensions, bounds, free mask and z0 (the global
+columns included) against the source's.  A leakage problem's
 slack components are left out of the port's starting trajectory: its
 L1Regularizer adds them again, and the check holds their initial values
 and place in the layout against the source's.
@@ -30,6 +34,7 @@ import torch
 from .problems.multigoal import UnitaryMultiGoalProblem
 from .problems.quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .problems.quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
+from .problems.unitary_bang_bang import UnitaryBangBangProblem
 from .problems.unitary_minimum_time import UnitaryMinimumTimeProblem
 from .problems.unitary_robustness import UnitaryRobustnessProblem
 from .problems.unitary_sampling import UnitarySamplingProblem
@@ -51,6 +56,7 @@ __all__ = [
     "unitary_multigoal_from_arrays",
     "unitary_sampling_from_arrays",
     "unitary_robustness_from_arrays",
+    "unitary_bang_bang_from_arrays",
 ]
 
 
@@ -92,11 +98,14 @@ def _defect_scale(prob):
     return scaled / np.asarray(prob.nlp.defect(zt, z0[1], 0), dtype=np.float64)
 
 
-def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None) -> dict:
-    """numpy snapshot of a JAX-package QuantumControlProblem; Z0 (B, T, d)
-    replaces the trajectory's broadcast initial decision, goals are those
-    of a multigoal batch, and operator is the problem's EmbeddedOperator
-    goal, if it has one.  The inequality-row scales q are read at knot 0
+def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None,
+                   phase_operators=None) -> dict:
+    """numpy snapshot of a JAX-package QuantumControlProblem; Z0 (B, T,
+    d_aug) replaces the trajectory's broadcast initial decision, goals are
+    those of a multigoal batch, operator is the problem's EmbeddedOperator
+    goal, if it has one, and phase_operators those of its free-phase
+    objective (a free-phase floor carries its own).  The inequality-row
+    scales q are read at knot 0
     as the ratio of the solver's scaled rows to the problem's unscaled
     ones: a final-fidelity row is inactive there (q·1 over 1), an L1 slack
     row is s ∓ v with s = |v| + 1e-3 > 0."""
@@ -109,6 +118,10 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None) 
         / np.asarray(prob.nlp.ineq(np.asarray(prob.nlp.z0)[0], 0), dtype=np.float64)
         if nlp.m > 0 else np.ones(0))
     min_time = [t.weight for t in prob.objective.terms if t.label == "minimum_time"]
+    floors = [c for c in prob.constraints if hasattr(c, "phase_operators")]
+    if phase_operators is None and floors:
+        phase_operators = floors[0].phase_operators
+    raw = prob.nlp
     return {
         "H_drift": np.asarray(prob.system.H_drift),
         "H_drives": np.asarray(prob.system.H_drives),
@@ -142,6 +155,17 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None) 
         "goals": None if goals is None else np.asarray(goals, dtype=complex),
         "subspace": None if operator is None else tuple(int(i) for i in operator.subspace),
         "levels": None if operator is None else int(operator.levels),
+        "global_data": {k: np.asarray(v, dtype=np.float64) for k, v in traj.global_data.items()},
+        "phase_name": next(iter(traj.global_data), None),
+        "phase_operators": (None if phase_operators is None
+                            else np.stack([np.asarray(op, dtype=complex)
+                                           for op in phase_operators])),
+        "global_slices": dict(prob.global_slices),
+        "nlp": {"d": int(raw.d), "s": int(raw.s), "m": int(raw.m),
+                "lb": np.asarray(raw.lb, dtype=np.float64),
+                "ub": np.asarray(raw.ub, dtype=np.float64),
+                "free_mask": np.asarray(raw.free_mask, dtype=bool),
+                "z0": np.asarray(raw.z0, dtype=np.float64)},
     }
 
 
@@ -155,7 +179,8 @@ def system_from_arrays(arrays) -> QuantumSystem:
 
 
 def trajectory_from_arrays(arrays) -> NamedTrajectory:
-    """The source's trajectory without its L1 slack components."""
+    """The source's trajectory, its global variables included, without its
+    L1 slack components."""
     data = arrays["data"]
     slacks = [spec[2] for spec in arrays["constraints"] if spec[0] == "L1SlackConstraint"]
     comps = {name: data[:, a:b] for name, (a, b) in arrays["components"].items()
@@ -163,8 +188,15 @@ def trajectory_from_arrays(arrays) -> NamedTrajectory:
     return NamedTrajectory(
         comps, controls=arrays["controls"], timestep=arrays["timestep"],
         bounds=arrays["bounds"], initial=arrays["initial"], final=arrays["final"],
-        goal=arrays["goal"],
+        goal=arrays["goal"], global_data=arrays["global_data"],
     )
+
+
+def _phases(arrays):
+    """The template keywords of the source's free phases (none without)."""
+    if arrays["phase_operators"] is None:
+        return {}
+    return {"phase_name": arrays["phase_name"], "phase_operators": list(arrays["phase_operators"])}
 
 
 def _checked(prob, arrays, rtol):
@@ -180,6 +212,15 @@ def _checked(prob, arrays, rtol):
     if (dict(traj.components) != dict(arrays["components"])
             or not np.allclose(traj.data, arrays["data"], rtol=rtol, atol=0.0)):
         raise ValueError("the trajectory's layout or data differ from the source problem's")
+    nlp, src = prob.nlp, arrays["nlp"]
+    if ((nlp.d, nlp.s, nlp.m) != (src["d"], src["s"], src["m"])
+            or dict(prob.global_slices) != dict(arrays["global_slices"])
+            or not np.array_equal(nlp.free_mask, src["free_mask"])):
+        raise ValueError(f"the NLP (d, s, m) = {(nlp.d, nlp.s, nlp.m)}, its global slices or "
+                         f"its free mask differ from the source's {(src['d'], src['s'], src['m'])}")
+    for name in ("lb", "ub", "z0"):
+        if not np.allclose(getattr(nlp, name), src[name], rtol=rtol, atol=0.0):
+            raise ValueError(f"the NLP's {name} differs from the source problem's")
     solver = prob.solver
     checks = {
         "var_scale": (solver.var_scale, arrays["var_scale"]),
@@ -226,7 +267,7 @@ def unitary_smooth_pulse_from_arrays(
         system_from_arrays(arrays), _operator(arrays, traj), traj.T,
         float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
-        piccolo_options=_free_time(traj, piccolo_options), device=device,
+        piccolo_options=_free_time(traj, piccolo_options), device=device, **_phases(arrays),
     )
     return _checked(prob, arrays, rtol)
 
@@ -279,11 +320,11 @@ def unitary_minimum_time_from_arrays(
     base = UnitarySmoothPulseProblem(
         system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
-        piccolo_options=_free_time(traj, piccolo_options), device=device,
+        piccolo_options=_free_time(traj, piccolo_options), device=device, **_phases(arrays),
     )
     floor, subspace = _floor(arrays)
     prob = UnitaryMinimumTimeProblem(base, final_fidelity=floor, D=arrays["min_time_D"],
-                                     subspace=subspace)
+                                     subspace=subspace, **_phases(arrays))
     return _checked(prob, arrays, rtol)
 
 
@@ -354,14 +395,33 @@ def unitary_robustness_from_arrays(
     initial = {k: v for k, v in full.initial.items() if k != accumulator_name}
     traj = NamedTrajectory(comps, controls=full.controls, timestep=full.timestep,
                            bounds=full.bounds, initial=initial, final=full.final,
-                           goal=full.goal)
+                           goal=full.goal, global_data=full.global_data)
     base = UnitarySmoothPulseProblem(
         system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
-        piccolo_options=_free_time(traj, piccolo_options), device=device,
+        piccolo_options=_free_time(traj, piccolo_options), device=device, **_phases(arrays),
     )
     (H_error,) = arrays["H_errors"]
     floor, subspace = _floor(arrays)
     prob = UnitaryRobustnessProblem(H_error, base, final_fidelity=floor, subspace=subspace,
-                                    accumulator_name=accumulator_name)
+                                    accumulator_name=accumulator_name, **_phases(arrays))
+    return _checked(prob, arrays, rtol)
+
+
+def unitary_bang_bang_from_arrays(
+    arrays, *, Q, R, R_bang_bang, ipopt_options=None, piccolo_options=None, device=None,
+    rtol=1e-5,
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    UnitaryBangBangProblem built with the same Q, R, R_bang_bang and Padé
+    integrator (and phase operators, if any); the port's
+    L1Regularizer adds the da slack component again.  Raises as
+    unitary_minimum_time_from_arrays."""
+    traj = trajectory_from_arrays(arrays)
+    prob = UnitaryBangBangProblem(
+        system_from_arrays(arrays), None, traj.T, float(np.mean(traj.get_timesteps())),
+        init_trajectory=traj, Q=Q, R=R, R_bang_bang=R_bang_bang, ipopt_options=ipopt_options,
+        piccolo_options=_free_time(traj, piccolo_options),
+        device=device, **_phases(arrays),
+    )
     return _checked(prob, arrays, rtol)

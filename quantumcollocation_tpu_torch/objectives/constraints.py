@@ -1,7 +1,7 @@
 """Constraint objects: bounds, the equal-timestep constraint, the final
 fidelity floors, the L1 slack rows and the complex-modulus disk.
 
-Counterpart of quantumcollocation_tpu/objectives/constraints.py, subset.
+Counterpart of quantumcollocation_tpu/objectives/constraints.py.
 Box bounds come from trajectory metadata and are enforced by the
 interior-point barrier; equal timesteps lower to defect rows so the KKT
 system stays block-tridiagonal.  An inequality constraint has
@@ -21,7 +21,12 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..quantum.fidelities import iso_fidelity, iso_vec_unitary_fidelity
+from ..quantum.fidelities import (
+    _stack_ops,
+    iso_fidelity,
+    iso_vec_unitary_fidelity,
+    iso_vec_unitary_free_phase_fidelity,
+)
 
 __all__ = [
     "AbstractConstraint",
@@ -182,12 +187,41 @@ class ComplexModulusConstraint(AbstractConstraint):
 ComplexModulusContraint = ComplexModulusConstraint
 
 
+@dataclasses.dataclass
 class FinalUnitaryFreePhaseFidelityConstraint(AbstractConstraint):
-    """The free-phase floor needs global (free-phase) variables, which the
-    port does not carry yet."""
+    """|tr(G^† R(φ) U_T)| / N >= final_fidelity, the fidelity up to the
+    global phases R(φ) = exp(i Σ_k φ_k G_k) (on the subspace block where
+    one is given).  The phases φ are the global variable `phase_name`,
+    which the problem compiler appends to every knot row: it injects
+    `global_slices` {name: (start, stop)}, and the row reads z[start:stop]
+    at the last knot."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FinalUnitaryFreePhaseFidelityConstraint needs global (free-phase) "
-            "variables, which are not ported yet"
-        )
+    state_name: str
+    phase_name: str
+    phase_operators: Any
+    final_fidelity: float
+    subspace: Any = None
+    global_slices: Any = None
+
+    def ineq_dim(self, traj) -> int:
+        return 1
+
+    def make(self, traj, dtype, device):
+        if self.global_slices is None or self.phase_name not in self.global_slices:
+            raise ValueError(f"no global variable {self.phase_name!r}: the problem compiler "
+                             "injects global_slices")
+        start, stop = traj.components[self.state_name]
+        gs, ge = self.global_slices[self.phase_name]
+        goal = torch.as_tensor(np.asarray(traj.goal[self.state_name]), dtype=dtype, device=device)
+        ops = torch.as_tensor(_stack_ops(self.phase_operators), device=device)
+        floor, last = float(self.final_fidelity), traj.T - 1
+        sub = (None if self.subspace is None
+               else torch.as_tensor([int(i) for i in self.subspace], dtype=torch.long,
+                                    device=device))
+
+        def fn(z, t):
+            val = iso_vec_unitary_free_phase_fidelity(
+                z[start:stop], goal, z[gs:ge], ops, subspace=sub) - floor
+            return torch.where(t == last, val, torch.ones_like(val))[None]
+
+        return fn

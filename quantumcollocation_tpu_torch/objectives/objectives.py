@@ -1,13 +1,17 @@
 """Objective terms and their algebra.
 
 Counterpart of quantumcollocation_tpu/objectives/objectives.py
-(UnitaryInfidelityObjective, QuantumStateObjective, QuadraticRegularizer,
+(UnitaryInfidelityObjective, UnitaryFreePhaseInfidelityObjective,
+QuantumStateObjective, QuadraticRegularizer,
 QuadraticSmoothnessRegularizer, L1Regularizer, MinimumTimeObjective,
 UnitaryRobustnessObjective).  A term is classified by its stage structure
 so the problem compiler keeps the KKT system block-tridiagonal:
   - "stage":    fn(z_t, t) -> scalar, summed over all knots
   - "pair":     fn(z_t, z_{t+1}, t) -> scalar, summed over t = 0..T-2
-  - "terminal": fn(z_T) -> scalar
+  - "terminal": fn(z_T, globals) -> scalar, globals the trajectory's
+                global variables {name: (k,) tensor} cut from z_T's tail
+                by the problem compiler (terms that read none may be
+                called as fn(z_T))
 
 Each term carries `make(dtype, device) -> fn`: its constants (goal,
 weights) are materialized once on the solver's device, never per call.
@@ -23,12 +27,18 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..quantum.fidelities import iso_fidelity, iso_vec_unitary_fidelity
+from ..quantum.fidelities import (
+    _stack_ops,
+    iso_fidelity,
+    iso_vec_unitary_fidelity,
+    iso_vec_unitary_free_phase_fidelity,
+)
 
 __all__ = [
     "Objective",
     "ObjectiveTerm",
     "UnitaryInfidelityObjective",
+    "UnitaryFreePhaseInfidelityObjective",
     "QuantumStateObjective",
     "QuadraticRegularizer",
     "QuadraticSmoothnessRegularizer",
@@ -77,16 +87,45 @@ def UnitaryInfidelityObjective(name, traj, Q=100.0, *, subspace=None):
         g = torch.as_tensor(goal, dtype=dtype, device=device)
         idx = None if sub is None else torch.as_tensor(sub, dtype=torch.long, device=device)
 
-        def fn(zT):
-            x = 1.0 - iso_vec_unitary_fidelity(zT[start:stop], g, subspace=idx)
-            # |x| with derivative +1 at x = 0, as jnp.abs defines it: the
-            # geodesic guess ends exactly on the goal, where x = 0
-            return torch.where(x >= 0, x, -x)
+        def fn(zT, globals_=None):
+            return _abs(1.0 - iso_vec_unitary_fidelity(zT[start:stop], g, subspace=idx))
 
         return fn
 
     return Objective(
         (ObjectiveTerm("terminal", make, float(Q), f"unitary_infidelity[{name}]"),)
+    )
+
+
+def _abs(x):
+    """|x| with derivative +1 at x = 0, as jnp.abs defines it: the
+    geodesic guess ends exactly on the goal, where x = 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def UnitaryFreePhaseInfidelityObjective(name, phase_name, phase_operators, traj, Q=100.0, *,
+                                        subspace=None, eval_hessian=True):
+    """Q |1 - F|, F = |tr(U_goal^† R(φ) U_T)| / N the fidelity up to the
+    global phases R(φ) = exp(i Σ_k φ_k G_k), φ the global variable
+    `phase_name` (on the subspace block, N its size, where one is given)."""
+    start, stop = traj.components[name]
+    goal = np.asarray(traj.goal[name])
+    ops = _stack_ops(phase_operators)
+    sub = None if subspace is None else [int(i) for i in subspace]
+
+    def make(dtype, device):
+        g = torch.as_tensor(goal, dtype=dtype, device=device)
+        ops_t = torch.as_tensor(ops, device=device)
+        idx = None if sub is None else torch.as_tensor(sub, dtype=torch.long, device=device)
+
+        def fn(zT, globals_=None):
+            return _abs(1.0 - iso_vec_unitary_free_phase_fidelity(
+                zT[start:stop], g, globals_[phase_name], ops_t, subspace=idx))
+
+        return fn
+
+    return Objective(
+        (ObjectiveTerm("terminal", make, float(Q), f"free_phase_infidelity[{name}]"),)
     )
 
 
@@ -99,7 +138,7 @@ def QuantumStateObjective(name, traj, Q=100.0):
     def make(dtype, device):
         g = torch.as_tensor(goal, dtype=dtype, device=device)
 
-        def fn(zT):
+        def fn(zT, globals_=None):
             return 1.0 - iso_fidelity(zT[start:stop], g)
 
         return fn
@@ -151,7 +190,7 @@ def UnitaryRobustnessObjective(*, H_error=None, accumulator_name="m_rob", traj=N
     start, stop = traj.components[accumulator_name]
 
     def make(dtype, device):
-        def fn(zT):
+        def fn(zT, globals_=None):
             return torch.sum(zT[start:stop] ** 2)
 
         return fn

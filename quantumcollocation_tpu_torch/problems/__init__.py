@@ -7,6 +7,7 @@ from .multigoal import (
 from .problem import QuantumControlProblem, resolve_device
 from .quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
+from .unitary_bang_bang import UnitaryBangBangProblem
 from .unitary_minimum_time import UnitaryMinimumTimeProblem
 from .unitary_robustness import UnitaryRobustnessProblem
 from .unitary_sampling import UnitarySamplingProblem, UnitarySamplingProblemFromDistribution
@@ -16,6 +17,7 @@ __all__ = [
     "QuantumControlProblem",
     "QuantumStateMinimumTimeProblem",
     "QuantumStateSmoothPulseProblem",
+    "UnitaryBangBangProblem",
     "UnitaryMinimumTimeProblem",
     "UnitaryMultiGoalProblem",
     "UnitaryRobustnessProblem",

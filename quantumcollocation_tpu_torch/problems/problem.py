@@ -3,7 +3,10 @@ a StageNLP and solve it with the batched interior-point method.
 
 Counterpart of quantumcollocation_tpu/problems/problem.py.  Lowering:
 integrators -> stacked defect rows; TimeStepsAllEqualConstraint -> extra
-defect rows; inequality constraints -> m = Σ ineq_dim rows per knot, the
+defect rows; global variables (the free phases) -> appended to every knot
+row (d_aug = d + Σ|global|), pinned at z = 0 for t < T-1 and free only at
+the terminal knot, where the terminal costs and the free-phase floor read
+them; inequality constraints -> m = Σ ineq_dim rows per knot, the
 constraints' rows stacked, inactive knots +1; trajectory bounds -> barrier
 bounds; initial/final pins -> fixed masks; objective terms -> stage, pair
 and terminal costs.  The dynamics are assembled analytically where every
@@ -38,7 +41,11 @@ from ..dynamics.integrators import (
     UnitaryPadeIntegrator,
 )
 from ..dynamics.rollouts import rollout, unitary_rollout
-from ..objectives.constraints import AbstractConstraint, TimeStepsAllEqualConstraint
+from ..objectives.constraints import (
+    AbstractConstraint,
+    FinalUnitaryFreePhaseFidelityConstraint,
+    TimeStepsAllEqualConstraint,
+)
 from ..objectives.objectives import Objective
 from ..solver.analytic import build_analytic_dynamics
 from ..solver.ipm import InteriorPointSolver
@@ -104,8 +111,16 @@ class QuantumControlProblem:
     def _compile(self):
         traj = self.trajectory
         T, d = traj.T, traj.dim
-        if traj.global_data:
-            raise NotImplementedError("global (free-phase) variables are not ported yet")
+        self.global_slices = {}
+        d_aug = d
+        for name, val in traj.global_data.items():
+            k = int(np.prod(np.shape(val)))
+            self.global_slices[name] = (d_aug, d_aug + k)
+            d_aug += k
+        gslices = dict(self.global_slices)
+        for con in self.constraints:
+            if isinstance(con, FinalUnitaryFreePhaseFidelityConstraint):
+                con.global_slices = gslices
         s = sum(ig.defect_dim(traj) for ig in self.integrators)
         dt_dev = dict(dtype=self.dtype, device=self.device)
         stage_fns = [
@@ -125,9 +140,10 @@ class QuantumControlProblem:
             return total
 
         def terminal_cost(zT):
+            globals_ = {name: zT[gs:ge] for name, (gs, ge) in gslices.items()}
             total = zT.new_zeros(())
             for w, fn in term_fns:
-                total = total + w * fn(zT)
+                total = total + w * fn(zT, globals_)
             return total
 
         def pair_cost(zt, ztp1, t):
@@ -148,10 +164,11 @@ class QuantumControlProblem:
         def ineq(z, t):
             return torch.cat([fn(z, t) for fn in ineq_fns])
 
-        lb = np.full((T, d), -np.inf)
-        ub = np.full((T, d), np.inf)
-        free = np.ones((T, d), dtype=bool)
-        z0 = np.array(traj.data, dtype=float)
+        lb = np.full((T, d_aug), -np.inf)
+        ub = np.full((T, d_aug), np.inf)
+        free = np.ones((T, d_aug), dtype=bool)
+        z0 = np.zeros((T, d_aug))
+        z0[:, :d] = traj.data
         if self.piccolo_options.build_trajectory_constraints:
             for name, (lo, hi) in traj.bounds.items():
                 sl = traj.comp_slice(name)
@@ -162,10 +179,13 @@ class QuantumControlProblem:
                     sl = traj.comp_slice(name)
                     z0[t, sl] = val
                     free[t, sl] = False
+        for name, (gs, ge) in gslices.items():
+            free[: T - 1, gs:ge] = False
+            z0[T - 1, gs:ge] = np.asarray(traj.global_data[name], dtype=float).reshape(-1)
         self._d = d
         structure = self.piccolo_options.jacobian_structure
         self.nlp = StageNLP(
-            T=T, d=d, s=s, m=m,
+            T=T, d=d_aug, s=s, m=m,
             stage_cost=stage_cost, terminal_cost=terminal_cost,
             ineq=ineq if m > 0 else None,
             pair_cost=pair_cost if pair_fns else None,
@@ -173,7 +193,7 @@ class QuantumControlProblem:
             nl_coords=self._nonlinear_defect_coords() if structure else None,
             lb=lb, ub=ub, free_mask=free, z0=z0,
             dtype=self.dtype, device=self.device,
-            analytic=build_analytic_dynamics(traj, integrators, d) if structure else None,
+            analytic=build_analytic_dynamics(traj, integrators, d_aug) if structure else None,
         )
         self.solver = InteriorPointSolver(
             self.nlp, self.ipopt_options, exact_hessian=self.piccolo_options.eval_hessian
@@ -212,12 +232,18 @@ class QuantumControlProblem:
         return tuple(sorted(idx))
 
     def initial_decision(self, batch: int = 1):
-        """(batch, T, d) initial decisions (numpy, problem units)."""
+        """(batch, T, d_aug) initial decisions (numpy, problem units)."""
         return np.broadcast_to(self.nlp.z0[None], (batch, *self.nlp.z0.shape)).copy()
 
     def write_back(self, Z_row) -> NamedTrajectory:
-        """A trajectory carrying the solution row Z_row (T, d)."""
-        return self.trajectory.with_data(np.asarray(Z_row, dtype=float)[:, : self._d])
+        """A trajectory carrying the solution row Z_row (T, d_aug): its
+        knot data and the global variables read at the last knot."""
+        Z_row = np.asarray(Z_row, dtype=float)
+        traj = self.trajectory
+        globals_ = dict(traj.global_data)
+        globals_.update({name: Z_row[traj.T - 1, gs:ge].copy()
+                         for name, (gs, ge) in self.global_slices.items()})
+        return traj.with_data(Z_row[:, : self._d], global_data=globals_)
 
     def solve(self, *, max_iter: int | None = None, callback=None):
         """Solve from the trajectory's guess and write the optimum back."""
@@ -232,7 +258,7 @@ class QuantumControlProblem:
         return self
 
     def solve_batched(self, Z0, *, max_iter: int | None = None):
-        """Solve a batch of initial decisions (B, T, d); returns IPMResult."""
+        """Solve a batch of initial decisions (B, T, d_aug); returns IPMResult."""
         return self.solver.solve(Z0, max_iter=max_iter)
 
     def multistart_initial_decisions(self, n_seeds: int, *, sigma: float = 0.1, rng=None):

@@ -5,8 +5,11 @@ adds D Σ Δt to the objective and a FinalUnitaryFidelityConstraint at
 `final_fidelity` (by default the trajectory's current fidelity; both on
 the `subspace` block where one is given), with a
 warm-start form from a solved problem.  Bounds and pins are trajectory
-metadata, so a warm start keeps them.  The free-phase form
-(phase_operators) needs global variables, which are not ported.
+metadata, so a warm start keeps them.  With phase_operators the floor is
+a FinalUnitaryFreePhaseFidelityConstraint on the global phases
+phase_name, by default at the free-phase fidelity of the trajectory's
+last knot with its stored phases; a warm start carries the phases in the
+trajectory's global data.
 """
 
 from __future__ import annotations
@@ -15,14 +18,36 @@ import copy
 
 import numpy as np
 
-from ..objectives.constraints import FinalUnitaryFidelityConstraint
+from ..objectives.constraints import (
+    FinalUnitaryFidelityConstraint,
+    FinalUnitaryFreePhaseFidelityConstraint,
+)
 from ..objectives.objectives import MinimumTimeObjective
-from ..quantum.fidelities import iso_vec_unitary_fidelity
+from ..quantum.fidelities import iso_vec_unitary_fidelity, iso_vec_unitary_free_phase_fidelity
 from ..solver.options import PiccoloOptions, SolverOptions
 from ..trajectory.named_trajectory import NamedTrajectory
 from .problem import QuantumControlProblem
 
 __all__ = ["UnitaryMinimumTimeProblem"]
+
+
+def fidelity_floor(trajectory, unitary_name, final_fidelity, subspace, phase_name,
+                   phase_operators):
+    """The final-fidelity constraint of the minimum-time and robustness
+    templates: at final_fidelity, by default the fidelity of the
+    trajectory's last knot (up to its stored global phases with
+    phase_operators)."""
+    U_T = trajectory[unitary_name][-1]
+    U_G = np.asarray(trajectory.goal[unitary_name])
+    if phase_operators is None:
+        if final_fidelity is None:
+            final_fidelity = float(iso_vec_unitary_fidelity(U_T, U_G, subspace=subspace))
+        return FinalUnitaryFidelityConstraint(unitary_name, final_fidelity, subspace=subspace)
+    if final_fidelity is None:
+        final_fidelity = float(iso_vec_unitary_free_phase_fidelity(
+            U_T, U_G, trajectory.global_data[phase_name], phase_operators, subspace=subspace))
+    return FinalUnitaryFreePhaseFidelityConstraint(unitary_name, phase_name, phase_operators,
+                                                   final_fidelity, subspace=subspace)
 
 
 def warm_start_parts(prob, system, objective, integrators, constraints, ipopt_options,
@@ -64,11 +89,6 @@ def UnitaryMinimumTimeProblem(
     UnitaryMinimumTimeProblem(traj, system, objective, integrators, constraints; ...)
     UnitaryMinimumTimeProblem(prob[, system]; ...)   # warm start, on prob's device
     """
-    if phase_operators is not None:
-        raise NotImplementedError(
-            "phase_operators (the free-phase fidelity floor) need global variables, "
-            "which are not ported yet"
-        )
     if isinstance(trajectory, QuantumControlProblem):
         (system, objective, integrators, constraints, ipopt_options, piccolo_options,
          trajectory, warm_device) = warm_start_parts(
@@ -84,13 +104,8 @@ def UnitaryMinimumTimeProblem(
     objective = objective + MinimumTimeObjective(
         trajectory, D=D, eval_hessian=piccolo_options.eval_hessian
     )
-    if final_fidelity is None:
-        final_fidelity = float(iso_vec_unitary_fidelity(
-            trajectory[unitary_name][-1], np.asarray(trajectory.goal[unitary_name]),
-            subspace=subspace))
-    constraints.append(
-        FinalUnitaryFidelityConstraint(unitary_name, final_fidelity, subspace=subspace)
-    )
+    constraints.append(fidelity_floor(trajectory, unitary_name, final_fidelity, subspace,
+                                      phase_name, phase_operators))
     return QuantumControlProblem(
         trajectory, objective, integrators, constraints=constraints,
         ipopt_options=ipopt_options, piccolo_options=piccolo_options,

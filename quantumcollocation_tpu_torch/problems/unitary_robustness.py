@@ -8,10 +8,10 @@ separate over knots, so an accumulator state M (`m_rob`, an iso-vec, M_0 =
 and the cost is a terminal cost on M_T; T_total is the duration of the
 trajectory the problem is built from, fixed at build time.  A
 FinalUnitaryFidelityConstraint keeps the fidelity at `final_fidelity`
-(by default the trajectory's current one).  The accumulator has no
-analytic assembly, so the NLP takes the AD route (solver/stage_nlp.py).
-The free-phase form (phase_operators) needs global variables, which are
-not ported.
+(by default the trajectory's current one; with phase_operators the
+free-phase floor on the global phases, as the minimum-time template's).
+The accumulator has no analytic assembly, so the NLP takes the AD route
+(solver/stage_nlp.py).
 """
 
 from __future__ import annotations
@@ -19,14 +19,12 @@ from __future__ import annotations
 import numpy as np
 
 from ..dynamics.integrators import RobustnessAccumulatorIntegrator
-from ..objectives.constraints import FinalUnitaryFidelityConstraint
 from ..objectives.objectives import Objective, ObjectiveTerm
 from ..quantum.embedded import EmbeddedOperator
-from ..quantum.fidelities import iso_vec_unitary_fidelity
 from ..solver.options import PiccoloOptions, SolverOptions
 from ..trajectory.named_trajectory import NamedTrajectory
 from .problem import QuantumControlProblem
-from .unitary_minimum_time import warm_start_parts
+from .unitary_minimum_time import fidelity_floor, warm_start_parts
 
 __all__ = ["UnitaryRobustnessProblem"]
 
@@ -57,11 +55,6 @@ def UnitaryRobustnessProblem(
     UnitaryRobustnessProblem(H_error, prob[, system]; ...)   # warm start,
                                                              # on prob's device
     """
-    if phase_operators is not None:
-        raise NotImplementedError(
-            "phase_operators (the free-phase fidelity floor) need global variables, "
-            "which are not ported yet"
-        )
     if isinstance(trajectory, QuantumControlProblem):
         (system, objective, integrators, constraints, ipopt_options, piccolo_options,
          trajectory, warm_device) = warm_start_parts(
@@ -98,7 +91,7 @@ def UnitaryRobustnessProblem(
     start, stop = traj.components[accumulator_name]
 
     def make(dtype, device):
-        def fn(zT):
+        def fn(zT, globals_=None):
             m = zT[start:stop]
             return scale * (m * m).sum()
 
@@ -106,12 +99,8 @@ def UnitaryRobustnessProblem(
 
     objective = objective + Objective((ObjectiveTerm("terminal", make, 1.0,
                                                      "unitary_robustness"),))
-    if final_fidelity is None:
-        final_fidelity = float(iso_vec_unitary_fidelity(
-            trajectory[unitary_name][-1], np.asarray(trajectory.goal[unitary_name]),
-            subspace=subspace))
-    constraints.append(FinalUnitaryFidelityConstraint(unitary_name, final_fidelity,
-                                                      subspace=subspace))
+    constraints.append(fidelity_floor(trajectory, unitary_name, final_fidelity, subspace,
+                                      phase_name, phase_operators))
     return QuantumControlProblem(
         traj, objective, integrators, constraints=constraints, ipopt_options=ipopt_options,
         piccolo_options=piccolo_options, control_name=control_name, system=system,

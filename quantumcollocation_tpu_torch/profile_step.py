@@ -2,7 +2,7 @@
 
     python -m quantumcollocation_tpu_torch.profile_step
         [--config hadamard|hadamard_lbfgs|hadamard_scan|hadamard_gn|cnot|cnot_soc|ket_exp|
-                  cnot_exp|su4|min_time|leakage|sampling|robustness]
+                  cnot_exp|su4|min_time|leakage|sampling|robustness|free_phase|bang_bang]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -29,7 +29,11 @@ three drift samples ζ ∈ {-0.05, 0, 0.05}, H, T=50, Δt=0.2 free,
 kkt_backend "lanes", B=512; bench_util.sampling_problem and
 sampling_seeds) or "robustness" (the robustness warm start against
 H_error = Z, floor 0.99, B=256: the AD route; bench_util.robustness_problem
-and robustness_seeds), float32 on CUDA.  Runs two warm-up iterations
+and robustness_seeds) or "free_phase" (an X-only drive to the Y gate up to
+a global Z phase, T=31, B=512, d=13 with the phase column;
+bench_util.free_phase_problem and free_phase_seeds) or "bang_bang"
+(UnitaryBangBangProblem, H, T=51, B=512, d=15, m=4 L1 rows, lifted;
+bench_util.bang_bang_problem, hadamard's seeds), float32 on CUDA.  Runs two warm-up iterations
 (eight for hadamard_lbfgs), then profiles `--steps` iterations with
 torch.profiler and prints one JSON line: host wall per iteration,
 device-busy time per iteration (the sum of kernel times), the idle share,
@@ -83,6 +87,12 @@ def build(config, batch):
     if config == "robustness":
         prob, _ = bu.robustness_problem()
         return prob.solver, bu.robustness_seeds(prob, batch or 256, 42)
+    if config == "free_phase":
+        prob = bu.free_phase_problem()
+        return prob.solver, bu.free_phase_seeds(prob, batch or 512, 42)
+    if config == "bang_bang":
+        prob = bu.bang_bang_problem()
+        return prob.solver, bu.hadamard_seeds(prob, batch or 512, 42)
     if config == "min_time":
         warm = bu.min_time_warm()
         warm.solve(max_iter=80)
@@ -121,7 +131,7 @@ def main():
     ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan",
                                          "hadamard_gn", "cnot", "cnot_soc", "ket_exp",
                                          "cnot_exp", "su4", "min_time", "leakage", "sampling",
-                                         "robustness"),
+                                         "robustness", "free_phase", "bang_bang"),
                     default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)

@@ -1,7 +1,8 @@
 """Ket and unitary fidelities in iso coordinates, in real arithmetic.
 
 Counterpart of quantumcollocation_tpu/quantum/fidelities.py::fidelity,
-iso_fidelity and iso_vec_unitary_fidelity.  The iso functions work on
+iso_fidelity, iso_vec_unitary_fidelity, free_phase_iso_rotation and
+iso_vec_unitary_free_phase_fidelity.  The iso functions work on
 torch tensors (the objective path, differentiable under torch.func) and on
 numpy arrays.  A `subspace` restricts the unitary fidelities to the block
 U[idx, idx] and divides by len(idx); on tensors it is a gather by an index
@@ -11,11 +12,20 @@ tensor (pass one built once on the tensors' device on a hot path).
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg as sla
 import torch
 
+from ..dynamics.expm import expm_taylor
 from .isomorphisms import iso_vec_to_iso_operator
 
-__all__ = ["fidelity", "iso_fidelity", "unitary_fidelity", "iso_vec_unitary_fidelity"]
+__all__ = [
+    "fidelity",
+    "iso_fidelity",
+    "unitary_fidelity",
+    "iso_vec_unitary_fidelity",
+    "free_phase_iso_rotation",
+    "iso_vec_unitary_free_phase_fidelity",
+]
 
 
 def _safe_abs(re, im):
@@ -62,7 +72,12 @@ def unitary_fidelity(U, U_goal, subspace=None):
 def _iso_vec_reim(v, subspace=None):
     """iso vec (..., 2N^2) -> (Re U, Im U), restricted to the subspace
     block where one is given."""
-    Uo = iso_vec_to_iso_operator(v)
+    return _iso_operator_reim(iso_vec_to_iso_operator(v), subspace)
+
+
+def _iso_operator_reim(Uo, subspace=None):
+    """iso operator (..., 2N, N) -> (Re U, Im U), restricted to the
+    subspace block where one is given."""
     n = Uo.shape[-1]
     Ure, Uim = Uo[..., :n, :], Uo[..., n:, :]
     if subspace is None:
@@ -78,9 +93,60 @@ def iso_vec_unitary_fidelity(U_iso_vec, U_goal_iso_vec, subspace=None):
     """|tr(G^† U)| / n on iso vecs: tr(G^† U) = sum(Gre Ure + Gim Uim)
     + i sum(Gre Uim - Gim Ure), over the subspace block (n = its size)
     where one is given."""
-    Ure, Uim = _iso_vec_reim(U_iso_vec, subspace)
-    Gre, Gim = _iso_vec_reim(U_goal_iso_vec, subspace)
-    n = Ure.shape[-1]
+    return _trace_fidelity(_iso_vec_reim(U_iso_vec, subspace),
+                           _iso_vec_reim(U_goal_iso_vec, subspace))
+
+
+def _trace_fidelity(U, G):
+    """|tr(G^† U)| / n from (Re, Im) pairs of n x n blocks."""
+    (Ure, Uim), (Gre, Gim) = U, G
     re = (Gre * Ure + Gim * Uim).sum((-2, -1))
     im = (Gre * Uim - Gim * Ure).sum((-2, -1))
-    return _safe_abs(re, im) / n
+    return _safe_abs(re, im) / Ure.shape[-1]
+
+
+def free_phase_iso_rotation(phases, phase_operators):
+    """The real iso form (..., 2N, 2N) of R(φ) = exp(i Σ_k φ_k G_k) for
+    phases (..., k): with Ā + i B̄ = Σ_k φ_k G_k, i(Ā + i B̄) has the iso
+    generator K = [[-B̄, -Ā], [Ā, -B̄]], and exp(K) acts on [Re; Im]
+    stacked columns.  phase_operators: a list or (k, N, N) array of
+    complex matrices, or a complex tensor of them on the phases' device
+    (build it once on a hot path).  Tensors go through expm_taylor (a
+    fixed chain of matmuls, twice differentiable under torch.func, within
+    float64 rounding of scipy's and JAX's expm for ||K|| up to 60), numpy
+    arrays through scipy's expm.  (torch.linalg.matrix_exp is off by up
+    to ~1e-10 near ||K|| ~ 0.05 in float64: scripts/free_phase_expm_probe.py.)"""
+    if isinstance(phases, torch.Tensor):
+        ops = (phase_operators if isinstance(phase_operators, torch.Tensor)
+               else torch.as_tensor(_stack_ops(phase_operators), device=phases.device))
+        A = ops.real.to(phases.dtype)
+        B = ops.imag.to(phases.dtype)
+        Abar = torch.tensordot(phases, A, dims=1)
+        Bbar = torch.tensordot(phases, B, dims=1)
+        K = torch.cat([torch.cat([-Bbar, -Abar], -1), torch.cat([Abar, -Bbar], -1)], -2)
+        return expm_taylor(K)
+    ops = _stack_ops(phase_operators)
+    phases = np.asarray(phases, dtype=float)
+    Abar = np.tensordot(phases, ops.real, axes=1)
+    Bbar = np.tensordot(phases, ops.imag, axes=1)
+    K = np.concatenate([np.concatenate([-Bbar, -Abar], -1),
+                        np.concatenate([Abar, -Bbar], -1)], -2)
+    return sla.expm(K)
+
+
+def _stack_ops(phase_operators):
+    """(k, N, N) complex numpy array of a list or array of operators."""
+    if isinstance(phase_operators, (list, tuple)):
+        return np.stack([np.asarray(op, dtype=complex) for op in phase_operators])
+    return np.asarray(phase_operators, dtype=complex)
+
+
+def iso_vec_unitary_free_phase_fidelity(U_iso_vec, U_goal_iso_vec, phases, phase_operators,
+                                        subspace=None):
+    """Fidelity up to the global phases R(φ) = exp(i Σ_k φ_k G_k):
+    |tr(G^† R(φ) U)| / n, on the subspace block (n its size) where one is
+    given; U (..., 2N²) with phases (..., k).  Real arithmetic."""
+    R = free_phase_iso_rotation(phases, phase_operators)
+    RU = R @ iso_vec_to_iso_operator(U_iso_vec)
+    return _trace_fidelity(_iso_operator_reim(RU, subspace),
+                           _iso_vec_reim(U_goal_iso_vec, subspace))

@@ -6,9 +6,11 @@ unitary geodesic (or linear) state guess, ket linear interpolation, or
 either state's rollout under a given control guess, plus random bounded
 controls or the derivative chain of a given guess.  An EmbeddedOperator
 goal takes its geodesic in the subspace, embedded back with the identity
-on the leakage levels.  Randomness comes from a numpy
-Generator, drawn in the same order as the JAX package, so both packages
-build the same trajectory from one seed.
+on the leakage levels.  With phase_operators, the trajectory carries the
+global variable phase_name, π·N(0, 1) for each operator.  Randomness comes
+from a numpy Generator, drawn in the same order as the JAX package (the
+phases before the controls), so both packages build the same trajectory
+from one seed.
 """
 
 from __future__ import annotations
@@ -116,11 +118,14 @@ def initialize_trajectory(
     dt_bounds=None,
     drive_derivative_sigma: float = 0.1,
     a_guess=None,
+    phase_name: str = "ϕ",
+    phase_data=None,
     rng=None,
 ) -> NamedTrajectory:
     """States first, then the control chain (random, or that of a_guess),
     then the timestep (free time); pins a = 0 at both ends and the states
-    at t = 0."""
+    at t = 0; phase_data, where given, is the global variable
+    phase_name."""
     n_der = len(control_bounds) - 1
     control_names = [control_name] + [
         "d" * i + control_name for i in range(1, n_der + 1)
@@ -160,19 +165,22 @@ def initialize_trajectory(
     return NamedTrajectory(
         components, controls=controls, timestep=timestep, bounds=bounds,
         initial=initial, final=final, goal=goal,
+        global_data={} if phase_data is None else {phase_name: np.asarray(phase_data)},
     )
 
 
 def initialize_unitary_trajectory(
     U_goal, T: int, dt, n_drives: int, control_bounds, *,
     state_name: str = "Ũ⃗", U_init=None, a_guess=None, system=None,
-    geodesic: bool = True, rollout_integrator: str = "expm", rng=None,
-    **kwargs,
+    geodesic: bool = True, phase_name: str = "ϕ", phase_operators=None,
+    rollout_integrator: str = "expm", rng=None, **kwargs,
 ) -> NamedTrajectory:
     """Geodesic (or linear) unitary state guess with random controls, or
     the rollout of a_guess (T, n_drives) under system's dynamics with
     a_guess's control chain.  An EmbeddedOperator goal starts from the
-    identity of all its levels and has its full operator as the goal."""
+    identity of all its levels and has its full operator as the goal.
+    With phase_operators, the global variable phase_name holds π·N(0, 1)
+    for each, drawn from rng (else default_rng(0)) before the controls."""
     goal_op = np.asarray(
         U_goal.operator if isinstance(U_goal, EmbeddedOperator) else U_goal, dtype=complex)
     if U_init is None:
@@ -192,9 +200,14 @@ def initialize_unitary_trajectory(
         U_traj = unitary_geodesic(U_init, U_goal, samples=T)
     else:
         U_traj = linear_interpolation(v_init, v_goal, T)
+    phase_data = None
+    if phase_operators is not None:
+        phase_data = np.pi * (rng or np.random.default_rng(0)).standard_normal(
+            len(phase_operators))
     return initialize_trajectory(
         [U_traj], [v_init], [v_goal], [state_name], T, dt, n_drives,
-        control_bounds, a_guess=a_guess, rng=rng, **kwargs,
+        control_bounds, a_guess=a_guess, phase_name=phase_name, phase_data=phase_data,
+        rng=rng, **kwargs,
     )
 
 

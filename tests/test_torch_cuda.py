@@ -691,10 +691,76 @@ def test_assembly_kernel_writes_every_entry(cuda, case, Bt):
             _close_rel(o, r)
 
 
-def _lifted_kkt(Bt, T, d, s, device, seed):
+@pytest.mark.parametrize("Bt", [1, 37])
+@pytest.mark.parametrize("phase_d", [13, 16])
+def test_assembly_kernel_writes_the_global_columns(cuda, phase_d, Bt):
+    # kernel 1 on the free-phase shapes: the smooth pulse with a global Z
+    # phase (n=2, one drive, free Δt: d=13) and the bang-bang problem with
+    # it (two drives: d=16, m=4).  The phase column belongs to no
+    # integrator: its A, B columns and its curvature rows and columns must
+    # be written as zeros into outputs poisoned with NaN
+    if phase_d == 13:
+        prob = bu.free_phase_problem(T=11, device="cpu")
+    else:
+        prob = bu.bang_bang_problem(T=11, phase=True, device="cpu")
+    an = prob.solver.nlp.analytic
+    (c0, c1), = prob.global_slices.values()
+    assert (an.d, c1) == (phase_d, phase_d) and prob.solver.fused_assembly_on
+    T = 11
+    rng = np.random.default_rng(Bt)
+    z0 = np.asarray(prob.solver.nlp.z0)
+    Zn = z0 + 0.05 * rng.standard_normal((Bt, *z0.shape))
+    Zn[:, :-1, c0:c1] = 0.0
+    Z = torch.as_tensor(Zn, dtype=torch.float32, device=cuda)
+    lam = torch.as_tensor(rng.standard_normal((Bt, T - 1, an.s)), dtype=torch.float32,
+                          device=cuda)
+    ref = da.dyn_assembly_reference(an, Z, lam)
+    da.dyn_assembly(an, Z, lam)  # packs the argument table before the poisoning
+    torch.cuda.synchronize()
+    poison = [torch.full(r.shape, float("nan"), device=cuda) for r in ref]
+    ptrs = sorted(x.data_ptr() for x in poison)
+    del poison
+    F, A, Bj, Hc, Cc = out = da.dyn_assembly(an, Z, lam)
+    torch.cuda.synchronize()
+    assert sorted(x.data_ptr() for x in out) == ptrs
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+    for blk in (A, Bj):
+        assert (blk[..., c0:c1] == 0).all()
+    for blk in (Hc, Cc):
+        assert (blk[..., c0:c1, :] == 0).all() and (blk[..., c0:c1] == 0).all()
+
+
+def _phase_blocks(H, C, A, B, rz, rnu, u=8):
+    """Seeded blocks given the free-phase structure of the last column φ:
+    no integrator (zero A, B columns), pinned at t < T-1 (unit H row and
+    column, zero C rows and columns, zero rz), free at the last knot with a
+    dense U–φ block in H, diagonally dominant there."""
+    c = H.shape[-1] - 1
+    A[..., c] = 0.0
+    B[..., c] = 0.0
+    H[:, :-1, c, :] = 0.0
+    H[:, :-1, :, c] = 0.0
+    H[:, :-1, c, c] = 1.0
+    C[..., c, :] = 0.0
+    C[..., :, c] = 0.0
+    rz[:, :-1, c] = 0.0
+    g = torch.Generator(device=H.device).manual_seed(7)
+    cpl = 0.5 * torch.randn(H.shape[0], u, generator=g, device=H.device)
+    H[:, -1, c, :u] = cpl
+    H[:, -1, :u, c] = cpl
+    H[:, -1, c, c] = 3.0 + cpl.abs().sum(1)
+    return H, C, A, B, rz, rnu
+
+
+def _lifted_kkt(Bt, T, d, s, device, seed, phase=False):
     """Seeded blocks lifted as the solver lifts them (ρ from its Gershgorin
-    rule): H + ρS_AA, C + ρS_AB, rz + ρJᵀrnu; and a second rhs."""
+    rule): H + ρS_AA, C + ρS_AB, rz + ρJᵀrnu; and a second rhs.  With
+    phase, the blocks have _phase_blocks' structure first."""
     H, C, A, B, rz, rnu, rz2, rnu2 = seeded_kkt(Bt, T, d, s, device, seed=seed)
+    if phase:
+        H, C, A, B, rz, rnu = _phase_blocks(H, C, A, B, rz, rnu)
     rho = InteriorPointSolver.lift_scale(H, C, 2.0)
     S_AA, S_AB = InteriorPointSolver._lift_S(A, B)
     r4 = rho[:, None, None, None]
@@ -703,13 +769,13 @@ def _lifted_kkt(Bt, T, d, s, device, seed):
     return [x.contiguous() for x in lifted], (rz2, rnu2)
 
 
-def _check_lifted_sweeps(cuda, monkeypatch, Bt, T, d, s):
+def _check_lifted_sweeps(cuda, monkeypatch, Bt, T, d, s, phase=False):
     """Kernel 2 with kept factors on lifted blocks, then kernel 4 (the
     refinement's rhs-only sweep on those factors) and kernel 3, each
     writing into memory poisoned with NaN, against their plain versions;
     and the whole re-solve on the kept factors against the plain KKT
-    solve."""
-    args, rhs2 = _lifted_kkt(Bt, T, d, s, cuda, seed=Bt + T)
+    solve.  Returns the blocks and the kernel path's solve."""
+    args, rhs2 = _lifted_kkt(Bt, T, d, s, cuda, seed=Bt + T, phase=phase)
     ref = kl.fwd_sweep_reference(*args, 1e-8, want_factors=True)
     full = torch.full
     with monkeypatch.context() as mp:
@@ -738,6 +804,18 @@ def _check_lifted_sweeps(cuda, monkeypatch, Bt, T, d, s):
     assert bool(ok.all()) and bool(ok2.all()) and bool(ok_r.all())
     _close_rel(dz2, dz_r)
     _close_rel(nu2, nu_r)
+    return args, dz
+
+
+@pytest.mark.parametrize("T", [2, 31])
+@pytest.mark.parametrize("Bt", [1, 133, 512])
+def test_sweeps_with_a_dense_terminal_phase_block(cuda, monkeypatch, Bt, T):
+    # the free_phase_min_time path's lifted KKT attempt at (d, s) = (13, 11):
+    # the φ column pinned at t < T-1 and coupled densely to U at the last
+    # knot; the pinned entries of the step stay zero
+    args, dz = _check_lifted_sweeps(cuda, monkeypatch, Bt, T, 13, 11, phase=True)
+    assert (args[0][:, -1, -1, :8] != 0).all()
+    assert dz[:, :-1, -1].abs().max() <= 1e-6 * max(1.0, dz.abs().max().item())
 
 
 @pytest.mark.parametrize("T", [2, 51])
@@ -1046,3 +1124,30 @@ def test_robustness_path_solves_on_the_card(cuda):
     after = bu.magnus_cost(Z[:, :, a], Z[:, :, dt][..., 0], warm.system, qt.PAULIS["Z"],
                            tr.initial["Ũ⃗"])
     assert np.median(after / before) < 0.9, after / before
+
+
+def test_free_phase_paths_solve_on_the_card(cuda):
+    # the free-phase smooth pulse (d=13: kernels 1, 2, 3), its chained
+    # minimum-time stage (m=1, lifted: kernel 4 too) and bang-bang with a
+    # phase (d=16, m=4), short solves at small sizes
+    fp = bu.free_phase_problem(T=11)
+    build.reset_launch_counts()
+    fp.solve(max_iter=10)
+    c = dict(build.launch_counts)
+    assert c["dyn_assembly"] >= fp.solver.last_steps > 0 and c["kkt_rhs_fwd_sweep"] == 0, c
+    phases = fp.trajectory.global_data["ϕ"]
+    assert np.isfinite(phases).all() and phases.shape == (1,)
+    mt, dur0 = bu.free_phase_min_time_problem(fp)
+    assert mt.solver.nlp.m == 1 and mt.solver.kkt_aug_on and dur0 > 0
+    build.reset_launch_counts()
+    res = mt.solver.solve(bu.min_time_seeds(mt, 8, 0), max_iter=6)
+    c = dict(build.launch_counts)
+    assert torch.isfinite(res.Z).all()
+    assert c["dyn_assembly"] >= mt.solver.last_steps > 0, c
+    assert c["kkt_rhs_fwd_sweep"] == c["kkt_fwd_sweep"] - 1 > 0, c
+    bb = bu.bang_bang_problem(T=11, phase=True)
+    build.reset_launch_counts()
+    res = bb.solver.solve(bu.hadamard_seeds(bb, 8, 0), max_iter=6)
+    c = dict(build.launch_counts)
+    assert torch.isfinite(res.Z).all() and bb.solver.nlp.d == 16
+    assert c["dyn_assembly"] >= bb.solver.last_steps > 0 and c["kkt_rhs_fwd_sweep"] > 0, c

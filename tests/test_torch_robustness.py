@@ -110,9 +110,27 @@ def test_robustness_nlp_matches_jax():
     term = [t for t in pt.objective.terms if t.label == "unitary_robustness"][0]
     np.testing.assert_allclose(float(term.make(torch.float64, "cpu")(torch.as_tensor(zT))),
                                8.0 / (2 * (T - 1) * DT) ** 2, rtol=1e-14)
-    with pytest.raises(NotImplementedError, match="global"):
-        qt.UnitaryRobustnessProblem(qt.PAULIS["Z"], pt.trajectory, phase_operators=[1],
-                                    device="cpu")
+    # the free-phase form (build only): the floor on the global phase
+    # column, which is free at the last knot alone
+    fp = []
+    for pkg in (qct, qt):
+        extra = {} if pkg is qct else {"device": "cpu"}
+        a_guess = np.zeros((T, 2))
+        a_guess[:, 0] = (np.pi / 2) / ((T - 1) * DT)
+        warm_fp = pkg.UnitarySmoothPulseProblem(
+            pkg.QuantumSystem(None, [pkg.PAULIS["X"], pkg.PAULIS["Y"]]), pkg.GATES["X"], T, DT,
+            a_guess=a_guess, Q=Q, R=R, phase_operators=[pkg.PAULIS["Z"]],
+            rng=np.random.default_rng(3), ipopt_options=pkg.SolverOptions(print_level=1),
+            piccolo_options=pkg.PiccoloOptions(verbose=False), **extra)
+        fp.append(pkg.UnitaryRobustnessProblem(pkg.PAULIS["Z"], warm_fp,
+                                               phase_operators=[pkg.PAULIS["Z"]]))
+    (nj_fp, nt_fp) = (p.solver.nlp for p in fp)
+    assert (nt_fp.d, nt_fp.s, nt_fp.m) == (nj_fp.d, nj_fp.s, nj_fp.m) == (24, 21, 1)
+    assert fp[1].global_slices == fp[0].global_slices == {"ϕ": (23, 24)}
+    np.testing.assert_array_equal(nt_fp.free_mask[:, 23], np.asarray(nj_fp.free_mask)[:, 23])
+    np.testing.assert_allclose(nt_fp.z0[:, 23], np.asarray(nj_fp.z0)[:, 23], rtol=1e-15)
+    np.testing.assert_allclose(fp[1].constraints[-1].final_fidelity,
+                               fp[0].constraints[-1].final_fidelity, rtol=1e-12)
     # the explicit call form builds the warm-start form's NLP
     warm = _warm(qt)
     explicit = qt.UnitaryRobustnessProblem(

@@ -104,19 +104,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    # the cr backend and the free-phase minimum-time floor are not ported
+    # the cr backend is not ported
     with pytest.raises(NotImplementedError, match="kkt_backend='cr'"):
         qt.UnitarySmoothPulseProblem(
             qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
             ipopt_options=qt.SolverOptions(kkt_backend="cr"),
             piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
         )
-    base = qt.UnitarySmoothPulseProblem(
-        qt.QuantumSystem(qt.GATES["Z"], [qt.GATES["X"]]), qt.GATES["H"], 5, 0.2,
-        piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
-    )
-    with pytest.raises(NotImplementedError):
-        qt.UnitaryMinimumTimeProblem(base, phase_operators=[qt.GATES["Z"]])
 
 
 def test_port_runs_with_jax_blocked():
