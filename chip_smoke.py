@@ -198,7 +198,21 @@ Phases, one JSON object per line on stdout:
      (L1 slack rows on da), lifted; kernels as phase 38; B=512 seeds
      (0.1-σ control noise), 40 iterations; frac at infidelity <= BB_BAR
      >= BB_GATE, and the median count of |da| > 5e-2 no larger than the
-     hadamard path's (phase 4); launches as phase 38.
+     hadamard path's (phase 4); launches as phase 38;
+ 40. kernels at the density shapes (example 05's open-system problem:
+     drift Z, drives X and Y, one dissipator 0.05 a, ρ0 = |0⟩⟨0|, the goal
+     |1⟩, T=30, Δt=0.2 free, Q=100, R=1e-2: d=15, s=13, m=0, the AD route):
+     kernels 2 and 3 on the first iteration's AD-route blocks as phase 3,
+     that iteration's real KKT system against float64 as phase 5; in
+     float64 on the card, lindblad_action against the dense generator's
+     product and the "expv" open rollout against the "expm" one, on the
+     seeds' controls and states;
+ 41. main path, density: B=512 seeds (0.1-σ control noise), DN_ITERS
+     iterations after a discarded warm-up; the float64 open-rollout
+     fidelity ⟨ψ|ρ_T|ψ⟩ of every instance (frac at infidelity <= DN_BAR
+     >= DN_GATE, and a median infidelity below the seeds'); launches
+     against the prediction from the run's KKT attempts A (kernels 2 and
+     3: A + 1, kernels 1, 4 and 5: 0).
 The sweep rows of phases 18, 21, 23, 26, 28 and 30-34 also give device_ms (a CUDA graph of
 the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
@@ -246,6 +260,15 @@ LIVE_ITERS = 5
 # CPU (B=16, scripts/free_phase_gate_jax.py)
 FP_T, FP_ITERS, FPM_ITERS, FPM_FLOOR, BB_T, BB_ITERS = 31, 60, 100, 0.98, 51, 40
 FP_GATE, FPM_GATE, BB_BAR, BB_GATE = 0.9, 0.9, 1e-1, 0.9
+# the density path (phases 40-41): T, iterations and its gate, fixed from
+# the JAX package's float32 solves of the same problem and seeds on the CPU
+# (scripts/density_gate_jax.py): after 300 iterations 47 of 48 instances
+# at infidelity 1e-2 (15 of 16 at B=16); the Lindblad decay keeps every
+# instance's infidelity above ~4e-3 there
+DN_T, DN_ITERS, DN_BAR, DN_GATE = 30, 300, 1e-2, 0.9
+# float64 agreement on the card of lindblad_action with the dense
+# generator's product, and of the "expv" open rollout with the "expm" one
+DN_ACTION_TOL, DN_EXPV_TOL = 1e-12, 1e-10
 LIVE_HEADER = ("iter      objective    inf_pr    inf_du  lg(mu)     ||d||  lg(rg)  alpha_du  "
                "alpha_pr  ls")
 # float32 tolerances, relative to the largest entry of the plain output:
@@ -2128,6 +2151,79 @@ def main():
         fail(f"bang_bang frac@{BB_BAR} {float(np.mean(infidbb <= BB_BAR))} < {BB_GATE}, or "
              f"its median |da| > 5e-2 count {da_bb} above the hadamard path's {da_had}")
 
+    # ---- 40. kernels at the density shapes --------------------------------- #
+    probdn = bu.density_problem(T=DN_T)
+    solverdn = probdn.solver
+    ndn, sysdn, trdn = solverdn.nlp, probdn.system, probdn.trajectory
+    modes = (ndn.analytic is None, solverdn.fused_assembly_on, solverdn.kkt_refine_n,
+             solverdn.kkt_aug_on, ndn.d, ndn.s, ndn.m)
+    if modes != (True, False, 0, False, 15, 13, 0):
+        fail(f"density modes (AD route, fused, refine, lift, d, s, m) {modes} != "
+             f"(True, False, 0, False, 15, 13, 0)")
+
+    def seedsdn(seed):
+        return bu.density_seeds(probdn, B, seed)
+
+    with torch.no_grad():
+        _, _, realdn, _ = first_iteration(solverdn, seedsdn(7))
+        resultsdn = sweep_entries(realdn, B, DN_T, delta_c, factors=False, device=True)
+    finish(resultsdn, bw, f32_peak)
+    shapesdn = {"B": B, "T": DN_T, "d": ndn.d, "s": ndn.s, "m": 0, "dtype": "float32"}
+    for name, r in resultsdn.items():
+        emit({"phase": "kernel", "path": "density", "name": name,
+              "shapes": r.pop("shapes", shapesdn), "blocks": "AD route", **r})
+    bad = [n for n, r in resultsdn.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the density shapes: {bad}")
+    kkt_reference("density", realdn)
+    Zdn0 = seedsdn(42)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    a_dn, dt_dn = Zdn0[:, :, trdn.comp_slice("a")], Zdn0[:, :, trdn.comp_slice("Δt")][:, :, 0]
+    a64 = torch.as_tensor(a_dn, **f64)
+    rho64 = torch.as_tensor(Zdn0[:, :, trdn.comp_slice("ρ⃗̃")], **f64)
+    act = sysdn.lindblad_action(a64, rho64)
+    dense = (sysdn.lindblad_generator(a64) @ rho64.unsqueeze(-1)).squeeze(-1)
+    err_act = float((act - dense).abs().max())
+    r0dn = trdn.initial["ρ⃗̃"]
+    roll = {integ: q.open_rollout(r0dn, a_dn, dt_dn, sysdn, integrator=integ, device="cuda")
+            for integ in ("expm", "expv")}
+    err_expv = float((roll["expv"] - roll["expm"]).abs().max())
+    emit({"phase": "lindblad_check", "path": "density", "batch": B, "T": DN_T,
+          "action_max_abs_err_vs_dense": err_act, "action_tol": DN_ACTION_TOL,
+          "expv_max_abs_err_vs_expm": err_expv, "expv_tol": DN_EXPV_TOL,
+          "dtype": "float64", "krylov_dim": 24, "substeps": 8})
+    if not (err_act <= DN_ACTION_TOL and err_expv <= DN_EXPV_TOL):
+        fail(f"density: lindblad_action off the dense generator by {err_act}, or the expv "
+             f"rollout off the expm one by {err_expv}")
+
+    # ---- 41. density main path ---------------------------------------------- #
+    solverdn.solve(seedsdn(6), max_iter=NEW_WARM)  # discarded warm-up
+    resdn, walldn, countsdn, itdn, attdn = timed_run(solverdn, Zdn0, DN_ITERS)
+    Zsdn = checked_solution("density", resdn, (B, DN_T, ndn.d))
+    infdn = 1.0 - bu.density_fidelity(probdn, Zsdn, device="cuda")
+    infdn0 = 1.0 - bu.density_fidelity(probdn, Zdn0, device="cuda")
+    fracdn = float(np.mean(infdn <= DN_BAR))
+    frdn = {f"frac_infid_{t}": float(np.mean(infdn <= float(t)))
+            for t in ("5e-3", "1e-2", "2e-2", "5e-2", "1e-1")}
+    preddn = {"kkt_fwd_sweep": attdn + 1, "kkt_bwd_sweep": attdn + 1, "kkt_rhs_fwd_sweep": 0,
+              "dyn_assembly": 0, "prop_bank": 0}
+    emit({"phase": "main_path", "path": "density", "batch": B, "T": DN_T, "ipm_iters": itdn,
+          "wall_s": walldn, "ipm_ms_per_iter": 1e3 * walldn / max(itdn, 1), **frdn,
+          "gate": {"bar": DN_BAR, "frac": DN_GATE}, "frac_at_bar": fracdn,
+          "solves_per_s_at_bar": B * fracdn / walldn,
+          "median_infid": float(np.median(infdn)), "min_infid": float(infdn.min()),
+          "seeds_median_infid": float(np.median(infdn0)),
+          "infid_quantiles": [float(x) for x in np.quantile(infdn, [0.0, 0.1, 0.5, 0.9, 1.0])],
+          "ipm_converged_frac": float(resdn.converged.float().mean()),
+          **launch_fields(countsdn, preddn, itdn, attdn)})
+    emit({"phase": "launches_per_iter", "path": "density",
+          **{k: v / max(itdn, 1) for k, v in countsdn.items()}})
+    if any(countsdn[k] != v for k, v in preddn.items()):
+        fail(f"density launches {countsdn} != the prediction {preddn}")
+    if fracdn < DN_GATE or not np.median(infdn) < np.median(infdn0):
+        fail(f"density frac@{DN_BAR} {fracdn} < {DN_GATE}, or median infidelity "
+             f"{np.median(infdn)} not below the seeds' {np.median(infdn0)}")
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -2152,6 +2248,7 @@ def main():
     entries += [("free_phase", n, r, countsfp) for n, r in resultsfp.items()]
     entries += [("free_phase_min_time", n, r, countsmf) for n, r in resultsmf.items()]
     entries += [("bang_bang", n, r, countsbb) for n, r in resultsbb.items()]
+    entries += [("density", n, r, countsdn) for n, r in resultsdn.items()]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],

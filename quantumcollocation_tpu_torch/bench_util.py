@@ -1,6 +1,6 @@
 """Seeded KKT blocks, the propagator bank's inputs, CUDA timing, and the
 hadamard, cnot, su4, min_time, leakage, sampling, robustness, free_phase,
-free_phase_min_time and bang_bang problems (the first two also in other
+free_phase_min_time, bang_bang and density problems (the first two also in other
 solver modes) with their seeds and float64 checks, shared by
 chip_smoke.py, profile_step, the build comparison (sweep_builds) and the
 GPU tests."""
@@ -19,7 +19,8 @@ __all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "had
            "sampling_plain_problem", "sampling_seeds", "zeta_sweep_fidelity",
            "robustness_problem", "robustness_seeds", "magnus_cost", "free_phase_problem",
            "free_phase_seeds", "free_phase_min_time_problem", "free_phase_fidelity",
-           "bang_bang_problem", "da_count"]
+           "bang_bang_problem", "da_count", "DENSITY_GOAL", "density_system",
+           "density_problem", "density_seeds", "density_fidelity"]
 
 
 def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
@@ -455,3 +456,48 @@ def bang_bang_problem(T=51, dt=0.2, phase=False, device=None, **solver_options):
 def da_count(Z, da_slice, threshold=5e-2):
     """(B,) count of the entries |da| > threshold of each solution."""
     return (np.abs(np.asarray(Z)[:, :, da_slice]) > threshold).sum(axis=(1, 2))
+
+
+DENSITY_GOAL = np.array([0.0, 1.0], dtype=complex)  # example 05's goal ket |1⟩
+
+
+def density_system():
+    """Example 05's open system: drift Z, drives X and Y, one dissipator
+    0.05 a (a the two-level annihilation operator)."""
+    from . import PAULIS, OpenQuantumSystem, annihilate
+
+    return OpenQuantumSystem(PAULIS["Z"], [PAULIS["X"], PAULIS["Y"]], [0.05 * annihilate(2)])
+
+
+def density_problem(T=30, dt=0.2, device=None, **solver_options):
+    """Example 05's open-system problem: density_system, ρ0 = |0⟩⟨0|, the
+    goal |1⟩, T=30, Δt=0.2 free, Q=100, R=1e-2 (the template's defaults),
+    tol 1e-6, κ_μ 0.2, filter line search, rng default_rng(0), with
+    solver_options (e.g. dtype).  The density integrator takes the AD
+    route."""
+    from . import DensityOperatorSmoothPulseProblem, PiccoloOptions
+
+    return DensityOperatorSmoothPulseProblem(
+        density_system(), np.array([[1, 0], [0, 0]], dtype=complex), DENSITY_GOAL, T, dt,
+        ipopt_options=_options(tol=1e-6, **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+        device=device,
+    )
+
+
+def density_seeds(prob, B, seed):
+    """(B, T, d) seeds: the initial decision with 0.1 N(0, 1) noise on the
+    interior controls, drawn from default_rng(seed)."""
+    return _control_noise(prob, B, seed, 0.1)
+
+
+def density_fidelity(prob, Z, device="cpu"):
+    """(B,) float64 open-rollout fidelities ⟨ψ|ρ_T|ψ⟩ of a density
+    problem's solutions Z (B, T, d), ψ = DENSITY_GOAL."""
+    from . import batched_open_rollout_fidelity
+
+    traj = prob.trajectory
+    Z = np.asarray(Z, dtype=np.float64)
+    return batched_open_rollout_fidelity(
+        Z[:, :, traj.comp_slice("a")], Z[:, :, traj.comp_slice("Δt")][:, :, 0], prob.system,
+        DENSITY_GOAL, traj.initial["ρ⃗̃"], device=device)

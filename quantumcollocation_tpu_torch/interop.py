@@ -6,7 +6,8 @@ Hamiltonians and generators, the trajectory with its bounds and pins, the
 initial decision Z0, the solver's variable, defect, inequality-row and
 objective scales, each integrator's class, Padé order and squaring count,
 the Hamiltonians of every propagator integrator's system (one per sampled
-system) and a robustness accumulator's error Hamiltonian, the inequality
+system), an open system's dissipators and a robustness accumulator's
+error Hamiltonian, the inequality
 constraints (fidelity floors: class, state name, floor, subspace; L1 slack
 rows: class, names, indices) with m, the MinimumTimeObjective's weight,
 the goals of a multigoal batch, an embedded goal's subspace and levels,
@@ -31,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .problems.density_operator_smooth_pulse import DensityOperatorSmoothPulseProblem
 from .problems.multigoal import UnitaryMultiGoalProblem
 from .problems.quantum_state_minimum_time import QuantumStateMinimumTimeProblem
 from .problems.quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
@@ -40,8 +42,8 @@ from .problems.unitary_robustness import UnitaryRobustnessProblem
 from .problems.unitary_sampling import UnitarySamplingProblem
 from .problems.unitary_smooth_pulse import UnitarySmoothPulseProblem
 from .quantum.embedded import EmbeddedOperator, unembed
-from .quantum.isomorphisms import iso_to_ket, iso_vec_to_operator
-from .quantum.systems import QuantumSystem
+from .quantum.isomorphisms import iso_to_ket, iso_vec_to_density, iso_vec_to_operator
+from .quantum.systems import OpenQuantumSystem, QuantumSystem
 from .solver.options import PiccoloOptions
 from .trajectory.named_trajectory import NamedTrajectory
 
@@ -57,6 +59,7 @@ __all__ = [
     "unitary_sampling_from_arrays",
     "unitary_robustness_from_arrays",
     "unitary_bang_bang_from_arrays",
+    "density_operator_smooth_pulse_from_arrays",
 ]
 
 
@@ -125,6 +128,8 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None,
     return {
         "H_drift": np.asarray(prob.system.H_drift),
         "H_drives": np.asarray(prob.system.H_drives),
+        "L_dissipators": (None if getattr(prob.system, "L_dissipators", None) is None
+                          else np.asarray(prob.system.L_dissipators)),
         "G_drift": np.asarray(prob.system.G_drift),
         "G_drives": np.asarray(prob.system.G_drives),
         "data": np.asarray(traj.data, dtype=np.float64),
@@ -423,5 +428,32 @@ def unitary_bang_bang_from_arrays(
         init_trajectory=traj, Q=Q, R=R, R_bang_bang=R_bang_bang, ipopt_options=ipopt_options,
         piccolo_options=_free_time(traj, piccolo_options),
         device=device, **_phases(arrays),
+    )
+    return _checked(prob, arrays, rtol)
+
+
+def density_operator_smooth_pulse_from_arrays(
+    arrays, *, Q, R, ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    DensityOperatorSmoothPulseProblem built with the same Q and R (and the
+    default state name ρ⃗̃): the open
+    system from the source's Hamiltonians and dissipators, rho_init from
+    the trajectory's initial density and the goal ket from its (pure)
+    goal density, |ψ⟩ its leading eigenvector (the objective reads only
+    |ψ⟩⟨ψ|).  Raises as unitary_smooth_pulse_from_arrays."""
+    traj = trajectory_from_arrays(arrays)
+    system = OpenQuantumSystem(arrays["H_drift"], list(arrays["H_drives"]),
+                               list(arrays["L_dissipators"]))
+    if not (np.allclose(system.G_drift, arrays["G_drift"])
+            and np.allclose(system.G_drives, arrays["G_drives"])):
+        raise ValueError("iso generators differ from the source problem's")
+    rho_goal = iso_vec_to_density(np.asarray(traj.goal["ρ⃗̃"]))
+    psi_goal = np.linalg.eigh(rho_goal)[1][:, -1]
+    prob = DensityOperatorSmoothPulseProblem(
+        system, iso_vec_to_density(np.asarray(traj.initial["ρ⃗̃"])), psi_goal, traj.T,
+        float(np.mean(traj.get_timesteps())), init_trajectory=traj, Q=Q, R=R,
+        ipopt_options=ipopt_options, piccolo_options=_free_time(traj, piccolo_options),
+        device=device,
     )
     return _checked(prob, arrays, rtol)

@@ -2,7 +2,8 @@
 
 Counterpart of quantumcollocation_tpu/objectives/objectives.py
 (UnitaryInfidelityObjective, UnitaryFreePhaseInfidelityObjective,
-QuantumStateObjective, QuadraticRegularizer,
+QuantumStateObjective, DensityOperatorPureStateInfidelityObjective,
+QuadraticRegularizer,
 QuadraticSmoothnessRegularizer, L1Regularizer, MinimumTimeObjective,
 UnitaryRobustnessObjective).  A term is classified by its stage structure
 so the problem compiler keeps the KKT system block-tridiagonal:
@@ -29,7 +30,9 @@ import torch
 
 from ..quantum.fidelities import (
     _stack_ops,
+    density_fidelity_coefficients,
     iso_fidelity,
+    iso_vec_density_pure_state_fidelity,
     iso_vec_unitary_fidelity,
     iso_vec_unitary_free_phase_fidelity,
 )
@@ -40,6 +43,7 @@ __all__ = [
     "UnitaryInfidelityObjective",
     "UnitaryFreePhaseInfidelityObjective",
     "QuantumStateObjective",
+    "DensityOperatorPureStateInfidelityObjective",
     "QuadraticRegularizer",
     "QuadraticSmoothnessRegularizer",
     "L1Regularizer",
@@ -145,6 +149,26 @@ def QuantumStateObjective(name, traj, Q=100.0):
 
     return Objective(
         (ObjectiveTerm("terminal", make, float(Q), f"state_infidelity[{name}]"),)
+    )
+
+
+def DensityOperatorPureStateInfidelityObjective(name, psi_goal, *, Q=100.0, traj=None):
+    """Q (1 - <psi|rho_T|psi>) on the density iso vec, in real arithmetic."""
+    if traj is None:
+        raise ValueError("traj is needed to find the density component")
+    start, stop = traj.components[name]
+    coeffs = density_fidelity_coefficients(psi_goal)
+
+    def make(dtype, device):
+        c = tuple(torch.as_tensor(x, dtype=dtype, device=device) for x in coeffs)
+
+        def fn(zT, globals_=None):
+            return 1.0 - iso_vec_density_pure_state_fidelity(zT[start:stop], None, c)
+
+        return fn
+
+    return Objective(
+        (ObjectiveTerm("terminal", make, float(Q), f"density_infidelity[{name}]"),)
     )
 
 

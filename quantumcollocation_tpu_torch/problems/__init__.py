@@ -1,3 +1,4 @@
+from .density_operator_smooth_pulse import DensityOperatorSmoothPulseProblem
 from .multigoal import (
     UnitaryMultiGoalProblem,
     multigoal_initial_decisions,
@@ -14,6 +15,7 @@ from .unitary_sampling import UnitarySamplingProblem, UnitarySamplingProblemFrom
 from .unitary_smooth_pulse import UnitarySmoothPulseProblem
 
 __all__ = [
+    "DensityOperatorSmoothPulseProblem",
     "QuantumControlProblem",
     "QuantumStateMinimumTimeProblem",
     "QuantumStateSmoothPulseProblem",

@@ -34,13 +34,14 @@ import torch
 
 from ..dynamics import integrators as igs
 from ..dynamics.integrators import (
+    DensityOperatorExponentialIntegrator,
     DerivativeIntegrator,
     QuantumStateExponentialIntegrator,
     QuantumStatePadeIntegrator,
     UnitaryExponentialIntegrator,
     UnitaryPadeIntegrator,
 )
-from ..dynamics.rollouts import rollout, unitary_rollout
+from ..dynamics.rollouts import open_rollout, rollout, unitary_rollout
 from ..objectives.constraints import (
     AbstractConstraint,
     FinalUnitaryFreePhaseFidelityConstraint,
@@ -215,7 +216,8 @@ class QuantumControlProblem:
                 idx.update(range(*traj.components[name]))
 
         propagators = (igs.UnitaryExponentialIntegrator, igs.UnitaryPadeIntegrator,
-                       igs.QuantumStateExponentialIntegrator, igs.QuantumStatePadeIntegrator)
+                       igs.QuantumStateExponentialIntegrator, igs.QuantumStatePadeIntegrator,
+                       igs.DensityOperatorExponentialIntegrator)
         for ig in self.integrators:
             ig_t = getattr(ig, "timestep_name", None) or tname
             if isinstance(ig, propagators):
@@ -296,6 +298,8 @@ class QuantumControlProblem:
                 roll = unitary_rollout
             elif isinstance(ig, (QuantumStateExponentialIntegrator, QuantumStatePadeIntegrator)):
                 roll = rollout
+            elif isinstance(ig, DensityOperatorExponentialIntegrator):
+                roll = open_rollout
             else:
                 continue
             s_sl = traj.comp_slice(ig.state_name)

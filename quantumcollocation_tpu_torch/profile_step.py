@@ -2,7 +2,8 @@
 
     python -m quantumcollocation_tpu_torch.profile_step
         [--config hadamard|hadamard_lbfgs|hadamard_scan|hadamard_gn|cnot|cnot_soc|ket_exp|
-                  cnot_exp|su4|min_time|leakage|sampling|robustness|free_phase|bang_bang]
+                  cnot_exp|su4|min_time|leakage|sampling|robustness|free_phase|bang_bang|
+                  density]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -33,7 +34,10 @@ and robustness_seeds) or "free_phase" (an X-only drive to the Y gate up to
 a global Z phase, T=31, B=512, d=13 with the phase column;
 bench_util.free_phase_problem and free_phase_seeds) or "bang_bang"
 (UnitaryBangBangProblem, H, T=51, B=512, d=15, m=4 L1 rows, lifted;
-bench_util.bang_bang_problem, hadamard's seeds), float32 on CUDA.  Runs two warm-up iterations
+bench_util.bang_bang_problem, hadamard's seeds) or "density" (example 05's
+open-system problem: the Lindblad density ρ⃗̃ of a damped qubit, |0⟩ to |1⟩,
+T=30, B=512, d=15: the AD route; bench_util.density_problem and
+density_seeds), float32 on CUDA.  Runs two warm-up iterations
 (eight for hadamard_lbfgs), then profiles `--steps` iterations with
 torch.profiler and prints one JSON line: host wall per iteration,
 device-busy time per iteration (the sum of kernel times), the idle share,
@@ -90,6 +94,9 @@ def build(config, batch):
     if config == "free_phase":
         prob = bu.free_phase_problem()
         return prob.solver, bu.free_phase_seeds(prob, batch or 512, 42)
+    if config == "density":
+        prob = bu.density_problem()
+        return prob.solver, bu.density_seeds(prob, batch or 512, 42)
     if config == "bang_bang":
         prob = bu.bang_bang_problem()
         return prob.solver, bu.hadamard_seeds(prob, batch or 512, 42)
@@ -131,7 +138,7 @@ def main():
     ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan",
                                          "hadamard_gn", "cnot", "cnot_soc", "ket_exp",
                                          "cnot_exp", "su4", "min_time", "leakage", "sampling",
-                                         "robustness", "free_phase", "bang_bang"),
+                                         "robustness", "free_phase", "bang_bang", "density"),
                     default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)

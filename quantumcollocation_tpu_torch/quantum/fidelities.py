@@ -2,7 +2,9 @@
 
 Counterpart of quantumcollocation_tpu/quantum/fidelities.py::fidelity,
 iso_fidelity, iso_vec_unitary_fidelity, free_phase_iso_rotation and
-iso_vec_unitary_free_phase_fidelity.  The iso functions work on
+iso_vec_unitary_free_phase_fidelity, and the density fidelities
+density_pure_state_fidelity and iso_vec_density_pure_state_fidelity.  The
+iso functions work on
 torch tensors (the objective path, differentiable under torch.func) and on
 numpy arrays.  A `subspace` restricts the unitary fidelities to the block
 U[idx, idx] and divides by len(idx); on tensors it is a gather by an index
@@ -25,6 +27,8 @@ __all__ = [
     "iso_vec_unitary_fidelity",
     "free_phase_iso_rotation",
     "iso_vec_unitary_free_phase_fidelity",
+    "density_pure_state_fidelity",
+    "iso_vec_density_pure_state_fidelity",
 ]
 
 
@@ -150,3 +154,30 @@ def iso_vec_unitary_free_phase_fidelity(U_iso_vec, U_goal_iso_vec, phases, phase
     RU = R @ iso_vec_to_iso_operator(U_iso_vec)
     return _trace_fidelity(_iso_operator_reim(RU, subspace),
                            _iso_vec_reim(U_goal_iso_vec, subspace))
+
+
+def density_pure_state_fidelity(rho, psi_goal):
+    """<psi|rho|psi> for a complex numpy density matrix."""
+    psi = np.asarray(psi_goal)
+    return np.real(psi.conj() @ np.asarray(rho) @ psi)
+
+
+def density_fidelity_coefficients(psi_goal):
+    """(c_re, c_im) numpy with <psi|rho|psi> = v[:N²]·c_re - v[N²:]·c_im on
+    the density iso vec v: v[c N + r] holds rho[r, c], and <psi|rho|psi> =
+    sum_rc rho[r, c] W[c, r] with W = psi psi^†."""
+    psi = np.asarray(psi_goal, dtype=complex)
+    W = np.outer(psi, psi.conj())
+    return np.ascontiguousarray(W.real.reshape(-1)), np.ascontiguousarray(W.imag.reshape(-1))
+
+
+def iso_vec_density_pure_state_fidelity(rho_iso_vec, psi_goal, coefficients=None):
+    """<psi|rho|psi> on density iso vecs (..., 2N²) in real arithmetic;
+    coefficients, where given, are density_fidelity_coefficients(psi_goal)
+    already on the tensors' device (build them once on a hot path)."""
+    v = rho_iso_vec
+    c_re, c_im = density_fidelity_coefficients(psi_goal) if coefficients is None else coefficients
+    n2 = c_re.shape[-1]
+    if isinstance(v, torch.Tensor):
+        c_re, c_im = (torch.as_tensor(c, dtype=v.dtype, device=v.device) for c in (c_re, c_im))
+    return (v[..., :n2] * c_re).sum(-1) - (v[..., n2:] * c_im).sum(-1)

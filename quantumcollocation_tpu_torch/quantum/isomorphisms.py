@@ -1,12 +1,14 @@
 """Real isomorphisms of complex quantum objects.
 
-Counterpart of quantumcollocation_tpu/quantum/isomorphisms.py (ket,
-unitary and generator parts).  Layouts:
+Counterpart of quantumcollocation_tpu/quantum/isomorphisms.py.  Layouts:
 
 - ket psi (N,) -> [Re psi; Im psi] (2N,)
 - unitary U (N, N) -> iso operator [Re U; Im U] (2N, N) -> iso vec of its
   columns, iso_vec[c*2N + r] = [Re U; Im U][r, c]
+- density rho (N, N) -> [Re vec rho; Im vec rho] (2N^2,), vec column-major
 - G(H) = [[Im H, Re H], [-Re H, Im H]], the real generator of -i H
+- iso_D(H, Ls), the real (2N^2, 2N^2) Lindblad superoperator on density
+  iso vecs
 
 Functions take numpy arrays and return numpy (problem construction), or
 torch tensors and return torch (the solver path), by the input type.
@@ -26,7 +28,11 @@ __all__ = [
     "iso_vec_to_iso_operator",
     "operator_to_iso_vec",
     "iso_vec_to_operator",
+    "density_to_iso_vec",
+    "iso_vec_to_density",
     "iso_G",
+    "mat_to_iso",
+    "iso_D",
 ]
 
 
@@ -96,3 +102,45 @@ def iso_G(H):
     top = np.concatenate([B, A], axis=-1)
     bot = np.concatenate([-A, B], axis=-1)
     return np.concatenate([top, bot], axis=-2)
+
+
+def density_to_iso_vec(rho):
+    """Complex density matrix (..., N, N) -> real iso vec (..., 2N^2) =
+    [Re vec; Im vec], vec column-major, so that vec(A rho B) =
+    kron(B^T, A) vec(rho)."""
+    if not isinstance(rho, torch.Tensor):
+        rho = np.asarray(rho)
+    vec = _swap(rho).reshape(*rho.shape[:-2], -1)
+    return _cat([vec.real, vec.imag], -1)
+
+
+def iso_vec_to_density(v):
+    """Real iso vec (..., 2N^2) -> complex density matrix (..., N, N)."""
+    n2 = v.shape[-1] // 2
+    n = int(round(n2**0.5))
+    vec = v[..., :n2] + 1j * v[..., n2:]
+    return _swap(vec.reshape(*vec.shape[:-1], n, n))
+
+
+def mat_to_iso(M):
+    """Complex matrix -> real iso [[Re, -Im], [Im, Re]], the action of M on
+    [Re v; Im v] stacked vectors."""
+    if not isinstance(M, torch.Tensor):
+        M = np.asarray(M)
+    A, B = M.real, M.imag
+    return _cat([_cat([A, -B], -1), _cat([B, A], -1)], -2)
+
+
+def iso_D(H, dissipators):
+    """Lindblad generator as a real iso superoperator (2N^2, 2N^2) (host
+    numpy): d/dt density_to_iso_vec(rho) = iso_D(H, Ls) @ it for
+    L(rho) = -i[H, rho] + sum_k (L rho L^† - 1/2 {L^†L, rho})."""
+    H = np.asarray(H, dtype=np.complex128)
+    n = H.shape[-1]
+    eye = np.eye(n, dtype=H.dtype)
+    S = -1j * (np.kron(eye, H) - np.kron(H.T, eye))
+    for L in dissipators:
+        L = np.asarray(L, dtype=np.complex128)
+        LdL = L.conj().T @ L
+        S = S + np.kron(L.conj(), L) - 0.5 * np.kron(eye, LdL) - 0.5 * np.kron(LdL.T, eye)
+    return mat_to_iso(S)

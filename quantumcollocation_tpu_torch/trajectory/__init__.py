@@ -2,6 +2,7 @@ from .directsums import add_suffix, get_suffix, merge, remove_suffix
 from .indexing import comp_slice_at, index, slice_at
 from .initialization import (
     initialize_control_trajectory,
+    initialize_density_trajectory,
     initialize_state_trajectory,
     initialize_trajectory,
     initialize_unitary_trajectory,
@@ -18,6 +19,7 @@ __all__ = [
     "get_suffix",
     "index",
     "initialize_control_trajectory",
+    "initialize_density_trajectory",
     "initialize_state_trajectory",
     "initialize_trajectory",
     "initialize_unitary_trajectory",

@@ -1,9 +1,10 @@
-"""Initial guesses for unitary and ket trajectories (host numpy, build
-time only).
+"""Initial guesses for unitary, ket and density trajectories (host numpy,
+build time only).
 
 Counterpart of quantumcollocation_tpu/trajectory/initialization.py:
-unitary geodesic (or linear) state guess, ket linear interpolation, or
-either state's rollout under a given control guess, plus random bounded
+unitary geodesic (or linear) state guess, ket or density linear
+interpolation, or any of these states' rollout under a given control
+guess, plus random bounded
 controls or the derivative chain of a given guess.  An EmbeddedOperator
 goal takes its geodesic in the subspace, embedded back with the identity
 on the leakage levels.  With phase_operators, the trajectory carries the
@@ -20,9 +21,9 @@ from typing import Sequence
 import numpy as np
 import scipy.linalg as sla
 
-from ..dynamics.rollouts import rollout, unitary_rollout
+from ..dynamics.rollouts import open_rollout, rollout, unitary_rollout
 from ..quantum.embedded import EmbeddedOperator, embed, unembed
-from ..quantum.isomorphisms import ket_to_iso, operator_to_iso_vec
+from ..quantum.isomorphisms import density_to_iso_vec, ket_to_iso, operator_to_iso_vec
 from .named_trajectory import NamedTrajectory, derivative
 
 __all__ = [
@@ -32,6 +33,7 @@ __all__ = [
     "initialize_trajectory",
     "initialize_unitary_trajectory",
     "initialize_state_trajectory",
+    "initialize_density_trajectory",
 ]
 
 
@@ -239,5 +241,30 @@ def initialize_state_trajectory(
         states = [linear_interpolation(i0, g0, T) for i0, g0 in zip(iso_inits, iso_goals)]
     return initialize_trajectory(
         states, iso_inits, iso_goals, state_names, T, dt, n_drives, control_bounds,
+        a_guess=a_guess, rng=rng, **kwargs,
+    )
+
+
+def initialize_density_trajectory(
+    rho_init, rho_goal, T: int, dt, n_drives: int, control_bounds, *,
+    state_name: str = "ρ⃗̃", a_guess=None, system=None, rollout_integrator: str = "expm",
+    rng=None, **kwargs,
+) -> NamedTrajectory:
+    """Density trajectory: the linear interpolation between the iso vecs of
+    rho_init and rho_goal, or the open rollout of a_guess (T, n_drives)
+    under system's dynamics ("expm" or "expv"), with random controls drawn
+    from rng (else default_rng(0)) or a_guess's control chain."""
+    v_init = density_to_iso_vec(np.asarray(rho_init, dtype=complex))
+    v_goal = density_to_iso_vec(np.asarray(rho_goal, dtype=complex))
+    if a_guess is None:
+        data = linear_interpolation(v_init, v_goal, T)
+    else:
+        if system is None:
+            raise ValueError("a system is needed to roll out a_guess")
+        dts = np.full((T,), float(dt)) if np.isscalar(dt) else np.asarray(dt).reshape(-1)
+        data = open_rollout(v_init, np.asarray(a_guess), dts, system,
+                            integrator=rollout_integrator).numpy()
+    return initialize_trajectory(
+        [data], [v_init], [v_goal], [state_name], T, dt, n_drives, control_bounds,
         a_guess=a_guess, rng=rng, **kwargs,
     )

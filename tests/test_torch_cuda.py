@@ -14,6 +14,7 @@ import torch
 import quantumcollocation_tpu_torch as qt
 from quantumcollocation_tpu_torch import bench_util as bu
 from quantumcollocation_tpu_torch.bench_util import seeded_bank, seeded_kkt
+from quantumcollocation_tpu_torch.dynamics.expv import expv_krylov
 from quantumcollocation_tpu_torch.ops import build
 from quantumcollocation_tpu_torch.ops import dyn_assembly as da
 from quantumcollocation_tpu_torch.ops import prop_bank as pb
@@ -1151,3 +1152,98 @@ def test_free_phase_paths_solve_on_the_card(cuda):
     c = dict(build.launch_counts)
     assert torch.isfinite(res.Z).all() and bb.solver.nlp.d == 16
     assert c["dyn_assembly"] >= bb.solver.last_steps > 0 and c["kkt_rhs_fwd_sweep"] > 0, c
+
+
+@pytest.mark.parametrize("Bt", [133, 512])  # 133: not a multiple of a block's instances
+def test_sweeps_on_the_density_ad_route_blocks(cuda, monkeypatch, Bt):
+    # kernels 2 and 3 on example 05's open-system problem's first-iteration
+    # blocks from the AD route (d=15, s=13, m=0), at each instance's
+    # accepted δ_w and one above it, outputs into memory poisoned with NaN.
+    # These blocks' factors reach ~1e4 (most instances need δ_w ~2e2 at the
+    # first iteration), where the kernel and its plain version differ by up
+    # to ~3e-2 of the largest entry in float32 rounding alone, so the
+    # kernel path's solves are held, as chip_smoke.py's reference phases and
+    # the robustness blocks' test hold them, against the float64 solve of
+    # the same float32 blocks: no worse than ten times the plain float32
+    # solve's error, finite exactly on the instances it reports solved
+    prob = bu.density_problem(T=30, device=cuda)
+    s = prob.solver
+    assert s.nlp.analytic is None and (s.nlp.d, s.nlp.s, s.nlp.m) == (15, 13, 0)
+    assert (s.fused_assembly_on, s.kkt_refine_n, s.kkt_aug_on) == (False, 0, False)
+    st = s.init_state(bu.density_seeds(prob, Bt, 7))
+    kkt, _ = s._iteration_pre(st)
+    dw = s._solve_kkt_batched(kkt, st.delta_w, st, False)[3]
+    H, C, A, B, rz, rnu = [x.contiguous() for x in kkt]
+    eye = torch.eye(15, device=cuda)
+    full = torch.full
+    for shift in (dw, dw + 1.0):
+        real = [(H + shift[:, None, None, None] * eye).contiguous(), C, A, B, rz, rnu]
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "empty", lambda *shape, **k: full(
+                shape[0] if len(shape) == 1 and not isinstance(shape[0], int) else shape,
+                float("nan"), **k))
+            before = dict(build.launch_counts)
+            dz, nu, ok = kl.solve_kkt_lanes(*real, 1e-8)
+        torch.cuda.synchronize()
+        assert build.launch_counts["kkt_fwd_sweep"] == before["kkt_fwd_sweep"] + 1
+        assert build.launch_counts["kkt_bwd_sweep"] == before["kkt_bwd_sweep"] + 1
+        finite = torch.isfinite(dz).flatten(1).all(1) & torch.isfinite(nu).flatten(1).all(1)
+        assert torch.equal(finite, ok)
+        plain = solve_kkt(*real, 1e-8)
+        ref64 = solve_kkt(*[x.double() for x in real], 1e-8)
+        keep = ok & plain[2] & ref64[2]
+        assert int(keep.sum()) >= Bt - Bt // 100
+        for k_out, p_out, r_out in zip((dz, nu), plain[:2], ref64[:2]):
+            scale = max(1.0, r_out[keep].abs().max().item())
+            e_k = (k_out[keep].double() - r_out[keep]).abs().max().item() / scale
+            e_p = (p_out[keep].double() - r_out[keep]).abs().max().item() / scale
+            assert e_k <= 10 * e_p + 1e-6, (e_k, e_p)
+
+
+def test_lindblad_action_and_expv_on_the_card(cuda):
+    # an open three-level system with two dissipators: float64 on the card
+    # as on the CPU; float32 on the card within float32 rounding
+    rng = np.random.default_rng(4)
+
+    def herm(M):
+        return 0.5 * (M + np.swapaxes(M, -1, -2).conj())
+
+    cplx = lambda *shape: rng.standard_normal(shape) + 1j * rng.standard_normal(shape)  # noqa
+    sysq = qt.OpenQuantumSystem(herm(cplx(3, 3)), list(herm(cplx(2, 3, 3))),
+                                [0.3 * cplx(3, 3), 0.3 * cplx(3, 3)])
+    a = torch.as_tensor(rng.uniform(-1, 1, (64, 2)), dtype=torch.float64)
+    v = torch.as_tensor(rng.standard_normal((64, 18)), dtype=torch.float64)
+    t = torch.as_tensor(rng.uniform(0.1, 1.0, 64), dtype=torch.float64)
+    cpu_act = sysq.lindblad_action(a, v)
+    cpu_expv = expv_krylov(t, None, v, substeps=2, matvec=lambda x: sysq.lindblad_action(a, x))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        ac, vc, tc = (x.to(device=cuda, dtype=dtype) for x in (a, v, t))
+        act = sysq.lindblad_action(ac, vc)
+        assert act.dtype == dtype and act.device.type == cuda.type
+        _close_rel(act.double().cpu(), cpu_act, tol)
+        out = expv_krylov(tc, None, vc, substeps=2,
+                          matvec=lambda x, ac=ac: sysq.lindblad_action(ac, x))
+        assert torch.isfinite(out).all()
+        _close_rel(out.double().cpu(), cpu_expv, tol)
+        dense = sysq.lindblad_generator(ac) @ vc.unsqueeze(-1)
+        _close_rel(dense.squeeze(-1).double().cpu(), cpu_act, tol)
+
+
+def test_density_problem_builds_and_solves_on_the_card(cuda):
+    # device=None means CUDA: example 05's open-system problem in float32,
+    # the AD route (no kernel 1 or 5), kernels 2 and 3 once per KKT attempt
+    # and once for the initial multipliers
+    prob = bu.density_problem(T=11)
+    s = prob.solver
+    assert prob.device.type == "cuda" and prob.dtype == torch.float32
+    assert s.nlp.analytic is None and s.nlp.d == 15
+    Z0 = bu.density_seeds(prob, 8, 0)
+    build.reset_launch_counts()
+    res = s.solve(Z0, max_iter=20)
+    c = dict(build.launch_counts)
+    assert torch.isfinite(res.Z).all()
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] == 0 and c["kkt_rhs_fwd_sweep"] == 0, c
+    assert c["kkt_fwd_sweep"] == c["kkt_bwd_sweep"] == s.kkt_attempts + 1 > 1, c
+    fid0 = bu.density_fidelity(prob, Z0, device=cuda)
+    fid = bu.density_fidelity(prob, res.Z.double().cpu().numpy(), device=cuda)
+    assert np.median(fid) > np.median(fid0), (fid, fid0)

@@ -5,14 +5,9 @@ decision carried through quantumcollocation_tpu_torch.interop; the port's
 iterates against the JAX solver's (the model is
 tests/test_analytic.py::TestFusedAssemblyKernel::test_full_solve_fused_matches_unfused:
 Z within 1e-6 after 12 iterations), float64 on the CPU.  Also: the device
-rule, and that the port runs without JAX."""
+rule.  That the port runs without JAX is tests/test_torch_standalone.py."""
 
 import functools
-import os
-import pathlib
-import re
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -25,8 +20,6 @@ from quantumcollocation_tpu_torch import interop
 # small tensors: one intra-op thread, so a CPU test run with several
 # workers does not oversubscribe the cores its other tests share
 torch.set_num_threads(1)
-
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @functools.lru_cache(maxsize=None)  # one build per line search for the whole file
@@ -111,35 +104,3 @@ def test_unported_options_raise():
             ipopt_options=qt.SolverOptions(kkt_backend="cr"),
             piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
         )
-
-
-def test_port_runs_with_jax_blocked():
-    code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import numpy as np, quantumcollocation_tpu_torch as qt\n"
-        "p = qt.UnitarySmoothPulseProblem(qt.QuantumSystem(qt.GATES['Z'], "
-        "[qt.GATES['X'], qt.GATES['Y']]), qt.GATES['H'], 7, 0.2, "
-        "piccolo_options=qt.PiccoloOptions(verbose=False), "
-        "rng=np.random.default_rng(0), device='cpu')\n"
-        "r = p.solve_batched(p.initial_decision(2), max_iter=1)\n"
-        "assert 'quantumcollocation_tpu' not in sys.modules\n"
-        "print('ok', int(r.n_iter[0]))\n"
-    )
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["ok", "1"]
-
-
-def test_source_imports_neither_jax_nor_the_jax_package():
-    imports = re.compile(
-        r"^\s*(import|from)\s+(jax\b|quantumcollocation_tpu\b(?!_torch))", re.M
-    )
-    dynamic = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|quantumcollocation_tpu\b(?!_torch))")
-    files = list((ROOT / "quantumcollocation_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
-    for f in files:
-        text = f.read_text()
-        assert not imports.search(text), f
-        assert not dynamic.search(text), f
