@@ -212,7 +212,39 @@ Phases, one JSON object per line on stdout:
      fidelity ⟨ψ|ρ_T|ψ⟩ of every instance (frac at infidelity <= DN_BAR
      >= DN_GATE, and a median infidelity below the seeds'); launches
      against the prediction from the run's KKT attempts A (kernels 2 and
-     3: A + 1, kernels 1, 4 and 5: 0).
+     3: A + 1, kernels 1, 4 and 5: 0);
+ 42. kernels at the state_sampling shapes (QuantumStateSamplingProblem:
+     the drifts ζ Z, ζ ∈ {-0.05, 0, 0.05}, with X and Y drives, one ket
+     |0⟩ → |1⟩, T=50, Δt=0.2 free, Q=100, R=1e-2, tol 1e-6: d=19, s=17,
+     three propagator groups of one ket each, so the fused assembly): kernel
+     1 over the three groups on NaN-poisoned outputs, the bank once a
+     group first order (the multiplier initialisation), kernels 2 and 3 on
+     the first iteration, and its real KKT system against float64;
+ 43. main path, state_sampling: B=512 seeds (multistart_initial_decisions
+     at σ=0.1), SS_ITERS iterations after a discarded warm-up; an instance
+     counts when its float64 ket rollout reaches infidelity <= SS_BAR on
+     all three systems (fraction >= SS_GATE), and the median summed
+     ζ-sweep fidelity must beat a plain QuantumStateSmoothPulseProblem at
+     ζ = 0 solved from the same seeds; launches against the prediction
+     (kernel 1: I, kernels 2 and 3: A + 1, kernel 5: one a group);
+ 44. direct_sum: the JAX package's direct-sum test's H and X parts (T=31),
+     each solved on the card by solve_multistart(8) for DS_WARM_ITERS
+     iterations, then UnitaryDirectSumProblem (floor 0.99, reset 0.25):
+     d=30, s=26, m=2, each part's group on its own Δt column, lifted; the
+     bank once a group and kernels 2, 4, 3 on the first lifted blocks, and
+     the lifted reference as phase 24;
+ 45. main path, direct_sum: B=512 resets drawn as the template draws its
+     one, DS_ITERS iterations; an instance counts when both parts'
+     float64 rollout fidelities rise from their seeds' and reach DS_BAR
+     (fraction >= DS_GATE); launches: kernel 5 two an evaluation (2(I +
+     1)), kernel 2 A + 1, 4 A, 3 2A + 1;
+ 46. the examples' calls through the package root (a copy of examples 02,
+     03 and 05's closed half, which import JAX): 02's duration must fall
+     under resample_free_time and minimum time, 03's solve_multistart(8)
+     on the five-drive CNOT must keep a seed above fidelity 0.9, and 05's
+     fidelity(prob) must equal rollout_fidelity within 1e-12; example
+     03's kernels (the bank, kernels 2 and 3 at d=48, B=8) against their
+     plain versions, its launches against the prediction.
 The sweep rows of phases 18, 21, 23, 26, 28 and 30-34 also give device_ms (a CUDA graph of
 the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
@@ -269,6 +301,12 @@ DN_T, DN_ITERS, DN_BAR, DN_GATE = 30, 300, 1e-2, 0.9
 # float64 agreement on the card of lindblad_action with the dense
 # generator's product, and of the "expv" open rollout with the "expm" one
 DN_ACTION_TOL, DN_EXPV_TOL = 1e-12, 1e-10
+# the state_sampling and direct_sum paths (phases 42-45): T, iterations and
+# gates, fixed before their first card run from the JAX package's float32
+# solves of the same problems and seeds on the CPU
+# (scripts/state_sampling_gate_jax.py, scripts/direct_sum_gate_jax.py)
+SS_T, SS_ITERS, SS_BAR, SS_GATE = 50, 100, 1e-3, 0.9
+DS_T, DS_ITERS, DS_WARM_SEEDS, DS_WARM_ITERS, DS_BAR, DS_GATE = 31, 100, 8, 30, 0.989, 0.9
 LIVE_HEADER = ("iter      objective    inf_pr    inf_du  lg(mu)     ||d||  lg(rg)  alpha_du  "
                "alpha_pr  ls")
 # float32 tolerances, relative to the largest entry of the plain output:
@@ -707,10 +745,14 @@ def main():
         k_out = dyn_assembly_cuda(an, Z, lam)
         torch.cuda.synchronize()
         errs = [rel_err(a, b) for a, b in zip(k_out, r_out)]
-        (g,) = an.groups
-        n_, na_, free_ = g.G_drift.shape[0], g.G_drives.shape[0], g.dt_col is not None
         Bn, Tn, d_ = Z.shape
         n_pairs = Bn * (Tn - 1)
+        flops = 0
+        for g in an.groups:  # each propagator group: its bank and its members' writes
+            n_, na_, free_ = g.G_drift.shape[0], g.G_drives.shape[0], g.dt_col is not None
+            flops += (bank_counts(n_pairs, n_, na_, free_, g.order)[1]
+                      + n_pairs * sum(member_flops(n_, na_ + int(free_), mb[4], False)
+                                      for mb in g.members))
         row = dict(
             max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
             poisoned=sorted(x.data_ptr() for x in k_out) == ptrs,
@@ -719,9 +761,7 @@ def main():
             device_ms=graph_ms(lambda: dyn_assembly_cuda(an, Z, lam)),
             plain_ms=time_ms(lambda: dyn_assembly_reference(an, Z, lam)),
             bytes=F4 * (Z.numel() + lam.numel() + sum(x.numel() for x in k_out)),
-            flops=(bank_counts(n_pairs, n_, na_, free_, g.order)[1]
-                   + n_pairs * sum(member_flops(n_, na_ + int(free_), mb[4], False)
-                                   for mb in g.members)),
+            flops=flops,
             launch=assembly_config(an),
             shapes={"B": Bn, "T": Tn, "d": d_, "s": an.s, "dtype": "float32"},
         )
@@ -2224,6 +2264,244 @@ def main():
         fail(f"density frac@{DN_BAR} {fracdn} < {DN_GATE}, or median infidelity "
              f"{np.median(infdn)} not below the seeds' {np.median(infdn0)}")
 
+    # ---- 42. kernels at the state_sampling shapes --------------------------- #
+    probss = bu.state_sampling_problem(T=SS_T)
+    solverss = probss.solver
+    nss = solverss.nlp
+    modes = (solverss.fused_assembly_on, solverss.kkt_refine_n, solverss.kkt_aug_on,
+             len(nss.analytic.groups), nss.d, nss.s, nss.m)
+    if modes != (True, 0, False, 3, 19, 17, 0):
+        fail(f"state_sampling modes (fused, refine, lift, groups, d, s, m) {modes} != "
+             f"(True, 0, False, 3, 19, 17, 0)")
+    with torch.no_grad():
+        stss, _, realss, _ = first_iteration(solverss, bu.multistart_seeds(probss, B, 7))
+        resultsss = {"dyn_assembly": assembly_entry(nss.analytic, stss.Z, stss.lam)}
+        # kernel 5 runs first order, once a group, for the multiplier
+        # initialisation's Jacobian (the iterations run kernel 1)
+        resultsss.update({f"prop_bank_group_{i}": bank_entry(stss.Z, nss.analytic,
+                                                             solverss.var_scale,
+                                                             second_order=False, group=i)
+                          for i in range(len(nss.analytic.groups))})
+        resultsss.update(sweep_entries(realss, B, SS_T, delta_c, factors=False, device=True))
+    finish(resultsss, bw, f32_peak)
+    shapesss = {"B": B, "T": SS_T, "d": nss.d, "s": nss.s, "m": 0, "dtype": "float32"}
+    for name, r in resultsss.items():
+        emit({"phase": "kernel", "path": "state_sampling", "name": name,
+              "shapes": r.pop("shapes", shapesss), **r})
+    bad = [n for n, r in resultsss.items()
+           if not r["ok"] or not r.get("poisoned", True) or not r.get("finite", True)]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the state_sampling shapes: {bad}")
+    kkt_reference("state_sampling", realss)
+
+    # ---- 43. state_sampling main path, and the plain solve it must beat ---- #
+    solverss.solve(bu.multistart_seeds(probss, B, 6), max_iter=NEW_WARM)  # discarded warm-up
+    Zss0 = bu.multistart_seeds(probss, B, 42)
+    resss, wallss, countsss, itss, attss = timed_run(solverss, Zss0, SS_ITERS)
+    Zsss = checked_solution("state_sampling", resss, (B, SS_T, nss.d))
+    infss = 1.0 - bu.ket_fidelities(probss, Zsss, device="cuda")
+    infss0 = 1.0 - bu.ket_fidelities(probss, Zss0, device="cuda")
+    worstss = infss.max(axis=0)
+    fracss = float(np.mean(worstss <= SS_BAR))
+    trss = probss.trajectory
+    sweep_ss = bu.ket_zeta_sweep_fidelity(Zsss[:, :, trss.comp_slice("a")],
+                                          Zsss[:, :, trss.comp_slice("Δt")][:, :, 0],
+                                          device="cuda")
+    probpk = bu.state_sampling_plain_problem(T=SS_T)
+    trpk = probpk.trajectory
+    Zpk0 = bu.multistart_seeds(probpk, B, 42)
+    if not np.array_equal(Zpk0[:, :, trpk.comp_slice("a")], Zss0[:, :, trss.comp_slice("a")]):
+        fail("the plain ket solve's seeds differ from the sampled solve's controls")
+    t0 = time.perf_counter()
+    respk = probpk.solver.solve(Zpk0, max_iter=SS_ITERS)
+    torch.cuda.synchronize()
+    wallpk = time.perf_counter() - t0
+    Zspk = checked_solution("state_sampling plain", respk, (B, SS_T, probpk.nlp.d))
+    sweep_pk = bu.ket_zeta_sweep_fidelity(Zspk[:, :, trpk.comp_slice("a")],
+                                          Zspk[:, :, trpk.comp_slice("Δt")][:, :, 0],
+                                          device="cuda")
+    predss = {"kkt_fwd_sweep": attss + 1, "kkt_bwd_sweep": attss + 1, "kkt_rhs_fwd_sweep": 0,
+              "prop_bank": len(nss.analytic.groups), "dyn_assembly": itss}
+    emit({"phase": "main_path", "path": "state_sampling", "batch": B, "T": SS_T,
+          "zetas": bu.ZETAS, "ipm_iters": itss, "wall_s": wallss,
+          "ipm_ms_per_iter": 1e3 * wallss / max(itss, 1),
+          "gate": {"bar": SS_BAR, "frac": SS_GATE}, "frac_at_bar": fracss,
+          "solves_per_s_at_bar": B * fracss / wallss,
+          **{f"frac_all_systems_infid_{t}": float(np.mean(worstss <= float(t)))
+             for t in ("1e-4", "1e-3", "1e-2")},
+          "median_infid_per_system": [float(x) for x in np.median(infss, axis=1)],
+          "seeds_median_infid_per_system": [float(x) for x in np.median(infss0, axis=1)],
+          "zeta_sweep_fid_median": float(np.median(sweep_ss)),
+          "plain_zeta_sweep_fid_median": float(np.median(sweep_pk)),
+          "frac_beats_plain": float(np.mean(sweep_ss > sweep_pk)),
+          "plain_wall_s": wallpk, "plain_ipm_iters": probpk.solver.last_steps,
+          "ipm_converged_frac": float(resss.converged.float().mean()),
+          **launch_fields(countsss, predss, itss, attss)})
+    emit({"phase": "launches_per_iter", "path": "state_sampling",
+          **{k: v / max(itss, 1) for k, v in countsss.items()}})
+    if any(countsss[k] != v for k, v in predss.items() if k != "dyn_assembly"):
+        fail(f"state_sampling launches {countsss} != the prediction {predss}")
+    if countsss["dyn_assembly"] < itss:
+        fail(f"state_sampling: fewer assembly launches than iterations: {countsss}, {itss}")
+    if fracss < SS_GATE:
+        fail(f"state_sampling frac at infidelity {SS_BAR} on all systems {fracss} < {SS_GATE}")
+    if not np.median(sweep_ss) > np.median(sweep_pk):
+        fail(f"state_sampling: the summed ζ-sweep fidelity {np.median(sweep_ss)} does not beat "
+             f"the plain solve's {np.median(sweep_pk)}")
+
+    # ---- 44. direct_sum: the parts' multistart solves, kernels, reference -- #
+    partsds = bu.direct_sum_parts(T=DS_T)
+    warm_ds = []
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for p in partsds:
+        p.solve_multistart(DS_WARM_SEEDS, sigma=0.1, rng=np.random.default_rng(0),
+                           max_iter=DS_WARM_ITERS)
+        warm_ds.append(q.unitary_rollout_fidelity(p.trajectory, p.system))
+    torch.cuda.synchronize()
+    emit({"phase": "main_path", "path": "direct_sum_parts", "batch": DS_WARM_SEEDS,
+          "T": DS_T, "ipm_iters": DS_WARM_ITERS, "wall_s": time.perf_counter() - t0,
+          "part_fidelities": warm_ds, "launches": dict(build.launch_counts)})
+    probds = bu.direct_sum_problem(partsds)
+    solverds = probds.solver
+    nds = solverds.nlp
+    sysds = partsds[0].system
+    groups_ds = nds.analytic.groups
+    modes = (solverds.fused_assembly_on, solverds.kkt_aug_on, len(groups_ds),
+             [g.dt_col for g in groups_ds], nds.d, nds.s, nds.m)
+    if modes != (False, True, 2, [14, 29], 30, 26, 2):
+        fail(f"direct_sum modes (fused, lift, groups, Δt columns, d, s, m) {modes} != "
+             f"(False, True, 2, [14, 29], 30, 26, 2)")
+    with torch.no_grad():
+        stds, kkt_ds, aux_ds, dwds, _, realds, lift_ds = lifted_first_iteration(
+            solverds, bu.direct_sum_seeds(probds, partsds, B, 7))
+        resultsds = {f"prop_bank_group_{i}": bank_entry(stds.Z, nds.analytic,
+                                                        solverds.var_scale, group=i)
+                     for i in range(len(groups_ds))}
+        resultsds.update(sweep_entries(realds, B, DS_T, delta_c, factors=True, lift=lift_ds,
+                                       device=True))
+    finish(resultsds, bw, f32_peak)
+    shapesds = {"B": B, "T": DS_T, "d": nds.d, "s": nds.s, "m": 2, "dtype": "float32"}
+    for name, r in resultsds.items():
+        emit({"phase": "kernel", "path": "direct_sum", "name": name,
+              "shapes": r.pop("shapes", shapesds),
+              **({"lifted": True} if name.startswith("kkt") else {}), **r})
+    bad = [n for n, r in resultsds.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at the direct_sum shapes: {bad}")
+    lifted_reference("direct_sum", solverds, kkt_ds, aux_ds, dwds, realds)
+
+    # ---- 45. direct_sum main path ------------------------------------------- #
+    solverds.solve(bu.direct_sum_seeds(probds, partsds, B, 6), max_iter=NEW_WARM)  # warm-up
+    Zds0 = bu.direct_sum_seeds(probds, partsds, B, 42)
+    resds, wallds, countsds, itds, attds = timed_run(solverds, Zds0, DS_ITERS)
+    Zsds = checked_solution("direct_sum", resds, (B, DS_T, nds.d))
+    fids0 = bu.direct_sum_fidelities(probds, Zds0, sysds, device="cuda")
+    fids = bu.direct_sum_fidelities(probds, Zsds, sysds, device="cuda")
+    riseds = (fids > fids0).all(axis=0)
+    okds = riseds & (fids.min(axis=0) >= DS_BAR)
+    fracds = float(okds.mean())
+    predds = {"kkt_fwd_sweep": attds + 1, "kkt_rhs_fwd_sweep": attds,
+              "kkt_bwd_sweep": 2 * attds + 1, "prop_bank": len(groups_ds) * (itds + 1),
+              "dyn_assembly": 0}
+    emit({"phase": "main_path", "path": "direct_sum", "batch": B, "T": DS_T,
+          "ipm_iters": itds, "wall_s": wallds, "ipm_ms_per_iter": 1e3 * wallds / max(itds, 1),
+          "gate": {"bar": DS_BAR, "frac": DS_GATE}, "frac_at_bar": fracds,
+          "solves_per_s_at_bar": B * fracds / wallds, "frac_both_rise": float(riseds.mean()),
+          **{f"frac_both_rise_and_fid_{t}": float(np.mean(riseds & (fids.min(0) >= float(t))))
+             for t in ("0.95", "0.989", "0.99", "0.999")},
+          "median_fid_before": [float(x) for x in np.median(fids0, axis=1)],
+          "median_fid_after": [float(x) for x in np.median(fids, axis=1)],
+          "lifted_attempt_share": (float(solverds.kkt_lifted_rows)
+                                   / max(solverds.kkt_attempt_rows, 1)),
+          "ipm_converged_frac": float(resds.converged.float().mean()),
+          **launch_fields(countsds, predds, itds, attds)})
+    emit({"phase": "launches_per_iter", "path": "direct_sum",
+          **{k: v / max(itds, 1) for k, v in countsds.items()}})
+    if any(countsds[k] != v for k, v in predds.items()):
+        fail(f"direct_sum launches {countsds} != the prediction {predds}")
+    if fracds < DS_GATE:
+        fail(f"direct_sum frac (both parts rise, both >= {DS_BAR}) {fracds} < {DS_GATE}")
+
+    # ---- 46. the examples' calls through the package root ------------------ #
+    # a copy of the calls of examples 02, 03 and 05 (closed half), which
+    # import the JAX package: here through the port's root names on the card
+    sysx = q.QuantumSystem(q.GATES["Z"], [q.GATES["X"], q.GATES["Y"]])
+    ex = {}
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    p02 = q.UnitarySmoothPulseProblem(
+        sysx, q.GATES["H"], 51, 0.2, ipopt_options=q.SolverOptions(print_level=1, tol=1e-7),
+        piccolo_options=q.PiccoloOptions(verbose=False, free_time=False))
+    p02.solve(max_iter=60)
+    traj02 = q.resample_free_time(p02.trajectory)
+    mt02 = q.UnitaryMinimumTimeProblem(
+        traj02, sysx, p02.get_objective(), p02.integrators, [], final_fidelity=0.99, D=10.0,
+        ipopt_options=q.SolverOptions(print_level=1, tol=1e-6))
+    mt02.solve(max_iter=60)
+    ex["02"] = {"smooth_fid": q.unitary_rollout_fidelity(p02.trajectory, sysx),
+                "duration_before": float(traj02.duration()),
+                "duration_after": float(mt02.trajectory.duration()),
+                "fid_after": q.unitary_rollout_fidelity(mt02.trajectory, sysx)}
+    P = q.PAULIS
+    sys03 = q.QuantumSystem(0.1 * np.kron(P["Z"], P["Z"]), [
+        np.kron(P["Z"], P["X"]), np.kron(P["X"], P["I"]), np.kron(P["Y"], P["I"]),
+        np.kron(P["I"], P["X"]), np.kron(P["I"], P["Y"])])
+    p03 = q.UnitarySmoothPulseProblem(
+        sys03, q.GATES["CX"], 40, 0.3, ipopt_options=q.SolverOptions(print_level=1, tol=1e-6),
+        piccolo_options=q.PiccoloOptions(verbose=False))
+    with torch.no_grad():
+        # its kernels on the first iteration of its 8-seed batch (timed below)
+        Z03 = p03.multistart_initial_decisions(8, sigma=0.3, rng=np.random.default_rng(0))
+        st03, _, real03, _ = first_iteration(p03.solver, Z03)
+    build.reset_launch_counts()
+    p03.solve_multistart(n_seeds=8, sigma=0.3, rng=np.random.default_rng(0))
+    counts03 = dict(build.launch_counts)
+    ex["03"] = {"best_fid": q.unitary_rollout_fidelity(p03.trajectory, sys03),
+                "ipm_iters": p03.solver.last_steps, "kkt_attempts": p03.solver.kkt_attempts,
+                "d": p03.nlp.d, "s": p03.nlp.s}
+    sys05 = q.QuantumSystem(0.1 * P["Z"], [P["X"], P["Y"]])
+    p05 = q.QuantumStateSmoothPulseProblem(
+        sys05, np.array([1, 0]), np.array([0, 1]), 50, 0.2,
+        ipopt_options=q.SolverOptions(print_level=1, tol=1e-6),
+        piccolo_options=q.PiccoloOptions(verbose=False))
+    p05.solve(max_iter=40)
+    f05 = float(q.fidelity(p05))
+    ex["05"] = {"fidelity": f05, "rollout_fidelity": q.rollout_fidelity(p05.trajectory, sys05),
+                "root_fidelity_is_losses": q.fidelity is q.utils.losses.fidelity}
+    torch.cuda.synchronize()
+    wallex = time.perf_counter() - t0
+    with torch.no_grad():
+        resultsex = {"prop_bank": bank_entry(st03.Z, p03.nlp.analytic, p03.solver.var_scale)}
+        resultsex.update(sweep_entries(real03, 8, 40, delta_c, factors=False, device=True))
+    finish(resultsex, bw, f32_peak)
+    shapesex = {"B": 8, "T": 40, "d": p03.nlp.d, "s": p03.nlp.s, "dtype": "float32",
+                "example": "03"}
+    for name, r in resultsex.items():
+        emit({"phase": "kernel", "path": "examples", "name": name,
+              "shapes": r.pop("shapes", shapesex), **r})
+    pred03 = {"kkt_fwd_sweep": ex["03"]["kkt_attempts"] + 1,
+              "kkt_bwd_sweep": ex["03"]["kkt_attempts"] + 1, "kkt_rhs_fwd_sweep": 0,
+              "dyn_assembly": 0, "prop_bank": ex["03"]["ipm_iters"] + 1}
+    checks = {"02_duration_falls": ex["02"]["duration_after"] < ex["02"]["duration_before"],
+              "03_best_fid_above_0.9": ex["03"]["best_fid"] > 0.9,
+              "05_fidelity_is_rollout": (ex["05"]["root_fidelity_is_losses"] and abs(
+                  ex["05"]["fidelity"] - ex["05"]["rollout_fidelity"]) <= 1e-12)}
+    emit({"phase": "main_path", "path": "examples", "wall_s": wallex, "examples": ex,
+          "checks": checks, "launches": counts03, "predicted_launches": pred03,
+          "launches_of": "example 03's solve_multistart (B=8)"})
+    emit({"phase": "launches_per_iter", "path": "examples",
+          **{k: v / max(ex["03"]["ipm_iters"], 1) for k, v in counts03.items()}})
+    bad = [n for n, r in resultsex.items() if not r["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions at example 03's shapes: {bad}")
+    if any(counts03[k] != v for k, v in pred03.items()):
+        fail(f"example 03 launches {counts03} != the prediction {pred03}")
+    if not all(checks.values()):
+        fail(f"examples: a check failed: {checks}")
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -2249,6 +2527,13 @@ def main():
     entries += [("free_phase_min_time", n, r, countsmf) for n, r in resultsmf.items()]
     entries += [("bang_bang", n, r, countsbb) for n, r in resultsbb.items()]
     entries += [("density", n, r, countsdn) for n, r in resultsdn.items()]
+    entries += [("state_sampling", "prop_bank", dict(r, group=int(n.rsplit("_", 1)[1])),
+                 countsss) if n.startswith("prop_bank") else ("state_sampling", n, r, countsss)
+                for n, r in resultsss.items()]
+    entries += [("direct_sum", "prop_bank", dict(r, group=int(n.rsplit("_", 1)[1])), countsds)
+                if n.startswith("prop_bank") else ("direct_sum", n, r, countsds)
+                for n, r in resultsds.items()]
+    entries += [("examples", n, r, counts03) for n, r in resultsex.items()]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],

@@ -22,10 +22,13 @@ from .systems import *  # noqa: F401,F403
 from .systems import __all__ as _systems_all
 from .trajectory import *  # noqa: F401,F403
 from .trajectory import __all__ as _trajectory_all
+from .utils import *  # noqa: F401,F403  (last: `fidelity` is utils.losses', as in JAX)
+from .utils import __all__ as _utils_all
 
 __version__ = "0.1.0"
 
 __all__ = (
     list(_quantum_all) + list(_trajectory_all) + list(_dynamics_all)
     + list(_objectives_all) + list(_solver_all) + list(_problems_all) + list(_systems_all)
+    + list(_utils_all)
 )

@@ -1,7 +1,8 @@
 """Seeded KKT blocks, the propagator bank's inputs, CUDA timing, and the
 hadamard, cnot, su4, min_time, leakage, sampling, robustness, free_phase,
-free_phase_min_time, bang_bang and density problems (the first two also in other
-solver modes) with their seeds and float64 checks, shared by
+free_phase_min_time, bang_bang, density, state_sampling and direct_sum
+problems (the first two also in other solver modes) with their seeds and
+float64 checks, shared by
 chip_smoke.py, profile_step, the build comparison (sweep_builds) and the
 GPU tests."""
 
@@ -20,7 +21,12 @@ __all__ = ["seeded_kkt", "bank_args", "seeded_bank", "time_ms", "graph_ms", "had
            "robustness_problem", "robustness_seeds", "magnus_cost", "free_phase_problem",
            "free_phase_seeds", "free_phase_min_time_problem", "free_phase_fidelity",
            "bang_bang_problem", "da_count", "DENSITY_GOAL", "density_system",
-           "density_problem", "density_seeds", "density_fidelity"]
+           "density_problem", "density_seeds", "density_fidelity", "KET_INIT", "KET_GOAL",
+           "state_sampling_problem", "state_sampling_plain_problem", "MULTISTART_SIGMA",
+           "multistart_seeds",
+           "ket_fidelities", "ket_zeta_sweep_fidelity", "DS_FINAL_FIDELITY", "DS_RESET_RATIO",
+           "DS_RESET_SIGMA", "DS_RESET_SEED", "direct_sum_parts", "direct_sum_problem",
+           "direct_sum_seeds", "direct_sum_fidelities"]
 
 
 def seeded_kkt(Bn, Tn, d, s, device, r=None, seed=0):
@@ -501,3 +507,132 @@ def density_fidelity(prob, Z, device="cpu"):
     return batched_open_rollout_fidelity(
         Z[:, :, traj.comp_slice("a")], Z[:, :, traj.comp_slice("Δt")][:, :, 0], prob.system,
         DENSITY_GOAL, traj.initial["ρ⃗̃"], device=device)
+
+
+KET_INIT, KET_GOAL = np.array([1.0, 0.0], dtype=complex), np.array([0.0, 1.0], dtype=complex)
+
+
+def state_sampling_problem(T=50, device=None, **solver_options):
+    """QuantumStateSamplingProblem over the drift samples ζ Z (zeta_system),
+    |0⟩ → |1⟩, T=50, Δt=0.2 free, Q=100, R=1e-2, tol 1e-6, κ_μ 0.2, filter
+    line search, rng default_rng(0), with solver_options (e.g. dtype): one
+    propagator group per ζ, the fused assembly at d=19."""
+    from . import PiccoloOptions, QuantumStateSamplingProblem
+
+    return QuantumStateSamplingProblem(
+        [zeta_system(z) for z in ZETAS], KET_INIT, KET_GOAL, T, 0.2, Q=100.0, R=1e-2,
+        ipopt_options=_options(tol=1e-6, **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+        device=device,
+    )
+
+
+def state_sampling_plain_problem(T=50, device=None, **solver_options):
+    """The non-robust counterpart: QuantumStateSmoothPulseProblem at ζ = 0
+    with state_sampling_problem's settings; the same rng draws its
+    controls as the sampled problem's first system draws the shared ones."""
+    from . import PiccoloOptions, QuantumStateSmoothPulseProblem
+
+    return QuantumStateSmoothPulseProblem(
+        zeta_system(0.0), KET_INIT, KET_GOAL, T, 0.2, Q=100.0, R=1e-2,
+        ipopt_options=_options(tol=1e-6, **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(0),
+        device=device,
+    )
+
+
+MULTISTART_SIGMA = 0.1  # the state_sampling path's control perturbation
+
+
+def multistart_seeds(prob, B, seed):
+    """(B, T, d) seeds: multistart_initial_decisions(B, MULTISTART_SIGMA)
+    from default_rng(seed): the first the clean decision, the others with
+    perturbed controls and every state rolled out under them."""
+    return prob.multistart_initial_decisions(B, sigma=MULTISTART_SIGMA,
+                                             rng=np.random.default_rng(seed))
+
+
+def ket_fidelities(prob, Z, device="cpu"):
+    """(3, B) float64 ket rollout fidelities of a state_sampling problem's
+    solutions Z (B, T, d): system j's ket ψ̃_system_j under ZETAS[j]."""
+    from . import batched_ket_rollout_fidelity
+
+    traj = prob.trajectory
+    Z = np.asarray(Z, dtype=np.float64)
+    a, dts = Z[:, :, traj.comp_slice("a")], Z[:, :, traj.comp_slice("Δt")][:, :, 0]
+    return np.stack([
+        batched_ket_rollout_fidelity(a, dts, zeta_system(z), traj.goal[f"ψ̃_system_{j + 1}"],
+                                     traj.initial[f"ψ̃_system_{j + 1}"], device=device)
+        for j, z in enumerate(ZETAS)])
+
+
+def ket_zeta_sweep_fidelity(a, dts, device="cpu"):
+    """(B,) float64 ket rollout fidelities |⟨1|ψ_T⟩|² of the controls a (B,
+    T, 2) and timesteps dts (B, T) from |0⟩, summed over the drift sweep
+    ζ ∈ -0.05:0.01:0.05 (the sampling path's comparison, for kets)."""
+    from . import batched_ket_rollout_fidelity, ket_to_iso
+
+    return sum(batched_ket_rollout_fidelity(a, dts, zeta_system(z), ket_to_iso(KET_GOAL),
+                                            ket_to_iso(KET_INIT), device=device)
+               for z in np.arange(-0.05, 0.0501, 0.01))
+
+
+# the direct_sum path's coupled problem: its floor, and the drive reset that
+# both the template's one start and direct_sum_seeds' B starts draw
+DS_FINAL_FIDELITY, DS_RESET_RATIO, DS_RESET_SIGMA, DS_RESET_SEED = 0.99, 0.25, 0.01, 2
+
+
+def direct_sum_parts(T=31, device=None, **solver_options):
+    """The JAX package's direct-sum test's subproblems
+    (tests/test_problem_templates.py): hadamard's system, the H gate
+    (rng default_rng(0)) and the X gate (default_rng(1)), T=31, Δt=0.2
+    free, Q=100, R=1e-2, tol 1e-6, with solver_options (e.g. dtype)."""
+    from . import GATES, PiccoloOptions, QuantumSystem, SolverOptions
+    from . import UnitarySmoothPulseProblem
+
+    return [UnitarySmoothPulseProblem(
+        QuantumSystem(GATES["Z"], [GATES["X"], GATES["Y"]]), GATES[gate], T, 0.2,
+        ipopt_options=SolverOptions(print_level=1, tol=1e-6, **solver_options),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(seed),
+        device=device) for gate, seed in (("H", 0), ("X", 1))]
+
+
+def direct_sum_problem(parts):
+    """The test's UnitaryDirectSumProblem over (solved) parts: the chain
+    graph on dda, Q=100, R=1e-2, the floor DS_FINAL_FIDELITY, the reset
+    (DS_RESET_RATIO, DS_RESET_SIGMA) drawn from default_rng(DS_RESET_SEED)."""
+    from . import UnitaryDirectSumProblem
+
+    return UnitaryDirectSumProblem(
+        parts, DS_FINAL_FIDELITY, drive_reset_ratio=DS_RESET_RATIO,
+        drive_derivative_sigma=DS_RESET_SIGMA, rng=np.random.default_rng(DS_RESET_SEED))
+
+
+def direct_sum_seeds(prob, parts, B, seed):
+    """(B, T, d) seeds: B independent resets as the template makes its one
+    (reset_drives with DS_RESET_RATIO and DS_RESET_SIGMA on the parts'
+    merged solutions), all drawn from one default_rng(seed)."""
+    from . import add_suffix, merge
+    from .problems.unitary_direct_sum import reset_drives
+
+    rng = np.random.default_rng(seed)
+    labels = [str(i + 1) for i in range(len(parts))]
+    merged = merge([add_suffix(p.trajectory, label) for p, label in zip(parts, labels)])
+    Z0 = np.broadcast_to(prob.initial_decision(1)[0], (B, *prob.nlp.z0.shape)).copy()
+    for b in range(B):
+        Z0[b, :, :merged.dim] = reset_drives(merged, labels, DS_RESET_RATIO, DS_RESET_SIGMA, rng)
+    return Z0
+
+
+def direct_sum_fidelities(prob, Z, system, device="cpu"):
+    """(2, B) float64 rollout fidelities of each part (Ũ⃗i under ai, Δti) of
+    a direct sum's solutions Z (B, T, d)."""
+    from . import batched_rollout_fidelity
+
+    traj = prob.trajectory
+    Z = np.asarray(Z, dtype=np.float64)
+    return np.stack([
+        batched_rollout_fidelity(Z[:, :, traj.comp_slice(f"a{i}")],
+                                 Z[:, :, traj.comp_slice(f"Δt{i}")][:, :, 0], system,
+                                 traj.goal[f"Ũ⃗{i}"], traj.initial[f"Ũ⃗{i}"], device=device)
+        for i in (1, 2)])

@@ -13,7 +13,9 @@ rows: class, names, indices) with m, the MinimumTimeObjective's weight,
 the goals of a multigoal batch, an embedded goal's subspace and levels,
 the global variables (the free phases: their values, name, operators and
 slices of the knot row; each instance's phases sit in Z0's global columns
-at the last knot), and the NLP's (d, s, m), bounds, free mask and z0).  It
+at the last knot), the component names each integrator reads, the
+objective's terms (kind, label, weight), and the NLP's (d, s, m), bounds,
+free mask and z0).  It
 only reads attributes, calls the problem's own methods and calls numpy, so
 it imports nothing of JAX.  The `*_from_arrays` functions build the port's
 problem from those arrays and check that the port derives the same
@@ -32,11 +34,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dynamics.integrators import _Suffixable
 from .problems.density_operator_smooth_pulse import DensityOperatorSmoothPulseProblem
 from .problems.multigoal import UnitaryMultiGoalProblem
 from .problems.quantum_state_minimum_time import QuantumStateMinimumTimeProblem
+from .problems.quantum_state_sampling import QuantumStateSamplingProblem
 from .problems.quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
 from .problems.unitary_bang_bang import UnitaryBangBangProblem
+from .problems.unitary_direct_sum import UnitaryDirectSumProblem
 from .problems.unitary_minimum_time import UnitaryMinimumTimeProblem
 from .problems.unitary_robustness import UnitaryRobustnessProblem
 from .problems.unitary_sampling import UnitarySamplingProblem
@@ -45,6 +50,7 @@ from .quantum.embedded import EmbeddedOperator, unembed
 from .quantum.isomorphisms import iso_to_ket, iso_vec_to_density, iso_vec_to_operator
 from .quantum.systems import OpenQuantumSystem, QuantumSystem
 from .solver.options import PiccoloOptions
+from .trajectory.directsums import remove_suffix
 from .trajectory.named_trajectory import NamedTrajectory
 
 __all__ = [
@@ -60,6 +66,8 @@ __all__ = [
     "unitary_robustness_from_arrays",
     "unitary_bang_bang_from_arrays",
     "density_operator_smooth_pulse_from_arrays",
+    "quantum_state_sampling_from_arrays",
+    "unitary_direct_sum_from_arrays",
 ]
 
 
@@ -70,6 +78,18 @@ def _integrator_specs(integrators):
         (type(ig).__name__, getattr(ig, "order", None), getattr(ig, "num_squarings", None))
         for ig in integrators
     ]
+
+
+def _integrator_names(integrators):
+    """The component names each integrator reads (None where it has no
+    such field): a direct sum's suffixed integrators each read their own
+    timestep column."""
+    return [tuple(getattr(ig, f, None) for f in _Suffixable._NAME_FIELDS) for ig in integrators]
+
+
+def _objective_specs(objective):
+    """(kind, label, weight) of each objective term."""
+    return [(t.kind, t.label, float(t.weight)) for t in objective.terms]
 
 
 def _constraint_specs(constraints):
@@ -149,6 +169,8 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None,
             if analytic.defect_scale is not None else None
         ),
         "integrators": _integrator_specs(prob.integrators),
+        "integrator_names": _integrator_names(prob.integrators),
+        "objective_terms": _objective_specs(prob.objective),
         "systems": [(np.asarray(ig.system.H_drift), np.asarray(ig.system.H_drives))
                     for ig in prob.integrators if getattr(ig, "system", None) is not None],
         "H_errors": [np.asarray(ig.H_error) for ig in prob.integrators
@@ -205,14 +227,22 @@ def _phases(arrays):
 
 
 def _checked(prob, arrays, rtol):
-    """(problem, Z0 tensor) once the port's integrators and NLP scaling
-    match the source's; raises ValueError where they differ."""
+    """(problem, Z0 tensor) once the port's integrators, constraints, the
+    components each integrator reads, objective terms and NLP scaling match
+    the source's; raises ValueError where they differ."""
     mine, theirs = _integrator_specs(prob.integrators), list(arrays["integrators"])
     if mine != theirs:
         raise ValueError(f"integrators {mine} differ from the source problem's {theirs}")
     mine, theirs = _constraint_specs(prob.constraints), list(arrays["constraints"])
     if mine != theirs or prob.solver.nlp.m != arrays["m"]:
         raise ValueError(f"constraints {mine} differ from the source problem's {theirs}")
+    mine, theirs = _integrator_names(prob.integrators), [tuple(x) for x in
+                                                          arrays["integrator_names"]]
+    if mine != theirs:
+        raise ValueError(f"integrator components {mine} differ from the source's {theirs}")
+    mine, theirs = _objective_specs(prob.objective), [tuple(x) for x in arrays["objective_terms"]]
+    if mine != theirs:
+        raise ValueError(f"objective terms {mine} differ from the source's {theirs}")
     traj = prob.trajectory
     if (dict(traj.components) != dict(arrays["components"])
             or not np.allclose(traj.data, arrays["data"], rtol=rtol, atol=0.0)):
@@ -265,8 +295,9 @@ def unitary_smooth_pulse_from_arrays(
     """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
     UnitarySmoothPulseProblem built with the same Q, R, integrator and
     leakage options (piccolo_options' leakage_suppression and R_leakage).
-    Raises if the port's integrators, constraints, trajectory or NLP
-    scaling differ from the source's (scales by more than rtol)."""
+    Raises if the port's integrators, objective terms, constraints,
+    trajectory or NLP scaling differ from the source's (scales by more than
+    rtol)."""
     traj = trajectory_from_arrays(arrays)
     prob = UnitarySmoothPulseProblem(
         system_from_arrays(arrays), _operator(arrays, traj), traj.T,
@@ -455,5 +486,76 @@ def density_operator_smooth_pulse_from_arrays(
         float(np.mean(traj.get_timesteps())), init_trajectory=traj, Q=Q, R=R,
         ipopt_options=ipopt_options, piccolo_options=_free_time(traj, piccolo_options),
         device=device,
+    )
+    return _checked(prob, arrays, rtol)
+
+
+def quantum_state_sampling_from_arrays(
+    arrays, *, Q, R, system_weights=None, ipopt_options=None, piccolo_options=None,
+    device=None, rtol=1e-5,
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    QuantumStateSamplingProblem built with the same Q, R, system weights
+    and integrator (and the default state name ψ̃): the kets of the
+    ψ̃…_system_1 components, one system for each system_j of the source's
+    integrators.  Raises as unitary_smooth_pulse_from_arrays."""
+    traj = trajectory_from_arrays(arrays)
+    names = [n for n in traj.names if n.startswith("ψ̃") and n.endswith("_system_1")]
+    # one integrator per (system, ket), system-major: every len(names)-th
+    systems = [QuantumSystem(Hd, list(Hs)) for Hd, Hs in arrays["systems"][::len(names)]]
+    prob = QuantumStateSamplingProblem(
+        systems, [iso_to_ket(traj.initial[n]) for n in names],
+        [iso_to_ket(traj.goal[n]) for n in names], traj.T,
+        float(np.mean(traj.get_timesteps())), system_weights=system_weights,
+        init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
+        piccolo_options=_free_time(traj, piccolo_options), device=device,
+    )
+    return _checked(prob, arrays, rtol)
+
+
+def _unsuffixed(traj, label):
+    """The components of a merged trajectory that end with label, the
+    suffix removed, with their bounds, pins, goals and timestep."""
+    keep = [n for n in traj.names if n.endswith(label)]
+
+    def cut(d):
+        return {remove_suffix(k, label): v for k, v in d.items() if k in keep}
+
+    return NamedTrajectory(
+        {remove_suffix(n, label): traj[n] for n in keep},
+        controls=tuple(remove_suffix(c, label) for c in traj.controls if c in keep),
+        timestep="Δt" if isinstance(traj.timestep, str) else traj.timestep,
+        bounds=cut(traj.bounds), initial=cut(traj.initial), final=cut(traj.final),
+        goal=cut(traj.goal),
+    )
+
+
+def unitary_direct_sum_from_arrays(
+    arrays, *, Q, R, graph=None, boundary_values=None, R_b=None, fidelity_cost=False,
+    ipopt_options=None, piccolo_options=None, device=None, rtol=1e-5,
+):
+    """(problem, Z0 tensor) for the port, from `problem_arrays` of a JAX
+    UnitaryDirectSumProblem over UnitarySmoothPulseProblems built with the
+    same Q, R and integrator (labels "1", "2", ...), coupled with the same
+    Q, R, graph, boundary values, R_b and fidelity_cost: the port rebuilds
+    each subproblem on its suffixed components of the source's (already
+    reset) trajectory, each with its own system and timestep column, then
+    the direct sum with drive_reset_ratio 0 and the source's floor and
+    subspace.  Raises as unitary_smooth_pulse_from_arrays."""
+    traj = trajectory_from_arrays(arrays)
+    floor, subspace = _floor(arrays)
+    labels = [spec[1][len("Ũ⃗"):] for spec in arrays["constraints"]]
+    opts = _free_time(traj, piccolo_options)
+    subs = []
+    for label, (Hd, Hs) in zip(labels, arrays["systems"]):
+        sub = _unsuffixed(traj, label)
+        subs.append(UnitarySmoothPulseProblem(
+            QuantumSystem(Hd, list(Hs)), None, sub.T, float(np.mean(sub.get_timesteps())),
+            init_trajectory=sub, Q=Q, R=R, ipopt_options=ipopt_options, piccolo_options=opts,
+            device=device))
+    prob = UnitaryDirectSumProblem(
+        subs, floor, prob_labels=labels, graph=graph, boundary_values=boundary_values, Q=Q,
+        R=R, R_b=R_b, drive_reset_ratio=0.0, fidelity_cost=fidelity_cost, subspace=subspace,
+        ipopt_options=ipopt_options, piccolo_options=opts, device=device,
     )
     return _checked(prob, arrays, rtol)

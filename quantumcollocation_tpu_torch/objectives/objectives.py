@@ -3,7 +3,7 @@
 Counterpart of quantumcollocation_tpu/objectives/objectives.py
 (UnitaryInfidelityObjective, UnitaryFreePhaseInfidelityObjective,
 QuantumStateObjective, DensityOperatorPureStateInfidelityObjective,
-QuadraticRegularizer,
+QuadraticRegularizer, PairwiseQuadraticRegularizer, NullObjective,
 QuadraticSmoothnessRegularizer, L1Regularizer, MinimumTimeObjective,
 UnitaryRobustnessObjective).  A term is classified by its stage structure
 so the problem compiler keeps the KKT system block-tridiagonal:
@@ -45,6 +45,8 @@ __all__ = [
     "QuantumStateObjective",
     "DensityOperatorPureStateInfidelityObjective",
     "QuadraticRegularizer",
+    "PairwiseQuadraticRegularizer",
+    "NullObjective",
     "QuadraticSmoothnessRegularizer",
     "L1Regularizer",
     "MinimumTimeObjective",
@@ -172,20 +174,57 @@ def DensityOperatorPureStateInfidelityObjective(name, psi_goal, *, Q=100.0, traj
     )
 
 
-def QuadraticRegularizer(name, traj, R=1.0):
-    """(1/2) sum_t R ||v_t||^2."""
+def QuadraticRegularizer(name, traj, R=1.0, *, baseline=None, indices=None):
+    """(1/2) sum_t R ||v_t - baseline||², over the entries in indices where
+    given (the direct-sum template's boundary terms pass a baseline)."""
     start, stop = traj.components[name]
-    Rvec = np.broadcast_to(np.asarray(R, dtype=float), (stop - start,)).copy()
+    k = stop - start
+    Rvec = np.broadcast_to(np.asarray(R, dtype=float), (k,)).copy()
 
     def make(dtype, device):
-        r = torch.as_tensor(Rvec, dtype=dtype, device=device)
+        r = torch.as_tensor(Rvec if indices is None else Rvec[list(indices)], dtype=dtype,
+                            device=device)
+        base = None if baseline is None else torch.as_tensor(
+            np.broadcast_to(np.asarray(baseline, dtype=float), (k,)), dtype=dtype,
+            device=device)
+        idx = None if indices is None else torch.as_tensor(list(indices), device=device)
 
         def fn(z, t):
-            return 0.5 * torch.sum(r * z[start:stop] ** 2)
+            v = z[start:stop]
+            if base is not None:
+                v = v - base
+            if idx is not None:
+                v = v[idx]
+            return 0.5 * torch.sum(r * v ** 2)
 
         return fn
 
     return Objective((ObjectiveTerm("stage", make, 1.0, f"quad_reg[{name}]"),))
+
+
+def PairwiseQuadraticRegularizer(traj, Q, graph):
+    """Σ_{(i, j) in graph} (Q/2) ||v_i(t) - v_j(t)||², a stage term coupling
+    suffixed components at each knot; graph a sequence of (name_i, name_j)
+    pairs, Q a scalar or one value per edge."""
+    edges = [(traj.components[a], traj.components[b]) for a, b in graph]
+    qs = ([float(Q)] * len(edges) if np.isscalar(Q)
+          else [float(q) for q in np.asarray(Q, dtype=float).reshape(-1)])
+
+    def make(dtype, device):
+        def fn(z, t):
+            total = z.new_zeros(())
+            for q, ((si, ei), (sj, ej)) in zip(qs, edges):
+                total = total + 0.5 * q * torch.sum((z[si:ei] - z[sj:ej]) ** 2)
+            return total
+
+        return fn
+
+    return Objective((ObjectiveTerm("stage", make, 1.0, "pairwise_quad_reg"),))
+
+
+def NullObjective():
+    """The objective with no terms."""
+    return Objective(())
 
 
 def QuadraticSmoothnessRegularizer(name, traj, R=1.0, *, eval_hessian=True):

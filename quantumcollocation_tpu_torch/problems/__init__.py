@@ -7,8 +7,10 @@ from .multigoal import (
 )
 from .problem import QuantumControlProblem, resolve_device
 from .quantum_state_minimum_time import QuantumStateMinimumTimeProblem
+from .quantum_state_sampling import QuantumStateSamplingProblem
 from .quantum_state_smooth_pulse import QuantumStateSmoothPulseProblem
 from .unitary_bang_bang import UnitaryBangBangProblem
+from .unitary_direct_sum import UnitaryDirectSumProblem
 from .unitary_minimum_time import UnitaryMinimumTimeProblem
 from .unitary_robustness import UnitaryRobustnessProblem
 from .unitary_sampling import UnitarySamplingProblem, UnitarySamplingProblemFromDistribution
@@ -18,8 +20,10 @@ __all__ = [
     "DensityOperatorSmoothPulseProblem",
     "QuantumControlProblem",
     "QuantumStateMinimumTimeProblem",
+    "QuantumStateSamplingProblem",
     "QuantumStateSmoothPulseProblem",
     "UnitaryBangBangProblem",
+    "UnitaryDirectSumProblem",
     "UnitaryMinimumTimeProblem",
     "UnitaryMultiGoalProblem",
     "UnitaryRobustnessProblem",

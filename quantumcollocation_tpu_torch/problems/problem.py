@@ -309,6 +309,25 @@ class QuantumControlProblem:
             ).cpu().numpy()
         return rows
 
+    def solve_multistart(self, n_seeds: int = 8, *, sigma: float = 0.1, rng=None,
+                         max_iter: int | None = None):
+        """Solve n_seeds multistart_initial_decisions as one batch and keep
+        the best seed: converged seeds first, then the lowest objective.
+        Its solution is written back to the trajectory."""
+        Z0 = self.multistart_initial_decisions(n_seeds, sigma=sigma, rng=rng)
+        res = self.solver.solve(Z0, max_iter=max_iter)
+        self.result = res
+        obj = res.objective.double().cpu().numpy()
+        conv = res.converged.cpu().numpy().astype(bool)
+        best = int(np.argmin(np.where(conv, obj, obj + 1e10)))
+        self.trajectory = self.write_back(res.Z[best].double().cpu().numpy())
+        if self.ipopt_options.print_level >= 3:
+            print(
+                f"[qct] multistart best seed {best}: converged={bool(conv[best])} "
+                f"obj={float(obj[best]):.6e} ({int(conv.sum())}/{n_seeds} converged)"
+            )
+        return self
+
     solve_batch = solve_batched
 
     def get_objective(self) -> Objective:

@@ -3,7 +3,7 @@
     python -m quantumcollocation_tpu_torch.profile_step
         [--config hadamard|hadamard_lbfgs|hadamard_scan|hadamard_gn|cnot|cnot_soc|ket_exp|
                   cnot_exp|su4|min_time|leakage|sampling|robustness|free_phase|bang_bang|
-                  density]
+                  density|state_sampling|direct_sum]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -37,7 +37,14 @@ bench_util.free_phase_problem and free_phase_seeds) or "bang_bang"
 bench_util.bang_bang_problem, hadamard's seeds) or "density" (example 05's
 open-system problem: the Lindblad density ρ⃗̃ of a damped qubit, |0⟩ to |1⟩,
 T=30, B=512, d=15: the AD route; bench_util.density_problem and
-density_seeds), float32 on CUDA.  Runs two warm-up iterations
+density_seeds) or "state_sampling" (QuantumStateSamplingProblem: one ket
+|0⟩ → |1⟩ under the three drift samples, T=50, B=512, d=19, the fused
+assembly over three groups; bench_util.state_sampling_problem and
+multistart_seeds) or "direct_sum" (UnitaryDirectSumProblem of the H and X
+Hadamard-system problems, each first solved by solve_multistart(8) for 30
+iterations, T=31, B=512, d=30, m=2, lifted, one bank per part;
+bench_util.direct_sum_parts, direct_sum_problem and direct_sum_seeds),
+float32 on CUDA.  Runs two warm-up iterations
 (eight for hadamard_lbfgs), then profiles `--steps` iterations with
 torch.profiler and prints one JSON line: host wall per iteration,
 device-busy time per iteration (the sum of kernel times), the idle share,
@@ -97,6 +104,15 @@ def build(config, batch):
     if config == "density":
         prob = bu.density_problem()
         return prob.solver, bu.density_seeds(prob, batch or 512, 42)
+    if config == "state_sampling":
+        prob = bu.state_sampling_problem()
+        return prob.solver, bu.multistart_seeds(prob, batch or 512, 42)
+    if config == "direct_sum":
+        parts = bu.direct_sum_parts()
+        for p in parts:
+            p.solve_multistart(8, sigma=0.1, rng=np.random.default_rng(0), max_iter=30)
+        prob = bu.direct_sum_problem(parts)
+        return prob.solver, bu.direct_sum_seeds(prob, parts, batch or 512, 42)
     if config == "bang_bang":
         prob = bu.bang_bang_problem()
         return prob.solver, bu.hadamard_seeds(prob, batch or 512, 42)
@@ -138,7 +154,8 @@ def main():
     ap.add_argument("--config", choices=("hadamard", "hadamard_lbfgs", "hadamard_scan",
                                          "hadamard_gn", "cnot", "cnot_soc", "ket_exp",
                                          "cnot_exp", "su4", "min_time", "leakage", "sampling",
-                                         "robustness", "free_phase", "bang_bang", "density"),
+                                         "robustness", "free_phase", "bang_bang", "density",
+                                         "state_sampling", "direct_sum"),
                     default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)

@@ -8,10 +8,13 @@ from .initialization import (
     initialize_unitary_trajectory,
     linear_interpolation,
     unitary_geodesic,
+    unitary_linear_interpolation,
 )
+from .interpolation import DataInterpolation, resample_free_time
 from .named_trajectory import NamedTrajectory, derivative
 
 __all__ = [
+    "DataInterpolation",
     "NamedTrajectory",
     "add_suffix",
     "comp_slice_at",
@@ -26,6 +29,8 @@ __all__ = [
     "linear_interpolation",
     "merge",
     "remove_suffix",
+    "resample_free_time",
     "slice_at",
     "unitary_geodesic",
+    "unitary_linear_interpolation",
 ]

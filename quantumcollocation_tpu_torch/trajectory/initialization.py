@@ -28,6 +28,7 @@ from .named_trajectory import NamedTrajectory, derivative
 
 __all__ = [
     "unitary_geodesic",
+    "unitary_linear_interpolation",
     "linear_interpolation",
     "initialize_control_trajectory",
     "initialize_trajectory",
@@ -41,6 +42,15 @@ def linear_interpolation(x, y, samples: int):
     """(samples, k) linear interpolation between two vectors."""
     ts = np.linspace(0.0, 1.0, samples)[:, None]
     return (1 - ts) * np.asarray(x)[None, :] + ts * np.asarray(y)[None, :]
+
+
+def unitary_linear_interpolation(U_init, U_goal, samples: int):
+    """(samples, 2N^2) linear interpolation between the iso vecs of two
+    unitaries; an EmbeddedOperator goal contributes its full operator."""
+    if isinstance(U_goal, EmbeddedOperator):
+        U_goal = U_goal.operator
+    return linear_interpolation(operator_to_iso_vec(np.asarray(U_init)),
+                                operator_to_iso_vec(np.asarray(U_goal)), samples)
 
 
 def _geodesic_unitaries(U_init, U_goal, samples):

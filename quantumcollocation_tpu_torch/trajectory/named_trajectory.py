@@ -129,6 +129,12 @@ class NamedTrajectory:
             return self[self.timestep][..., 0]
         return np.full((self.T,), self.timestep)
 
+    def get_times(self):
+        """(T,) knot times, starting at 0."""
+        dts = self.get_timesteps()
+        return np.concatenate([np.zeros_like(dts[..., :1]), np.cumsum(dts[..., :-1], axis=-1)],
+                              axis=-1)
+
     def duration(self):
         return float(np.sum(self.get_timesteps()[:-1]))
 

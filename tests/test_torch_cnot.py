@@ -11,6 +11,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 import quantumcollocation_tpu as qct
 import quantumcollocation_tpu_torch as qt
@@ -35,8 +36,16 @@ def _options(pkg, **kw):
     return pkg.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter", **kw)
 
 
-@functools.lru_cache(maxsize=None)  # one build per case for the whole file
 def _problem(pkg_name, gate="CX", **kw):
+    # the cache's key is positional and sorted, so _problem("jax",
+    # kkt_backend="lanes") and _problem("jax", "CX", kkt_backend="lanes")
+    # share one build
+    return _build(pkg_name, gate, tuple(sorted(kw.items())))
+
+
+@functools.lru_cache(maxsize=None)  # one build per case for the whole file
+def _build(pkg_name, gate, kw):
+    kw = dict(kw)
     pkg = {"jax": qct, "port": qt}[pkg_name]
     cnot = gate == "CX"
     extra = {} if pkg is qct else {"device": "cpu"}

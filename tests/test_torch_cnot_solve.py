@@ -11,6 +11,7 @@ file out beside the long JAX files."""
 
 import numpy as np
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 from test_torch_cnot import _options, _problem
 
 import quantumcollocation_tpu_torch as qt

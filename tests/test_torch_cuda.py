@@ -1247,3 +1247,99 @@ def test_density_problem_builds_and_solves_on_the_card(cuda):
     fid0 = bu.density_fidelity(prob, Z0, device=cuda)
     fid = bu.density_fidelity(prob, res.Z.double().cpu().numpy(), device=cuda)
     assert np.median(fid) > np.median(fid0), (fid, fid0)
+
+
+def _direct_sum(T=5, device="cpu"):
+    parts = bu.direct_sum_parts(T=T, device=device)
+    return bu.direct_sum_problem(parts), parts
+
+
+@pytest.mark.parametrize("M", [301, 15360])
+@pytest.mark.parametrize("group", [0, 1])
+def test_bank_kernel_on_the_direct_sum_groups(cuda, monkeypatch, group, M):
+    # kernel 5 as the direct_sum path runs it, once per part an evaluation:
+    # n=4, 2 drives, Padé 4, second order, each group on its own controls
+    # and its own Δt column (Δt1 at 14, Δt2 at 29); 15,360 = 512 x 30 pairs,
+    # on NaN-poisoned outputs
+    prob, _ = _direct_sum()
+    an = prob.solver.nlp.analytic
+    assert [(g.a_slice, g.dt_col) for g in an.groups] == [((8, 10), 14), ((23, 25), 29)]
+    Bt = -(-M // (an.T - 1))
+    rng = np.random.default_rng(M + group)
+    z0 = np.asarray(prob.solver.nlp.z0)
+    Z = z0 + 0.05 * rng.standard_normal((Bt, *z0.shape))
+    Z[..., 29] *= 1.3  # the two parts' timesteps differ
+    Z = torch.as_tensor(Z, dtype=torch.float32, device=cuda)
+    a, dt, Gd, Gs, kw = bu.bank_args(an, Z, prob.solver.var_scale, group=group)
+    col = an.groups[group].dt_col
+    v = torch.as_tensor(prob.solver.var_scale, dtype=torch.float32, device=cuda)
+    assert torch.equal(dt, (Z * v)[:, :-1, col].reshape(-1))
+    _check_bank([a[:M].contiguous(), dt[:M].contiguous(), Gd, Gs], kw, monkeypatch)
+
+
+@pytest.mark.parametrize("T", [2, 31])
+@pytest.mark.parametrize("Bt", [1, 133, 512])
+def test_sweeps_at_the_direct_sum_shape_match_plain_version(cuda, monkeypatch, Bt, T):
+    # the direct_sum path's lifted KKT attempt at (d, s) = (30, 26), m = 2
+    # fidelity floors
+    _check_lifted_sweeps(cuda, monkeypatch, Bt, T, 30, 26)
+
+
+@pytest.mark.parametrize("Bt", [1, 37, 512])
+def test_assembly_kernel_on_the_state_sampling_groups(cuda, Bt):
+    # kernel 1 on the state_sampling path's problem (d=19, s=17): three
+    # propagator groups of one ket each (n=4, K=3, one column), different
+    # drifts, sharing the controls and Δt; outputs into memory poisoned with
+    # NaN
+    prob = bu.state_sampling_problem(T=11, device="cpu")
+    an = prob.solver.nlp.analytic
+    assert (prob.solver.nlp.d, prob.solver.nlp.s) == (19, 17) and prob.solver.fused_assembly_on
+    assert len(an.groups) == 3 and all(g.members[0][4] == 1 for g in an.groups)
+    rng = np.random.default_rng(Bt)
+    z0 = np.asarray(prob.solver.nlp.z0)
+    Z = torch.as_tensor(z0 + 0.05 * rng.standard_normal((Bt, *z0.shape)),
+                        dtype=torch.float32, device=cuda)
+    lam = torch.as_tensor(rng.standard_normal((Bt, an.T - 1, an.s)), dtype=torch.float32,
+                          device=cuda)
+    ref = da.dyn_assembly_reference(an, Z, lam)
+    da.dyn_assembly(an, Z, lam)  # packs the argument table before the poisoning
+    torch.cuda.synchronize()
+    poison = [torch.full(r.shape, float("nan"), device=cuda) for r in ref]
+    ptrs = sorted(x.data_ptr() for x in poison)
+    del poison
+    before = build.launch_counts["dyn_assembly"]
+    out = da.dyn_assembly(an, Z, lam)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dyn_assembly"] == before + 1
+    assert sorted(x.data_ptr() for x in out) == ptrs
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        torch.testing.assert_close(o, r, rtol=1e-4, atol=1e-4)
+
+
+def test_state_sampling_and_direct_sum_paths_solve_on_the_card(cuda):
+    # device=None means CUDA.  state_sampling: kernel 1 an iteration,
+    # kernel 5 once a group (first order, the multiplier initialisation),
+    # kernels 2 and 3 once an attempt and once more; direct_sum: kernel 5
+    # once a part an evaluation, kernels 2, 4, 3 on lifted attempts
+    prob = bu.state_sampling_problem(T=11)
+    s = prob.solver
+    Z0 = bu.multistart_seeds(prob, 8, 0)
+    build.reset_launch_counts()
+    res = s.solve(Z0, max_iter=10)
+    c = dict(build.launch_counts)
+    assert torch.isfinite(res.Z).all()
+    assert c["prop_bank"] == 3 and c["dyn_assembly"] >= s.last_steps > 0, c
+    assert c["kkt_fwd_sweep"] == c["kkt_bwd_sweep"] == s.kkt_attempts + 1, c
+    assert c["kkt_rhs_fwd_sweep"] == 0, c
+    prob, parts = _direct_sum(T=11, device=None)
+    s = prob.solver
+    assert prob.device.type == "cuda" and s.kkt_aug_on and not s.fused_assembly_on
+    Z0 = bu.direct_sum_seeds(prob, parts, 8, 0)
+    build.reset_launch_counts()
+    res = s.solve(Z0, max_iter=10)
+    c = dict(build.launch_counts)
+    assert torch.isfinite(res.Z).all()
+    assert c["dyn_assembly"] == 0 and c["prop_bank"] == 2 * (s.last_steps + 1), c
+    assert c["kkt_fwd_sweep"] == s.kkt_attempts + 1 and c["kkt_rhs_fwd_sweep"] == s.kkt_attempts
+    assert c["kkt_bwd_sweep"] == 2 * s.kkt_attempts + 1, c

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 import quantumcollocation_tpu as qct
 import quantumcollocation_tpu_torch as qt

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 from torch.func import grad, hessian, jacrev
 
 import quantumcollocation_tpu as qct

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 import quantumcollocation_tpu as qct
 import quantumcollocation_tpu_torch as qt
@@ -37,8 +38,14 @@ def _options(pkg, **kw):
     return pkg.SolverOptions(print_level=1, tol=1e-5, kappa_mu=0.2, line_search="filter", **kw)
 
 
-@functools.lru_cache(maxsize=None)  # one build per case for the whole file
 def _problem(pkg_name, case="ket_exp", T=11):
+    # the cache's key is positional, so _problem("jax") and
+    # _problem("jax", "ket_exp") share one build
+    return _build(pkg_name, case, T)
+
+
+@functools.lru_cache(maxsize=None)  # one build per case for the whole file
+def _build(pkg_name, case, T):
     pkg = {"jax": qct, "port": qt}[pkg_name]
     extra = {} if pkg is qct else {"device": "cpu"}
     if case == "cnot_exp":
@@ -75,8 +82,10 @@ def test_ket_maps_fidelities_and_rollouts_match_jax():
     np.testing.assert_allclose(qt.iso_fidelity(iso, goal), ref, atol=1e-12)
     np.testing.assert_allclose(
         qt.iso_fidelity(torch.as_tensor(iso), torch.as_tensor(goal)).numpy(), ref, atol=1e-12)
-    np.testing.assert_allclose(qt.fidelity(psi[1], psi[0]), jax_fidelity(psi[1], psi[0]),
-                               rtol=1e-12)
+    # the ket overlap is quantum.fidelity; the root name is utils.losses'
+    # problem-or-trajectory fidelity, as in the JAX package
+    np.testing.assert_allclose(qt.quantum.fidelity(psi[1], psi[0]),
+                               jax_fidelity(psi[1], psi[0]), rtol=1e-12)
     # the ket rollout knot by knot, and the rollout fidelity of each ket
     pj, pt = _problem("jax"), _problem("port")
     a, dts = np.asarray(pj.trajectory["a"]), np.asarray(pj.trajectory.get_timesteps())

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 from quantumcollocation_tpu.solver.kkt import factor_kkt as jax_factor_kkt
 from quantumcollocation_tpu.solver.kkt import solve_with_factors as jax_solve_with_factors

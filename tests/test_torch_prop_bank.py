@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 from quantumcollocation_tpu.dynamics.expm import expm_frechet_bank as jax_expm_frechet_bank
 from quantumcollocation_tpu.dynamics.expm import pade_poly_frechet as jax_pade_poly_frechet

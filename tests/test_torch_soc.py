@@ -23,6 +23,7 @@ import functools
 
 import numpy as np
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 import quantumcollocation_tpu as qct
 import quantumcollocation_tpu_torch as qt

@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 import quantumcollocation_tpu as qct
 import quantumcollocation_tpu_torch as qt
@@ -22,8 +23,14 @@ from quantumcollocation_tpu_torch import interop
 torch.set_num_threads(1)
 
 
-@functools.lru_cache(maxsize=None)  # one build per line search for the whole file
 def _jax_problem(line_search="filter", T=11):
+    # the cache's key is positional, so _jax_problem() and
+    # _jax_problem("filter") share one build
+    return _jax_build(line_search, T)
+
+
+@functools.lru_cache(maxsize=None)  # one build per line search for the whole file
+def _jax_build(line_search, T):
     return qct.UnitarySmoothPulseProblem(
         qct.QuantumSystem(qct.GATES["Z"], [qct.GATES["X"], qct.GATES["Y"]]),
         qct.GATES["H"], T, 0.2, Q=100.0, R=1e-2,

@@ -19,6 +19,7 @@ relative after every iteration, as tests/test_torch_solve.py; μ within
 
 import numpy as np
 import torch
+from jax_reference import unoptimized_jax_compiles  # noqa: F401 (an autouse fixture)
 
 import quantumcollocation_tpu as qct
 import quantumcollocation_tpu_torch as qt
@@ -31,8 +32,9 @@ torch.set_num_threads(1)
 Q, R = 100.0, 1e-2
 
 
-def _pair(solver_kw, piccolo_kw=None, port_piccolo_kw=None):
-    """(JAX problem, port problem, Z0 tensor) of the seeded Hadamard solve."""
+def _pair(solver_kw, piccolo_kw=None):
+    """(JAX problem, port problem, Z0 tensor, the JAX problem's arrays) of
+    the seeded Hadamard solve."""
     opts = dict(print_level=1, tol=1e-6, line_search="filter", **solver_kw)
     pj = qct.UnitarySmoothPulseProblem(
         qct.QuantumSystem(qct.GATES["Z"], [qct.GATES["X"], qct.GATES["Y"]]), qct.GATES["H"], 11,
@@ -43,14 +45,21 @@ def _pair(solver_kw, piccolo_kw=None, port_piccolo_kw=None):
     Z0 = np.asarray(pj.initial_decision(2)).copy()
     Z0[1, 1:-1, pj.trajectory.comp_slice("a")] += 0.3 * np.random.default_rng(5).standard_normal(
         (9, 2))
-    pt, Z0_t = interop.unitary_smooth_pulse_from_arrays(
-        interop.problem_arrays(pj, batch=2, Z0=Z0), Q=Q, R=R,
-        ipopt_options=qt.SolverOptions(**opts),
+    arrays = interop.problem_arrays(pj, batch=2, Z0=Z0)
+    pt, Z0_t = _port(arrays, solver_kw, piccolo_kw)
+    return pj, pt, Z0_t, arrays
+
+
+def _port(arrays, solver_kw, piccolo_kw=None, port_piccolo_kw=None):
+    """(port problem, Z0 tensor) from the JAX problem's arrays."""
+    return interop.unitary_smooth_pulse_from_arrays(
+        arrays, Q=Q, R=R,
+        ipopt_options=qt.SolverOptions(print_level=1, tol=1e-6, line_search="filter",
+                                       **solver_kw),
         piccolo_options=qt.PiccoloOptions(verbose=False, **(piccolo_kw or {}),
                                           **(port_piccolo_kw or {})),
         device="cpu",
     )
-    return pj, pt, Z0_t
 
 
 def _lockstep(pj, pt, Z0_t, n, check=None):
@@ -72,7 +81,7 @@ def _lockstep(pj, pt, Z0_t, n, check=None):
 
 def test_gauss_newton_iterates_match_jax():
     gn = dict(quasi_newton="gauss-newton")
-    pj, pt, Z0_t = _pair(gn, dict(eval_hessian=False))
+    pj, pt, Z0_t, arrays = _pair(gn, dict(eval_hessian=False))
     s = pt.solver
     modes = (s.exact_hessian, s.qn_lbfgs, s.fused_assembly_on, s.resto_on)
     assert modes == (False, False, False, True) == (
@@ -88,7 +97,7 @@ def test_gauss_newton_iterates_match_jax():
     # once an iteration
     assert orders == [False] * 11
     # the AD route: the same steps without its curvature passes
-    _, ad, _ = _pair(gn, dict(eval_hessian=False), dict(jacobian_structure=False))
+    ad, _ = _port(arrays, gn, dict(eval_hessian=False), dict(jacobian_structure=False))
     assert ad.solver.nlp.analytic is None
 
     def no_curvature(*args):
@@ -106,7 +115,7 @@ def test_gauss_newton_iterates_match_jax():
 
 
 def test_adaptive_mu_iterates_match_jax():
-    pj, pt, Z0_t = _pair(dict(mu_strategy="adaptive"))
+    pj, pt, Z0_t, _ = _pair(dict(mu_strategy="adaptive"))
     mus = []
 
     def check(sj, st, k):
@@ -125,7 +134,7 @@ def test_adaptive_mu_iterates_match_jax():
 
 
 def test_watchdog_activates_and_rewinds_as_jax():
-    pj, pt, Z0_t = _pair(dict(watchdog_trials=2, theta_max_fact=1e-6))
+    pj, pt, Z0_t, _ = _pair(dict(watchdog_trials=2, theta_max_fact=1e-6))
     counts = []
 
     def check(sj, st, k):

@@ -15,7 +15,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def test_port_runs_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None\n"
-        "import numpy as np, quantumcollocation_tpu_torch as qt\n"
+        "import numpy as np, torch, quantumcollocation_tpu_torch as qt\n"
+        "torch.set_num_threads(1)  # small tensors, beside other test workers\n"
         "from quantumcollocation_tpu_torch import bench_util as bu\n"
         "p = qt.UnitarySmoothPulseProblem(qt.QuantumSystem(qt.GATES['Z'], "
         "[qt.GATES['X'], qt.GATES['Y']]), qt.GATES['H'], 7, 0.2, "
