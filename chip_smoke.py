@@ -244,7 +244,23 @@ Phases, one JSON object per line on stdout:
      on the five-drive CNOT must keep a seed above fidelity 0.9, and 05's
      fidelity(prob) must equal rollout_fidelity within 1e-12; example
      03's kernels (the bank, kernels 2 and 3 at d=48, B=8) against their
-     plain versions, its launches against the prediction.
+     plain versions, its launches against the prediction;
+ 47. kernels and the KKT route at the cz shapes (BASELINE #5's canonical
+     two-transmon embedded CZ at the upstream T=75, Δt=1.0 free, a_bound
+     0.1, three levels each: d=175, s=171, m=0, so the fused assembly is
+     off and the KKT route is "riccati_torch", solver/kkt.py on the card's
+     tensors): kernel 5 at n=18 (the entry design, four drives, a free Δt)
+     on the first iteration's pairs, second and first order, against its
+     plain version; the route's ms a factorization and a solve on the
+     first iteration's real system, and its float32 error against the
+     float64 CPU solve of the first CZ_REF_B instances (a printed finding;
+     the phase fails where it is not finite);
+ 48. main path, cz: B=256 seeds (multistart_initial_decisions at σ=0.02),
+     CZ_ITERS iterations after a discarded one-iteration warm-up; the
+     float64 subspace rollout fidelity of every instance against the gate
+     fixed from scripts/cz_gate_jax.py; the route named in the line, and
+     launches against the prediction (kernel 5: I + 1, kernels 1-4, 6 and
+     7: 0).
 The sweep rows of phases 18, 21, 23, 26, 28 and 30-34 also give device_ms (a CUDA graph of
 the call, replayed).  The exponential bank's rows also time its library counterpart
 (exp_bank_library: torch.linalg.matrix_exp on block-triangular matrices);
@@ -307,6 +323,26 @@ DN_ACTION_TOL, DN_EXPV_TOL = 1e-12, 1e-10
 # (scripts/state_sampling_gate_jax.py, scripts/direct_sum_gate_jax.py)
 SS_T, SS_ITERS, SS_BAR, SS_GATE = 50, 100, 1e-3, 0.9
 DS_T, DS_ITERS, DS_WARM_SEEDS, DS_WARM_ITERS, DS_BAR, DS_GATE = 31, 100, 8, 30, 0.989, 0.9
+# the cz path (phases 47-48; BASELINE #5 at the upstream T=75): batch,
+# iterations, the instances of the route's float64 reference, and its gate,
+# fixed before its first card run from the JAX package's float32 solve of
+# the same problem on the first CZ_JAX_B seeds on the CPU, 40 iterations
+# (scripts/cz_gate_jax.py): no seed reaches subspace infidelity 1e-2, and
+# only CZ_JAX_RISE of them rise, so the gate holds the port to what JAX
+# reaches: the median subspace fidelity of those same seeds no lower than
+# JAX's less 1e-3, the fraction of the batch that rises no lower than
+# JAX's less two of its standard errors, and instance 0 (the template's
+# own controls, the instance JAX's tests/test_baseline_configs.py solves)
+# no lower than JAX's float32 solve of it less 1e-3 (JAX's falls from
+# 0.1373 to CZ_JAX_FID_0 and stays there to 200 iterations, so "it rises"
+# is a bar JAX misses here).  At 40 iterations the path shows parity
+# with JAX, not a synthesized CZ.
+CZ_B, CZ_T, CZ_ITERS, CZ_REF_B = 256, 75, 40, 4
+CZ_JAX_B, CZ_JAX_RISE, CZ_JAX_MEDIAN_FID = 16, 0.5625, 0.12905663745088175
+CZ_JAX_FID_0 = 0.02350378042882073
+CZ_MEDIAN_AT_LEAST = CZ_JAX_MEDIAN_FID - 1e-3
+CZ_FID_0_AT_LEAST = CZ_JAX_FID_0 - 1e-3
+CZ_RISE_AT_LEAST = CZ_JAX_RISE - 2.0 * (CZ_JAX_RISE * (1.0 - CZ_JAX_RISE) / CZ_JAX_B) ** 0.5
 LIVE_HEADER = ("iter      objective    inf_pr    inf_du  lg(mu)     ||d||  lg(rg)  alpha_du  "
                "alpha_pr  ls")
 # float32 tolerances, relative to the largest entry of the plain output:
@@ -511,7 +547,7 @@ def main():
         dyn_assembly_reference,
     )
     from quantumcollocation_tpu_torch.solver import kkt_lanes as kl
-    from quantumcollocation_tpu_torch.solver.kkt import solve_kkt
+    from quantumcollocation_tpu_torch.solver.kkt import factor_kkt, solve_kkt, solve_with_factors
     from quantumcollocation_tpu_torch.solver.lbfgs import lbfgs_rhs
     from quantumcollocation_tpu_torch import bench_util as bu
     from quantumcollocation_tpu_torch.bench_util import bank_args, graph_ms, seeded_kkt, time_ms
@@ -2502,6 +2538,97 @@ def main():
     if not all(checks.values()):
         fail(f"examples: a check failed: {checks}")
 
+    # ---- 47. kernels and the KKT route at the cz shapes -------------------- #
+    probcz, goalcz = bu.cz_problem(T=CZ_T)
+    solvercz = probcz.solver
+    ncz = solvercz.nlp
+    modes = (solvercz.fused_assembly_on, solvercz.kkt_refine_n, solvercz.kkt_route,
+             ncz.analytic.groups[0].G_drift.shape[0], ncz.d, ncz.s, ncz.m)
+    if modes != (False, 0, "riccati_torch", 18, 175, 171, 0):
+        fail(f"cz modes (fused, refine, route, n, d, s, m) {modes} != "
+             f"(False, 0, 'riccati_torch', 18, 175, 171, 0)")
+    with torch.no_grad():
+        stcz, _, realcz, dwcz = first_iteration(solvercz, bu.cz_seeds(probcz, CZ_B, 7))
+        # kernel 5 at n = 18 (the entry design) on the first iteration's
+        # pairs: second order, as every iteration runs it, and first order,
+        # as the multiplier initialisation's Jacobian runs it
+        resultscz = {"prop_bank": bank_entry(stcz.Z, ncz.analytic, solvercz.var_scale)}
+        bank1cz = bank_entry(stcz.Z, ncz.analytic, solvercz.var_scale, second_order=False)
+        # the route (solver/kkt.py on the card's tensors) on the first
+        # iteration's real system: ms a factorization and a solve, and its
+        # float32 error against the float64 CPU solve of the first instances
+        fac = factor_kkt(*realcz[:4], delta_c)
+        route = {"phase": "route", "path": "cz", "kkt_route": solvercz.kkt_route,
+                 "d": ncz.d, "s": ncz.s, "batch": CZ_B, "T": CZ_T,
+                 "factor_ms": time_ms(lambda: factor_kkt(*realcz[:4], delta_c), n=3, warm=1),
+                 "solve_ms": time_ms(lambda: solve_with_factors(fac, *realcz[4:]), n=3,
+                                     warm=1)}
+        dz_g, nu_g, ok_g = solve_with_factors(fac, *realcz[4:])
+        del fac
+        nref = CZ_REF_B
+        dz_r, nu_r, ok_r = solve_kkt(*[x[:nref].double().cpu() for x in realcz], delta_c)
+        keep = ok_r & ok_g[:nref].cpu()
+        route.update(rel_err_vs_f64=max(rel_err(dz_g[:nref].cpu(), dz_r, keep)[1],
+                                        rel_err(nu_g[:nref].cpu(), nu_r, keep)[1]),
+                     compared=int(keep.sum()), ok_route=int(ok_g.sum()), ok_f64=int(ok_r.sum()),
+                     dw_max=float(dwcz.max()))
+    finish(resultscz, bw, f32_peak)
+    finish({"first_order": bank1cz}, bw, f32_peak)
+    shapescz = {"B": CZ_B, "T": CZ_T, "d": ncz.d, "s": ncz.s, "m": 0, "dtype": "float32"}
+    for name, r in (("prop_bank", resultscz["prop_bank"]), ("prop_bank", bank1cz)):
+        emit({"phase": "kernel", "path": "cz", "name": name, "shapes": r.pop("shapes", shapescz),
+              **r})
+    emit(route)
+    if not (resultscz["prop_bank"]["ok"] and bank1cz["ok"]):
+        fail("kernel 5 at n = 18 disagrees with its plain version at the cz shapes")
+    if resultscz["prop_bank"]["launch"]["design"] != "entry":
+        fail(f"kernel 5 at n = 18 took the {resultscz['prop_bank']['launch']} design")
+    if not (np.isfinite(route["rel_err_vs_f64"]) and route["compared"] >= nref - 1):
+        fail(f"the cz KKT route failed on the first iteration's system: {route}")
+
+    # ---- 48. cz main path ------------------------------------------------- #
+    del stcz, realcz, dz_g, nu_g  # ~10 GB of first-iteration blocks
+    torch.cuda.empty_cache()
+    solvercz.solve(bu.cz_seeds(probcz, CZ_B, 6), max_iter=1)  # discarded warm-up
+    Zcz0 = bu.cz_seeds(probcz, CZ_B, 42)
+    rescz, wallcz, countscz, itcz, attcz = timed_run(solvercz, Zcz0, CZ_ITERS)
+    Zscz = checked_solution("cz", rescz, (CZ_B, CZ_T, ncz.d))
+    fidcz0 = bu.cz_fidelities(probcz, goalcz, Zcz0, device="cuda")
+    fidcz = bu.cz_fidelities(probcz, goalcz, Zscz, device="cuda")
+    infcz = 1.0 - fidcz
+    fraccz = float(np.mean(fidcz > fidcz0))
+    median_jax_seeds = float(np.median(fidcz[:CZ_JAX_B]))
+    gatecz = {"frac_rise_at_least": CZ_RISE_AT_LEAST,
+              f"median_fid_first_{CZ_JAX_B}_at_least": CZ_MEDIAN_AT_LEAST,
+              "fid_instance_0_at_least": CZ_FID_0_AT_LEAST}
+    passed = (fraccz >= CZ_RISE_AT_LEAST and median_jax_seeds >= CZ_MEDIAN_AT_LEAST
+              and fidcz[0] >= CZ_FID_0_AT_LEAST)
+    predcz = {"prop_bank": itcz + 1, "dyn_assembly": 0, "kkt_fwd_sweep": 0, "kkt_bwd_sweep": 0,
+              "kkt_rhs_fwd_sweep": 0, "kkt_fwd_step": 0, "kkt_bwd_step": 0}
+    emit({"phase": "main_path", "path": "cz", "batch": CZ_B, "T": CZ_T, "dt": 1.0,
+          "kkt_route": solvercz.kkt_route, "ipm_iters": itcz, "wall_s": wallcz,
+          "ipm_ms_per_iter": 1e3 * wallcz / max(itcz, 1), "gate": gatecz, "frac_rise": fraccz,
+          f"median_subspace_fid_first_{CZ_JAX_B}": median_jax_seeds,
+          "subspace_fid_instance_0_before": float(fidcz0[0]),
+          "subspace_fid_instance_0": float(fidcz[0]),
+          "rising_per_s": CZ_B * fraccz / wallcz,
+          **{f"solves_per_s_at_subspace_infid_{t}": CZ_B * float(np.mean(infcz <= float(t)))
+             / wallcz for t in ("1e-1", "1e-2")},
+          **{f"frac_subspace_infid_{t}": float(np.mean(infcz <= float(t)))
+             for t in ("1e-1", "1e-2", "1e-3", "1e-4")},
+          "median_subspace_fid_before": float(np.median(fidcz0)),
+          "median_subspace_fid_after": float(np.median(fidcz)),
+          "best_subspace_infid": float(infcz.min()),
+          "ipm_converged_frac": float(rescz.converged.float().mean()),
+          **launch_fields(countscz, predcz, itcz, attcz)})
+    emit({"phase": "launches_per_iter", "path": "cz",
+          **{k: v / max(itcz, 1) for k, v in countscz.items()}})
+    if any(countscz[k] != v for k, v in predcz.items()):
+        fail(f"cz launches {countscz} != the prediction {predcz}")
+    if not passed:
+        fail(f"cz: the gate {gatecz} is not met (frac rising {fraccz}, median subspace "
+             f"fidelity of the first {CZ_JAX_B} {median_jax_seeds}, instance 0 {fidcz[0]})")
+
     emit({"phase": "total", "script_s_after_environment": time.perf_counter() - t_start})
 
     entries = [("hadamard", n, r, had_counts) for n, r in results.items()]
@@ -2534,6 +2661,8 @@ def main():
                 if n.startswith("prop_bank") else ("direct_sum", n, r, countsds)
                 for n, r in resultsds.items()]
     entries += [("examples", n, r, counts03) for n, r in resultsex.items()]
+    entries += [("cz", "prop_bank", resultscz["prop_bank"], countscz),
+                ("cz", "prop_bank", dict(bank1cz, stage="first_order"), countscz)]
     emit({"kernels": [
         {"name": name, "path": path, "branch": "exp" if path.endswith("_exp") else "pade",
          "route": "cuda", "source": SOURCE[name],

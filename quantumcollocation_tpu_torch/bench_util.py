@@ -636,3 +636,49 @@ def direct_sum_fidelities(prob, Z, system, device="cpu"):
                                  Z[:, :, traj.comp_slice(f"Δt{i}")][:, :, 0], system,
                                  traj.goal[f"Ũ⃗{i}"], traj.initial[f"Ũ⃗{i}"], device=device)
         for i in (1, 2)])
+
+
+def cz_problem(T=75, dt=1.0, device=None, **solver_options):
+    """BASELINE #5's canonical configuration (JAX
+    tests/test_baseline_configs.py:54-80 at the upstream T=75): two
+    three-level transmons (omegas 4.0, 4.5, deltas 0.2, dipole coupling
+    0.01, rotating frame), CZ embedded on their qubit subspace, Δt=1.0
+    free, a_bound 0.1, the template's Q=100, R=1e-2 and the default Padé-4,
+    tol 1e-6, rng default_rng(5): d = 175, s = 171, the KKT route past 64
+    and the bank at n = 18.  Returns (problem, embedded goal)."""
+    from . import EmbeddedOperator, GATES, PiccoloOptions, SolverOptions, UnitarySmoothPulseProblem
+    from .systems import MultiTransmonSystem
+
+    sysq = MultiTransmonSystem(omegas=[4.0, 4.5], deltas=[0.2, 0.2],
+                               gs=[[0.0, 0.01], [0.01, 0.0]], levels_per_transmon=3)
+    goal = EmbeddedOperator(GATES["CZ"], sysq)
+    prob = UnitarySmoothPulseProblem(
+        sysq, goal, T, dt, a_bound=0.1,
+        ipopt_options=SolverOptions(**{"print_level": 1, "tol": 1e-6, **solver_options}),
+        piccolo_options=PiccoloOptions(verbose=False), rng=np.random.default_rng(5),
+        device=device,
+    )
+    return prob, goal
+
+
+CZ_SIGMA = 0.02  # the cz seeds' control perturbation (a fifth of a_bound)
+
+
+def cz_seeds(prob, B, seed):
+    """(B, T, d) dynamics-consistent seeds of the cz path:
+    multistart_initial_decisions at σ = CZ_SIGMA from default_rng(seed)
+    (seed 0 of the batch is the template's own controls); the JAX package
+    draws the same rows from the same Generator."""
+    return prob.multistart_initial_decisions(B, sigma=CZ_SIGMA, rng=np.random.default_rng(seed))
+
+
+def cz_fidelities(prob, goal, Z, device="cpu"):
+    """(B,) float64 subspace rollout fidelities of the cz solutions Z."""
+    from . import batched_rollout_fidelity
+
+    traj = prob.trajectory
+    Z = np.asarray(Z, dtype=np.float64)
+    a = Z[:, :, traj.comp_slice("a")]
+    dts = Z[:, :, traj.comp_slice("Δt")][..., 0]
+    return batched_rollout_fidelity(a, dts, prob.system, traj.goal["Ũ⃗"], traj.initial["Ũ⃗"],
+                                    subspace=goal.subspace, device=device)

@@ -61,12 +61,20 @@
 // zero generators, which write nothing out (16 kernels).
 //
 // Entry design (entry_bank_kernel, entry_exp_bank_kernel), for more drives
-// than that: one thread per matrix entry (i, j) of a pair, n*n threads a
-// pair; the whole state of a pair sits in shared memory twice, the
-// previous step and the next, and a thread reads row i of the directions
-// and column j of the state and writes only its own entry.  The
-// exponential branch keeps three state buffers a pair and publishes each
-// Gauss-Jordan column to shared memory between two barriers.
+// than that, and the only design at n = 18: one thread per matrix entry
+// (i, j) of a pair, n*n threads a pair; the whole state of a pair sits in
+// shared memory twice, the previous step and the next, and a thread reads
+// row i of the directions and column j of the state and writes only its
+// own entry.  The exponential branch keeps three state buffers a pair and
+// publishes each Gauss-Jordan column to shared memory between two
+// barriers.  At n = 18 (two coupled three-level transmons, four drives and
+// a free dt, second order: Q = 21) a pair is 324 threads and
+// (324 + 2 * 21 * 324) * 4 = 55,728 shared bytes, plus the block's 5,184
+// of drive generators: one pair a block, three blocks an SM.  There the
+// Padé branch writes 54,432 bytes a pair, while its products, every operand
+// read from shared memory, need ~1.4 * 10^6 multiply-adds a pair: shared
+// memory's 32 floats a cycle an SM bound it, far above both the bytes'
+// and the arithmetic's bounds.
 
 #include <cuda_runtime.h>
 
@@ -949,10 +957,21 @@ __global__ void entry_exp_bank_kernel(const float* __restrict__ a, const float* 
   }
 }
 
+// The sizes the strip design is built for: its register tiles keep a
+// thread's rows of every drive, which fit up to n = 8.  Past that (n = 18,
+// two coupled three-level transmons) only the entry design is instantiated.
+template <int N>
+constexpr bool has_strip() {
+  return N <= 8;
+}
+
 // Whether the strip design takes na drives at n
 template <int N>
 bool strip(int na) {
-  return na >= 1 && na <= max_drives<N>();
+  if constexpr (has_strip<N>())
+    return na >= 1 && na <= max_drives<N>();
+  else
+    return false;
 }
 
 // The shape of a launch: threads a pair, pairs a block, shared bytes a
@@ -967,11 +986,13 @@ Shape shape(int na, bool free, int Kp, bool exp, int cap) {
   const int K = na + free;
   constexpr int NN = N * N;
   const int Q = 1 + K + Kp;
-  if (strip<N>(na)) {
-    const int QS = free ? Dirs<max_drives<N>(), true>::slots(Kp > 0)
-                        : Dirs<max_drives<N>(), false>::slots(Kp > 0);
-    return {Tile<N>::TPP, kWarps * Tile<N>::PPW,
-            kWarps * Tile<N>::PPW * (exp ? 2 : 1) * QS * NN * (int)sizeof(float)};
+  if constexpr (has_strip<N>()) {
+    if (strip<N>(na)) {
+      const int QS = free ? Dirs<max_drives<N>(), true>::slots(Kp > 0)
+                          : Dirs<max_drives<N>(), false>::slots(Kp > 0);
+      return {Tile<N>::TPP, kWarps * Tile<N>::PPW,
+              kWarps * Tile<N>::PPW * (exp ? 2 : 1) * QS * NN * (int)sizeof(float)};
+    }
   }
   const int fixed = na * NN * (int)sizeof(float);
   const int per_pair = (exp ? 4 * NN + 3 * Q * NN : NN + 2 * Q * NN) * (int)sizeof(float);
@@ -1049,20 +1070,23 @@ int launch(const float* a, const float* dt, const float* Gd, const float* Gs, co
                                             nsq, s, o0, o1, o2, o3, o4, o5, st)
                     : launch_entry<N, false>(a, dt, Gd, Gs, coeffs, ncoef, M, na, K, Kp, free_dt,
                                              0, s, o0, o1, o2, o3, o4, o5, st);
+  if constexpr (has_strip<N>()) {
 #define QCT_STRIP(FV)                                                                          \
   return exp_kind ? launch_strip<N, FV, true>(a, dt, Gd, Gs, coeffs, ncoef, M, na, Kp, nsq, s,  \
                                               o0, o1, o2, o3, o4, o5, st)                       \
                   : launch_strip<N, FV, false>(a, dt, Gd, Gs, coeffs, ncoef, M, na, Kp, 0, s,   \
                                                o0, o1, o2, o3, o4, o5, st);
-  if (free_dt) QCT_STRIP(true)
-  QCT_STRIP(false)
+    if (free_dt) QCT_STRIP(true)
+    QCT_STRIP(false)
 #undef QCT_STRIP
+  }
+  return (int)cudaErrorNotSupported;  // not reached: strip<N> is false without the design
 }
 
 }  // namespace
 
-// The sizes n the kernels are instantiated for
-#define QCT_SIZES(X) X(2) X(4) X(6) X(8)
+// The sizes n the kernels are instantiated for (18: the entry design only)
+#define QCT_SIZES(X) X(2) X(4) X(6) X(8) X(18)
 
 // a (M, na), dt (M,), Gd (n, n), Gs (na, n, n), coeffs (ncoef >= 2) on the
 // device, K = na + free_dt; Kp = 0 (first order) or K(K+1)/2; outputs

@@ -10,7 +10,8 @@ system), an open system's dissipators and a robustness accumulator's
 error Hamiltonian, the inequality
 constraints (fidelity floors: class, state name, floor, subspace; L1 slack
 rows: class, names, indices) with m, the MinimumTimeObjective's weight,
-the goals of a multigoal batch, an embedded goal's subspace and levels,
+the goals of a multigoal batch, an embedded goal's subspace, levels and
+subsystem levels, a composite system's subsystem levels,
 the global variables (the free phases: their values, name, operators and
 slices of the knot row; each instance's phases sit in Z0's global columns
 at the last knot), the component names each integrator reads, the
@@ -182,6 +183,10 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None,
         "goals": None if goals is None else np.asarray(goals, dtype=complex),
         "subspace": None if operator is None else tuple(int(i) for i in operator.subspace),
         "levels": None if operator is None else int(operator.levels),
+        "operator_subsystem_levels": (None if operator is None
+                                      else tuple(int(n) for n in operator.subsystem_levels)),
+        "subsystem_levels": (None if "subsystem_levels" not in prob.system.params
+                             else tuple(int(n) for n in prob.system.params["subsystem_levels"])),
         "global_data": {k: np.asarray(v, dtype=np.float64) for k, v in traj.global_data.items()},
         "phase_name": next(iter(traj.global_data), None),
         "phase_operators": (None if phase_operators is None
@@ -197,8 +202,11 @@ def problem_arrays(prob, batch: int = 1, *, Z0=None, goals=None, operator=None,
 
 
 def system_from_arrays(arrays) -> QuantumSystem:
-    """The port's QuantumSystem; its generators must equal the source's."""
-    system = QuantumSystem(arrays["H_drift"], list(arrays["H_drives"]))
+    """The port's QuantumSystem, with a composite source's subsystem
+    levels in its params; its generators must equal the source's."""
+    levels = arrays.get("subsystem_levels")
+    system = QuantumSystem(arrays["H_drift"], list(arrays["H_drives"]),
+                           params=None if levels is None else {"subsystem_levels": levels})
     if not (np.allclose(system.G_drift, arrays["G_drift"])
             and np.allclose(system.G_drives, arrays["G_drives"])):
         raise ValueError("iso generators differ from the source problem's")
@@ -279,14 +287,23 @@ def _free_time(traj, piccolo_options):
     )
 
 
-def _operator(arrays, traj):
+def _operator(arrays, traj, system):
     """The source's EmbeddedOperator goal (None without one): the goal's
-    subspace block embedded at the source's subspace and levels."""
+    subspace block embedded at the source's subspace and levels.  On a
+    composite system the port derives the subspace from the system's
+    subsystem levels, as the source did, and raises where it differs."""
     if arrays["subspace"] is None:
         return None
-    goal = iso_vec_to_operator(traj.goal["Ũ⃗"])
-    return EmbeddedOperator(unembed(goal, arrays["subspace"]), arrays["subspace"],
-                            arrays["levels"])
+    goal = unembed(iso_vec_to_operator(traj.goal["Ũ⃗"]), arrays["subspace"])
+    sub_levels = arrays.get("operator_subsystem_levels")
+    if sub_levels is None or len(sub_levels) == 1:
+        return EmbeddedOperator(goal, arrays["subspace"], arrays["levels"])
+    op = EmbeddedOperator(goal, system)
+    if (op.subspace, op.subsystem_levels) != (tuple(arrays["subspace"]), tuple(sub_levels)):
+        raise ValueError(f"the embedded goal's subspace {op.subspace} on subsystem levels "
+                         f"{op.subsystem_levels} differs from the source's "
+                         f"{tuple(arrays['subspace'])} on {tuple(sub_levels)}")
+    return op
 
 
 def unitary_smooth_pulse_from_arrays(
@@ -299,8 +316,9 @@ def unitary_smooth_pulse_from_arrays(
     trajectory or NLP scaling differ from the source's (scales by more than
     rtol)."""
     traj = trajectory_from_arrays(arrays)
+    system = system_from_arrays(arrays)
     prob = UnitarySmoothPulseProblem(
-        system_from_arrays(arrays), _operator(arrays, traj), traj.T,
+        system, _operator(arrays, traj, system), traj.T,
         float(np.mean(traj.get_timesteps())),
         init_trajectory=traj, Q=Q, R=R, ipopt_options=ipopt_options,
         piccolo_options=_free_time(traj, piccolo_options), device=device, **_phases(arrays),

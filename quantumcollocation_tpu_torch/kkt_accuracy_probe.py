@@ -1,7 +1,7 @@
 """How far the float32 KKT solve's error on a real system moves with rounding.
 
     python -m quantumcollocation_tpu_torch.kkt_accuracy_probe
-        [--config hadamard cnot cnot_exp] [--perturb 8]
+        [--config hadamard cnot cnot_exp cz] [--perturb 8]
         [--other path/to/another/kkt_sweeps.cu]
 
 For each configuration of profile_step.py, the first IPM iteration's KKT
@@ -23,7 +23,12 @@ kernel 2's kept factors): 0 where they agree bit for bit.  Prints one JSON
 line per configuration: the unperturbed system's numbers and the min,
 median and max over the copies.  The first iteration's systems are
 near-singular in float32, so these errors are of order 0.1 and move with
-rounding alone; the spread says how far.  Needs a CUDA GPU.
+rounding alone; the spread says how far.  At the cz shape (d = 175,
+s = 171, past the sweep kernels' 64) the solver's route is the batched
+Riccati of solver/kkt.py on the card's tensors: there the probe measures
+that float32 solve ("route") on the first CZ_INSTANCES (16) instances:
+the float64 CPU reference of a d = 175 system is the slow part.  Needs a
+CUDA GPU.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from .ops import build as kbuild
 from .profile_step import build
 from .solver import kkt_lanes as kl
 from .solver.kkt import solve_kkt
+
+CZ_INSTANCES = 16  # the cz systems compared: the float64 CPU reference of d = 175 is slow
 
 
 def _solve_with(lib, H, C, A, B, rz, rnu, delta_c):
@@ -86,9 +93,10 @@ def _rel(out, ref, keep):
     return err / max(1.0, ref[keep].abs().max().item())
 
 
-def first_system(config):
+def first_system(config, instances=None):
     """The first IPM iteration's float32 KKT blocks (H with the accepted
-    δ_w) and the solver."""
+    δ_w) of the first `instances` instances (all with None) and the
+    solver."""
     solver, Z0 = build(config, None)
     with torch.no_grad():
         st = solver.init_state(Z0)
@@ -96,7 +104,7 @@ def first_system(config):
         dw = solver._solve_kkt_batched(kkt_in, st.delta_w, st, False)[3]
     H, C, A, B, rz, rnu = [x.contiguous() for x in kkt_in]
     H = (H + dw[:, None, None, None] * torch.eye(H.shape[-1], device=H.device)).contiguous()
-    return (H, C, A, B, rz, rnu), solver
+    return tuple(x[:instances].contiguous() for x in (H, C, A, B, rz, rnu)), solver
 
 
 def errors(blocks, solver, other):
@@ -106,6 +114,11 @@ def errors(blocks, solver, other):
     no_dw = torch.zeros(blocks[0].shape[0], dtype=blocks[0].dtype, device=blocks[0].device)
     with torch.no_grad():
         dz_r, nu_r, ok_r = solve_kkt(*[x.double().cpu() for x in blocks], delta_c)
+        if solver.kkt_route == "riccati_torch":
+            dz, nu, ok = solve_kkt(*blocks, delta_c)
+            keep = ok_r & ok.cpu()
+            return {"route": max(_rel(dz, dz_r, keep), _rel(nu, nu_r, keep)),
+                    "compared": int(keep.sum())}
         dz_k, nu_k, ok_k, fac = kl.solve_kkt_lanes(*blocks, delta_c, want_factors=True)
         dz_p, nu_p, ok_p = solve_kkt(*blocks, delta_c)
         keep = ok_r & ok_k.cpu() & ok_p.cpu()
@@ -133,7 +146,7 @@ def errors(blocks, solver, other):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", nargs="+", default=["hadamard", "cnot", "cnot_exp"],
-                    choices=("hadamard", "cnot", "ket_exp", "cnot_exp"))
+                    choices=("hadamard", "cnot", "ket_exp", "cnot_exp", "cz"))
     ap.add_argument("--perturb", type=int, default=8)
     ap.add_argument("--other", type=Path, default=None)
     args = ap.parse_args()
@@ -143,7 +156,7 @@ def main():
     other = (kl.set_signatures(kbuild.build_other(args.other, "kkt_sweeps_probe"))
              if args.other else None)
     for config in args.config:
-        blocks, solver = first_system(config)
+        blocks, solver = first_system(config, CZ_INSTANCES if config == "cz" else None)
         base = errors(blocks, solver, other)
         runs = []
         for i in range(args.perturb):
@@ -157,6 +170,7 @@ def main():
                        "max": max(r[k] for r in runs)}
                    for k in base if k != "compared"}
         print(json.dumps({"config": config, "device": torch.cuda.get_device_name(0),
+                          "kkt_route": solver.kkt_route, "instances": blocks[0].shape[0],
                           "perturbed_copies": args.perturb, "unperturbed": base,
                           "perturbed": summary}), flush=True)
 

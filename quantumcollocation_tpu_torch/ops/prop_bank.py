@@ -30,7 +30,8 @@ __all__ = ["prop_bank", "prop_bank_reference", "prop_bank_cuda", "run_library", 
            "set_signatures"]
 
 # what the library returns for an n it has no kernel for (csrc/prop_bank.cu,
-# QCT_SIZES: n = 2, 4, 6, 8, any number of drives)
+# QCT_SIZES: n = 2, 4, 6, 8 and 18, any number of drives; n = 18, two
+# coupled three-level transmons, takes the entry design only)
 _NOT_SUPPORTED = 801  # cudaErrorNotSupported
 
 
@@ -102,7 +103,7 @@ def bank_config(n, na, free_dt, second_order, kind):
     """Launch configuration of the kernel for n x n generators, na drives
     and a free Δt or not: threads per pair, pairs per block, shared bytes
     per block, and the design ("strip" up to a few drives, "entry" past
-    them; csrc/prop_bank.cu)."""
+    them and at n = 18; csrc/prop_bank.cu)."""
     out = (ctypes.c_int * 4)()
     _check(_lib().qct_prop_bank_config(n, na, int(free_dt), int(second_order),
                                        int(kind == "exp"), out), n)

@@ -3,7 +3,7 @@
     python -m quantumcollocation_tpu_torch.profile_step
         [--config hadamard|hadamard_lbfgs|hadamard_scan|hadamard_gn|cnot|cnot_soc|ket_exp|
                   cnot_exp|su4|min_time|leakage|sampling|robustness|free_phase|bang_bang|
-                  density|state_sampling|direct_sum]
+                  density|state_sampling|direct_sum|cz]
         [--steps 3] [--batch B]
 
 Builds the problem of one of chip_smoke.py's main paths: "hadamard" (B=512,
@@ -43,8 +43,11 @@ assembly over three groups; bench_util.state_sampling_problem and
 multistart_seeds) or "direct_sum" (UnitaryDirectSumProblem of the H and X
 Hadamard-system problems, each first solved by solve_multistart(8) for 30
 iterations, T=31, B=512, d=30, m=2, lifted, one bank per part;
-bench_util.direct_sum_parts, direct_sum_problem and direct_sum_seeds),
-float32 on CUDA.  Runs two warm-up iterations
+bench_util.direct_sum_parts, direct_sum_problem and direct_sum_seeds)
+or "cz" (BASELINE #5: two three-level transmons, CZ embedded on their
+qubit subspace, T=75, Δt=1.0 free, B=256, d=175, s=171: the bank at
+n = 18 and the KKT route past 64, solver/kkt.py; bench_util.cz_problem and
+cz_seeds), float32 on CUDA.  Runs two warm-up iterations
 (eight for hadamard_lbfgs), then profiles `--steps` iterations with
 torch.profiler and prints one JSON line: host wall per iteration,
 device-busy time per iteration (the sum of kernel times), the idle share,
@@ -53,7 +56,10 @@ profiler slows the host, so the wall and idle share read high; the kernel
 times do not.  Then, without the profiler, the wall per iteration and, on
 the AD route, the time of its dynamics blocks (F, A, B by jacrev and the
 curvature -λ·∇²F, CUDA events around the calls) and their share of the
-iteration.  Needs a CUDA GPU.
+iteration; past the sweep kernels' 64 (the "riccati_torch" route), the
+time of one KKT attempt of the route (factor_kkt and solve_with_factors on
+the iteration's blocks, CUDA events), the attempts an iteration and the
+route's share of the iteration.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import bench_util as bu
+from .solver.kkt import factor_kkt, solve_with_factors
 from . import (
     PAULIS,
     PiccoloOptions,
@@ -104,6 +111,9 @@ def build(config, batch):
     if config == "density":
         prob = bu.density_problem()
         return prob.solver, bu.density_seeds(prob, batch or 512, 42)
+    if config == "cz":
+        prob, _ = bu.cz_problem()
+        return prob.solver, bu.cz_seeds(prob, batch or 256, 42)
     if config == "state_sampling":
         prob = bu.state_sampling_problem()
         return prob.solver, bu.multistart_seeds(prob, batch or 512, 42)
@@ -155,7 +165,7 @@ def main():
                                          "hadamard_gn", "cnot", "cnot_soc", "ket_exp",
                                          "cnot_exp", "su4", "min_time", "leakage", "sampling",
                                          "robustness", "free_phase", "bang_bang", "density",
-                                         "state_sampling", "direct_sum"),
+                                         "state_sampling", "direct_sum", "cz"),
                     default="hadamard")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=None)
@@ -194,12 +204,23 @@ def main():
             for e in top
         ],
     }), flush=True)
+    attempts = solver.kkt_attempts
     t0 = time.perf_counter()
     for _ in range(args.steps):
         st = solver.step(st)
     torch.cuda.synchronize()
-    line = {"phase": "unprofiled", "config": args.config,
-            "wall_ms_per_iter": 1e3 * (time.perf_counter() - t0) / args.steps}
+    line = {"phase": "unprofiled", "config": args.config, "kkt_route": solver.kkt_route,
+            "wall_ms_per_iter": 1e3 * (time.perf_counter() - t0) / args.steps,
+            "kkt_attempts_per_iter": (solver.kkt_attempts - attempts) / args.steps}
+    if solver.kkt_route == "riccati_torch":
+        with torch.no_grad():
+            kkt_in, _ = solver._iteration_pre(st)
+            H, C, A, Bj, rz, rnu = [x.contiguous() for x in kkt_in]
+            dc = solver.options.delta_c
+            line["route_ms_per_attempt"] = bu.time_ms(
+                lambda: solve_with_factors(factor_kkt(H, C, A, Bj, dc), rz, rnu), n=3, warm=1)
+        line["route_share"] = (line["route_ms_per_attempt"] * line["kkt_attempts_per_iter"]
+                               / line["wall_ms_per_iter"])
     f = solver.funcs
     if f.dyn_eval is not None:
         Z, lam = st.Z, st.lam

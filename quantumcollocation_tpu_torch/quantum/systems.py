@@ -1,20 +1,26 @@
-"""Closed and open (Lindblad) quantum system containers.
+"""Closed, open (Lindblad) and composite quantum system containers.
 
-Counterpart of quantumcollocation_tpu/quantum/systems.py::QuantumSystem
-and OpenQuantumSystem.  Complex Hamiltonians, dissipators and their real
-iso generators and superoperators are host numpy; an open system keeps one
-copy of its superoperators and complex operators on each (dtype, device)
-it is evaluated on.
+Counterpart of quantumcollocation_tpu/quantum/systems.py::QuantumSystem,
+OpenQuantumSystem, QuantumSystemCoupling and CompositeQuantumSystem.
+Complex Hamiltonians, dissipators and their real iso generators and
+superoperators are host numpy; an open system keeps one copy of its
+superoperators and complex operators on each (dtype, device) it is
+evaluated on.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from .isomorphisms import iso_D, iso_G
+from .operators import lift
 
-__all__ = ["QuantumSystem", "OpenQuantumSystem"]
+__all__ = ["QuantumSystem", "OpenQuantumSystem", "QuantumSystemCoupling",
+           "CompositeQuantumSystem"]
 
 
 def _stack_drives(H_drives, levels):
@@ -149,3 +155,39 @@ class OpenQuantumSystem(QuantumSystem):
             drho = drho - 0.5 * (LdL @ rho + rho @ LdL)
         out = drho.transpose(-1, -2).reshape(*drho.shape[:-2], n2)
         return torch.cat([out.real, out.imag], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantumSystemCoupling:
+    """A coupling term of a composite system: `op` is the coupling
+    operator on the full tensor-product space."""
+
+    op: Any
+    g: float = 0.0
+    pair: tuple = ()
+    subsystem_levels: tuple = ()
+    coupling_type: Any = None
+    params: Any = dataclasses.field(default_factory=dict)
+
+
+class CompositeQuantumSystem(QuantumSystem):
+    """The tensor product of subsystems with coupling terms: H_drift =
+    sum_i lift(H_drift_i) + sum_c c.op, and the drives are each
+    subsystem's drives lifted, in order.  params["subsystem_levels"] holds
+    the subsystems' levels (EmbeddedOperator reads it); `.subsystems`,
+    `.couplings` and `.subsystem_levels` are kept."""
+
+    def __init__(self, subsystems: Sequence[QuantumSystem],
+                 couplings: Sequence[QuantumSystemCoupling] = (), *, params=None):
+        levels = [int(sub.levels) for sub in subsystems]
+        H_drift = sum(lift(sub.H_drift, i, levels) for i, sub in enumerate(subsystems))
+        for c in couplings:
+            H_drift = H_drift + np.asarray(c.op)
+        H_drives = [lift(H, i, levels) for i, sub in enumerate(subsystems)
+                    for H in sub.H_drives]
+        merged = dict(params or {})
+        merged.setdefault("subsystem_levels", tuple(levels))
+        super().__init__(H_drift, H_drives, params=merged)
+        self.subsystems = tuple(subsystems)
+        self.couplings = tuple(couplings)
+        self.subsystem_levels = tuple(levels)

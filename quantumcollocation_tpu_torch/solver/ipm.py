@@ -45,7 +45,11 @@ freezes).  One iteration (`_step`):
      Sherman-Morrison-Woodbury adds the low-rank part.
      kkt_backend="lanes_scan" solves through the per-knot step kernels
      instead (2(T-1) launches per attempt), and refines, when asked,
-     through a fresh scan solve;
+     through a fresh scan solve.  Past the kernels' stage sizes
+     (max(d, s) > 64; solver/options.py::kkt_route) every one of these
+     solves, the kept-factor re-solves included, takes the batched
+     Riccati of solver/kkt.py instead ("riccati_torch", as JAX takes its
+     XLA scan there);
   4. fraction-to-boundary on the bounds and the slacks σ, a filter or
      merit line search, and the update with Ipopt's κ_Σ safeguard on the
      bound duals and w.
@@ -90,6 +94,7 @@ import numpy as np
 import torch
 
 from ..ops.dyn_assembly import SUPPORTED_NK
+from .kkt import KKTFactors, factor_kkt, solve_with_factors
 from .kkt_lanes import resolve_kkt_lanes, solve_kkt_lanes, solve_kkt_lanes_scan
 from .lbfgs import lbfgs_compact, lbfgs_rhs, lbfgs_update
 from .options import SolverOptions, resolve_modes
@@ -221,7 +226,21 @@ class InteriorPointSolver:
         # without an exact Hessian: L-BFGS, or Gauss-Newton (the exact cost
         # Hessians without the defect curvature)
         self.qn_lbfgs = not exact_hessian and o.quasi_newton == "lbfgs"
-        self.scan = o.kkt_backend == "lanes_scan"
+        groups = nlp.analytic.groups if nlp.analytic is not None else ()
+        # every KKT solve of the iteration goes through one route, chosen
+        # here from the stage sizes (_kkt_solve, _kkt_resolve)
+        self.fused_assembly_on, self.kkt_refine_n, self.kkt_route = resolve_modes(
+            o, nlp.d, nlp.s,
+            group_nk=[(g.G_drift.shape[0], g.G_drives.shape[0] + int(g.dt_col is not None))
+                      for g in groups],
+            supported_nk=SUPPORTED_NK, exact_hessian=exact_hessian,
+        )
+        if (self.kkt_route == "riccati_torch" and o.kkt_backend in ("lanes", "lanes_scan")
+                and o.print_level >= 1):
+            print(f"[qct] note: stage dims (d={nlp.d}, s={nlp.s}) exceed the sweep kernels' "
+                  f"{max(o.lanes_max_dim, o.lanes_vec_max_dim or 0)}; kkt_backend "
+                  f"{o.kkt_backend!r} -> the batched Riccati of solver/kkt.py")
+        self.scan = self.kkt_route == "lanes_scan"
         if self.qn_lbfgs and self.scan:
             raise ValueError(
                 "kkt_backend='lanes_scan' (the per-knot backend) supports exact Hessians "
@@ -250,13 +269,6 @@ class InteriorPointSolver:
         )
         self.retry_warm_on = (
             self.kkt_aug_on if o.kkt_retry_warm == "auto" else bool(o.kkt_retry_warm)
-        )
-        groups = nlp.analytic.groups if nlp.analytic is not None else ()
-        self.fused_assembly_on, self.kkt_refine_n = resolve_modes(
-            o, nlp.d, nlp.s,
-            group_nk=[(g.G_drift.shape[0], g.G_drives.shape[0] + int(g.dt_col is not None))
-                      for g in groups],
-            supported_nk=SUPPORTED_NK, exact_hessian=exact_hessian,
         )
         if self.qn_lbfgs:
             self.kkt_refine_n = 0
@@ -410,11 +422,28 @@ class InteriorPointSolver:
         Bt, T, d = g.shape
         H = self._eye.expand(Bt, T, d, d).contiguous()
         Cz = g.new_zeros(Bt, T - 1, d, d)
-        _, nu, ok = (solve_kkt_lanes_scan if self.scan else solve_kkt_lanes)(
-            H, Cz, A.contiguous(), Bj.contiguous(), g.contiguous(),
-            g.new_zeros(Bt, T - 1, self.nlp.s), 1e-8,
-        )
+        _, nu, ok = self._kkt_solve(H, Cz, A.contiguous(), Bj.contiguous(), g.contiguous(),
+                                    g.new_zeros(Bt, T - 1, self.nlp.s), 1e-8)
         return nu, ok
+
+    def _kkt_solve(self, H, C, A, Bj, rz, rnu, delta_c, want_factors=False):
+        """One KKT solve through the solver's route: (dz, ν, ok), and the
+        kept factors as a fourth entry with want_factors (KKTFactors on
+        "riccati_torch", LanesFactors on "lanes"; lanes_scan keeps none)."""
+        if self.kkt_route == "riccati_torch":
+            fac = factor_kkt(H, C, A, Bj, delta_c)
+            out = solve_with_factors(fac, rz, rnu)
+            return out + (fac,) if want_factors else out
+        if self.scan:
+            return solve_kkt_lanes_scan(H, C, A, Bj, rz, rnu, delta_c)
+        return solve_kkt_lanes(H, C, A, Bj, rz, rnu, delta_c, want_factors=want_factors)
+
+    @staticmethod
+    def _kkt_resolve(fac, rz, rnu):
+        """A right-hand side re-solved against kept factors: (dz, ν, ok)."""
+        if isinstance(fac, KKTFactors):
+            return solve_with_factors(fac, rz, rnu)
+        return resolve_kkt_lanes(fac, rz, rnu)
 
     # ------------------------------------------------------------------ #
     def _iteration_pre(self, st: IPMState):
@@ -674,7 +703,7 @@ class InteriorPointSolver:
         one small (2m)² solve per instance."""
         Bt, T, d = rz.shape
         k2 = U.shape[-1]
-        DZ, NU, okm = solve_kkt_lanes(H, C, A, Bj, *lbfgs_rhs(rz, rnu, U), self.options.delta_c)
+        DZ, NU, okm = self._kkt_solve(H, C, A, Bj, *lbfgs_rhs(rz, rnu, U), self.options.delta_c)
         dz0, Wz = DZ[..., 0], DZ[..., 1:]
         nu0, Wnu = NU[..., 0], NU[..., 1:]
         Wzf = Wz.reshape(Bt, T * d, k2)
@@ -739,20 +768,19 @@ class InteriorPointSolver:
             self.kkt_attempt_rows += Bt
             if rho is not None:
                 self.kkt_lifted_rows = self.kkt_lifted_rows + (rho > 0).sum()
-            if self.scan:
-                dz2, nu2, ok2 = solve_kkt_lanes_scan(Hreg, C_in, A, Bj, rz_in, rnu, o.delta_c)
-
-                def resolve(r1, r2, Hreg=Hreg, C_in=C_in):
-                    return solve_kkt_lanes_scan(Hreg, C_in, A, Bj, r1, r2, o.delta_c)
-            elif lowrank is not None:
+            if lowrank is not None:
                 dz2, nu2, ok2 = self._lbfgs_solve(Hreg, C_in, A, Bj, rz_in, rnu, *lowrank)
             else:
-                dz2, nu2, ok2, *fac = solve_kkt_lanes(
-                    Hreg, C_in, A, Bj, rz_in, rnu, o.delta_c, want_factors=n_ref > 0 or keep
+                dz2, nu2, ok2, *fac = self._kkt_solve(
+                    Hreg, C_in, A, Bj, rz_in, rnu, o.delta_c,
+                    want_factors=not self.scan and (n_ref > 0 or keep),
                 )
 
-                def resolve(r1, r2, fac=fac):
-                    return resolve_kkt_lanes(fac[0], r1, r2)
+                def resolve(r1, r2, fac=fac, Hreg=Hreg, C_in=C_in):
+                    # lanes_scan keeps no factors: a fresh solve
+                    if self.scan:
+                        return self._kkt_solve(Hreg, C_in, A, Bj, r1, r2, o.delta_c)
+                    return self._kkt_resolve(fac[0], r1, r2)
             if n_ref > 0 and lowrank is None:
                 dz2, nu2 = self._refine(kkt_in, dw_next, dz2, nu2, resolve,
                                         rho=rho, n_pass=n_ref)
@@ -762,9 +790,10 @@ class InteriorPointSolver:
                 fac_acc = fac[0]
             elif keep:
                 # each instance keeps the factors of the attempt it accepts
+                # (the constraint blocks A, B are the same in every attempt)
                 fac_acc = fac[0]._replace(**{
                     name: torch.where(_col(ok, new.ndim), getattr(fac_acc, name), new)
-                    for name, new in zip(("L_P", "L_S", "X_A", "G", "L_Pf", "C"), fac[0][:6])
+                    for name, new in zip(fac[0]._fields, fac[0]) if name not in ("A", "B")
                 })
             dw_used = torch.where(ok, dw_used, dw_next)
             rho_used = torch.where(ok, rho_used, 0.0 if rho is None else rho)
@@ -816,7 +845,7 @@ class InteriorPointSolver:
         factors (and in JAX's), but finite values in the plain version's.
         Returns (dz_c, ν_c, ok_c, θ grew)."""
         rz, rnu, theta_grew = self._soc_rhs(st, aux, dz, rho_used, kkt_in)
-        dz_c, nu_c, ok_c = resolve_kkt_lanes(fac, rz, rnu)
+        dz_c, nu_c, ok_c = self._kkt_resolve(fac, rz, rnu)
         return dz_c, nu_c, ok_c & ok, theta_grew
 
     # ------------------------------------------------------------------ #

@@ -65,8 +65,8 @@ def factor_kkt(H, C, A, B, delta_c) -> KKTFactors:
         C_t, A_t, B_t = C[:, t], A[:, t], B[:, t]
         L_P, info = torch.linalg.cholesky_ex(P)
         ok = ok & (info == 0)
-        X_A = _chol_solve(L_P, A_t.mT)
-        X_C = _chol_solve(L_P, C_t)
+        # P^-1 [A_t^T | C_t] in one pair of triangular solves
+        X_A, X_C = _chol_solve(L_P, torch.cat([A_t.mT, C_t], -1)).split([s, C_t.shape[-1]], -1)
         L_S, info = torch.linalg.cholesky_ex(delta_c * eye_s + A_t @ X_A)
         ok = ok & (info == 0)
         G = A_t @ X_C - B_t

@@ -16,12 +16,21 @@ so a configuration carries over unchanged.  `resolve_modes` turns the
                   bank in shared memory, which does not fit at the
                   two-qubit sizes (n=8, K=5: 10,752 bytes of bank per
                   pair).  True with an (n, K) outside SUPPORTED_NK raises.
+  kkt_route       from the stage sizes alone, as the JAX solver sends its
+                  lanes backends to its XLA scan Riccati (JAX
+                  solver/ipm.py:180-202): max(d, s) > max(lanes_max_dim,
+                  lanes_vec_max_dim) takes "riccati_torch", the batched
+                  Riccati of solver/kkt.py (torch.linalg.cholesky_ex and
+                  solve_triangular, every instance at once; the JAX
+                  counterpart has no Pallas kernel either); below it
+                  "lanes_scan" for that backend, else "lanes" (the sweep
+                  kernels, which take d, s <= 64).  The route is chosen,
+                  not fallen back to: at or below the ceiling a refused
+                  kernel launch still raises.
   kkt_refine      "auto": one refinement pass through the kept factors iff
-                  kkt_backend == "lanes" and max(d, s) > lanes_max_dim.
-                  An int is taken as given.  (The JAX solver also sends
-                  max(d, s) > lanes_vec_max_dim to its XLA backend, without
-                  refinement: a TPU compile ceiling the port does not have,
-                  so lanes_vec_max_dim is not read here.)
+                  the route is "lanes", kkt_backend == "lanes" and
+                  max(d, s) > lanes_max_dim; none on "riccati_torch" (JAX's
+                  "xla" rule).  An int is taken as given.
 
 matmul_precision and eval_precision are kept for surface parity and
 ignored: the port's precision is its dtype (float32 on the GPU with TF32
@@ -41,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-__all__ = ["SolverOptions", "IpoptOptions", "PiccoloOptions", "resolve_modes"]
+__all__ = ["SolverOptions", "IpoptOptions", "PiccoloOptions", "kkt_route", "resolve_modes"]
 
 
 @dataclasses.dataclass
@@ -132,14 +141,25 @@ class SolverOptions:
 IpoptOptions = SolverOptions
 
 
+def kkt_route(o: SolverOptions, d: int, s: int) -> str:
+    """"riccati_torch", "lanes_scan" or "lanes" for stage sizes d, s (see
+    the module docstring)."""
+    vec_max = o.lanes_max_dim if o.lanes_vec_max_dim is None else o.lanes_vec_max_dim
+    if max(d, s) > max(o.lanes_max_dim, vec_max):
+        return "riccati_torch"
+    return "lanes_scan" if o.kkt_backend == "lanes_scan" else "lanes"
+
+
 def resolve_modes(o: SolverOptions, d: int, s: int, *, group_nk=(), supported_nk=(),
-                  exact_hessian: bool) -> tuple[bool, int]:
-    """(fused_assembly_on, kkt_refine_n) for stage sizes d, s; group_nk
-    holds the (n, K) of each analytic propagator group (empty without
-    them), supported_nk the fused kernel's.  See the module docstring."""
+                  exact_hessian: bool) -> tuple[bool, int, str]:
+    """(fused_assembly_on, kkt_refine_n, kkt_route) for stage sizes d, s;
+    group_nk holds the (n, K) of each analytic propagator group (empty
+    without them), supported_nk the fused kernel's.  See the module
+    docstring."""
     big = max(d, s)
+    route = kkt_route(o, d, s)
     if o.kkt_refine == "auto":
-        refine = int(o.kkt_backend == "lanes" and big > o.lanes_max_dim)
+        refine = int(route == "lanes" and o.kkt_backend == "lanes" and big > o.lanes_max_dim)
     else:
         refine = int(o.kkt_refine)
     fa = o.fused_assembly
@@ -153,7 +173,7 @@ def resolve_modes(o: SolverOptions, d: int, s: int, *, group_nk=(), supported_nk
             f"fused_assembly=True: the fused kernel takes (n, K) in SUPPORTED_NK "
             f"{sorted(supported_nk)}, not {sorted(set(group_nk) - set(supported_nk))}"
         )
-    return bool(fused), refine
+    return bool(fused), refine, route
 
 
 @dataclasses.dataclass

@@ -1,5 +1,14 @@
-"""Physics model library: the transmon system template."""
+"""Physics model library: transmon, Rydberg and cat system templates."""
 
-from .transmons import TransmonSystem
+from .transmons import MultiTransmonSystem, TransmonDipoleCoupling, TransmonSystem
+from .rydberg import RydbergChainSystem
+from .cats import CatSystem, get_cat_controls
 
-__all__ = ["TransmonSystem"]
+__all__ = [
+    "MultiTransmonSystem",
+    "TransmonDipoleCoupling",
+    "TransmonSystem",
+    "RydbergChainSystem",
+    "CatSystem",
+    "get_cat_controls",
+]

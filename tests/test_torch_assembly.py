@@ -2,7 +2,10 @@
 
 The port's plain version (dyn_assembly_reference = batched dyn_eval +
 defect_curvature) against the JAX Pallas kernel run in interpret mode, in
-scaled units, float64 on the CPU (atol 1e-10).  The CUDA kernel is held
+scaled units, float64 on the CPU (atol 1e-10).  The free-Δt cases drive
+one control (X): the Δt column still gives every mixed pair (a, Δt) of
+the curvature, and the fixed-Δt case's two drives the pair (a_1, a_2);
+interpret mode's time grows with the drive count.  The CUDA kernel is held
 against the plain version on the card in tests/test_torch_cuda.py."""
 
 import functools
@@ -28,11 +31,12 @@ CASES = {
     "exp_free_time": dict(integrator="exponential"),
     "exp_fixed_time": dict(integrator="exponential", free_time=False),
 }
+DRIVES = {"pade_free_time": 1, "exp_free_time": 1, "exp_fixed_time": 2}
 
 
 @functools.lru_cache(maxsize=None)  # one build per case for the whole file
 def _pair(case, T=9):
-    sj = qct.QuantumSystem(qct.GATES["Z"], [qct.GATES["X"], qct.GATES["Y"]])
+    sj = qct.QuantumSystem(qct.GATES["Z"], [qct.GATES["X"], qct.GATES["Y"]][:DRIVES[case]])
     pj = qct.UnitarySmoothPulseProblem(
         sj, qct.GATES["H"], T, 0.2,
         ipopt_options=qct.SolverOptions(print_level=1),
@@ -80,22 +84,23 @@ def test_analytic_defects_match_integrator_definitions():
 
 
 def test_spec_table_and_exp_branch():
+    # one drive and a free Δt: d = 8 + 3 + 1 = 12, s = 8 + 2 + 1 = 11
     _, pt = _pair("pade_free_time")
     ispec, fspec, nk, kind = da.pack_spec(pt.solver.nlp.analytic)
-    assert nk == (4, 3) and nk in da.SUPPORTED_NK and kind == "pade"
+    assert nk == (4, 2) and nk in da.SUPPORTED_NK and kind == "pade"
     assert ispec[:3].tolist() == [1, 2, 1]  # one group, two derivative rows, one Δt row
     assert ispec[7] == 0  # no squarings
-    assert fspec.shape[0] == 15 + 13 + 2 + 3 + 16 + 32 + 2
+    assert fspec.shape[0] == 12 + 11 + 2 + 3 + 16 + 16 + 2
     # the exponential branch: its squaring count, the five order-8
     # coefficients and the generators scaled by 2^-s
     _, pe = _pair("exp_free_time")
     an = pe.solver.nlp.analytic
     (g,) = an.groups
     ispec, fspec, nk, kind = da.pack_spec(an)
-    assert nk == (4, 3) and kind == "exp" and g.num_squarings >= 1
+    assert nk == (4, 2) and kind == "exp" and g.num_squarings >= 1
     assert ispec[3:9].tolist()[-2] == g.num_squarings
-    assert fspec.shape[0] == 15 + 13 + 2 + 5 + 16 + 32 + 2
-    g0 = 15 + 13
+    assert fspec.shape[0] == 12 + 11 + 2 + 5 + 16 + 16 + 2
+    g0 = 12 + 11
     assert fspec[g0 + 1] == 5
     np.testing.assert_allclose(fspec[g0 + 2:g0 + 7], qt.pade_coefficients(8))
     np.testing.assert_allclose(fspec[g0 + 7:g0 + 23], 2.0 ** -g.num_squarings * g.G_drift.ravel())

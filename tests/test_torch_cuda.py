@@ -121,9 +121,9 @@ def _close_rel(out, ref, tol=1e-4):
 # (n, drives): kernel 5's strip design up to its drives (2 at n = 2, 4, 6;
 # 5 at n = 8) and its entry design past them; each with a fixed and a free
 # Δt
-_STRIP_MAX = {2: 2, 4: 2, 6: 2, 8: 5}
+_STRIP_MAX = {2: 2, 4: 2, 6: 2, 8: 5, 18: 0}  # n = 18: the entry design only
 _BANK_NNA = [(2, 1), (2, 2), (2, 3), (4, 1), (4, 2), (4, 3), (6, 1), (6, 2), (6, 3),
-             (8, 1), (8, 4), (8, 5), (8, 6)]
+             (8, 1), (8, 4), (8, 5), (8, 6), (18, 4)]
 _BANK_SHAPES = [(n, na, free) for n, na in _BANK_NNA for free in (False, True)]
 
 
@@ -202,6 +202,8 @@ _EXP_CASES = [  # (n, drives, free Δt, second order, Padé order, squarings)
     (6, 3, True, False, 2, 1),
     (8, 6, False, True, 8, 2),
     (8, 6, True, True, 2, 1),
+    # two coupled three-level transmons: n = 18, four drives (on no path)
+    (18, 4, True, True, 8, 1),
 ]
 
 
@@ -214,6 +216,79 @@ def test_bank_kernel_exp_branch_matches_plain_version(cuda, monkeypatch, n, na, 
     kw = dict(kind="exp", order=order, num_squarings=nsq, free_dt=free_dt,
               second_order=second_order)
     assert len(_check_bank(args, kw, monkeypatch)) == 3
+
+
+@pytest.mark.parametrize("free_dt", [False, True])
+@pytest.mark.parametrize("second_order", [False, True])
+def test_bank_config_at_n18_is_the_entry_design(cuda, free_dt, second_order):
+    # one pair (324 threads) a block: the drives' generators and two Q x n²
+    # state buffers (Padé) or four n² matrices and three buffers
+    # (exponential), Q = 1 + K + Kp
+    K = 4 + int(free_dt)
+    Q = 1 + K + (K * (K + 1) // 2 if second_order else 0)
+    fixed = 4 * 324 * 4
+    for kind, per_pair in (("pade", (324 + 2 * Q * 324) * 4), ("exp", (4 * 324 + 3 * Q * 324) * 4)):
+        cfg = pb.bank_config(18, 4, free_dt, second_order, kind)
+        assert cfg == dict(threads_per_pair=324, pairs_per_block=1,
+                           shared_bytes_per_block=fixed + per_pair, design="entry"), cfg
+    assert pb.bank_config(18, 4, True, True, "pade")["shared_bytes_per_block"] == 5184 + 55728
+    with pytest.raises(NotImplementedError):
+        pb.prop_bank(*seeded_bank(3, 10, 2, cuda), kind="pade", order=4, free_dt=False,
+                     second_order=True)
+
+
+def _composite_ket_problem(device, dtype=None):
+    """Four kets of two coupled three-level transmons (the qubit subspace's
+    basis to its CZ image): d = 4·18 + 3·4 + 1 = 85, s = 72 + 2·4 + 1 = 81,
+    past the sweep kernels' 64, and the bank at n = 18."""
+    sysq = qt.MultiTransmonSystem(omegas=[4.0, 4.5], deltas=[0.2, 0.2],
+                                  gs=[[0, 0.01], [0.01, 0]], levels_per_transmon=3)
+    basis = np.eye(9)[[0, 1, 3, 4]]
+    goals = basis * np.array([1, 1, 1, -1])[:, None]
+    return qt.QuantumStateSmoothPulseProblem(
+        sysq, list(basis), list(goals), 6, 1.0, a_bound=0.1,
+        ipopt_options=qt.SolverOptions(tol=1e-6, **({} if dtype is None else {"dtype": dtype})),
+        piccolo_options=qt.PiccoloOptions(verbose=False), rng=np.random.default_rng(2),
+        device=device)
+
+
+def test_riccati_route_past_64_matches_float64_and_launches_no_sweep(cuda):
+    pg = _composite_ket_problem("cuda")
+    assert (pg.nlp.d, pg.nlp.s) == (85, 81) and pg.solver.kkt_route == "riccati_torch"
+    assert pg.dtype == torch.float32
+    # the route's solve and its re-solve on the kept factors against the
+    # float64 CPU solve of the same (definite, seeded) blocks of the shape,
+    # within 2e-3 of the largest entry: this float32 Riccati's own error on
+    # these blocks is 3.3e-4 of it at d = 85 (the card, the first run of
+    # this test), above the 1e-4 the kernel-against-plain checks take
+    args = seeded_kkt(16, 6, 85, 81, cuda)
+    dz, nu, ok, fac = pg.solver._kkt_solve(*args[:6], 1e-8, want_factors=True)
+    ez, enu, okr = pg.solver._kkt_resolve(fac, *args[6:])
+    ref = solve_kkt(*[x.double().cpu() for x in args[:6]], 1e-8)
+    ref2 = solve_kkt(*[x.double().cpu() for x in args[:4] + args[6:]], 1e-8)
+    assert bool(ok.all()) and bool(okr.all())
+    for out, r in ((dz, ref[0]), (nu, ref[1]), (ez, ref2[0]), (enu, ref2[1])):
+        _close_rel(out.cpu(), r, tol=2e-3)
+    # three IPM iterations of the problem on the route: finite, with the
+    # bank at n = 18 and not one sweep or step launch
+    Z0 = pg.multistart_initial_decisions(4, sigma=0.05, rng=np.random.default_rng(1))
+    build.reset_launch_counts()
+    res = pg.solve_batched(Z0, max_iter=3)
+    torch.cuda.synchronize()
+    c = dict(build.launch_counts)
+    sweeps = ("kkt_fwd_sweep", "kkt_bwd_sweep", "kkt_rhs_fwd_sweep", "kkt_fwd_step",
+              "kkt_bwd_step")
+    assert all(c[k] == 0 for k in sweeps) and c["prop_bank"] >= 3, c
+    assert torch.isfinite(res.Z).all() and pg.solver.last_steps == 3
+
+
+def test_sweep_kernels_still_refuse_past_64(cuda):
+    Bt, T, d, s = 2, 3, 65, 60
+    shapes = [(Bt, T, d, d), (Bt, T - 1, d, d), (Bt, T - 1, s, d), (Bt, T - 1, s, d),
+              (Bt, T, d), (Bt, T - 1, s)]
+    args = [torch.zeros(sh, dtype=torch.float32, device=cuda) for sh in shapes]
+    with pytest.raises(RuntimeError):
+        kl.solve_kkt_lanes(*args, 1e-8)
 
 
 def _ket_problem(T=11, **kw):

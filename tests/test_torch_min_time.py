@@ -5,9 +5,10 @@ Both final-fidelity constraints (value, Jacobian, Hessian of wᵀg), the
 m = 1 NLP (row scales q, inequality Jacobian, Hessian blocks), and the
 iterates of the batched solves against the JAX package on the same numpy
 seeds, float64 on the CPU: 8 minimum-time iterations (Hadamard, T=11,
-B=2, the lift and the warm retries on by "auto") with Z, σ, w and the
-accepted δ_w of every iteration; 6 recalc_y iterations; 6 iterations of
-the two-ket minimum-time problem.  The JAX side runs on its XLA KKT
+B=2, the lift and the warm retries on by "auto", and recalc_y) with Z, σ,
+w, the reset λ and the accepted δ_w of every iteration, one JAX solver
+for both the lift and recalc_y; 6 iterations of the two-ket minimum-time
+problem.  The JAX side runs on its XLA KKT
 backend and starts from _init_state_jit.  Z within 1e-6, the duals within
 1e-6 relative, the KKT error 1e-4 relative, as tests/test_torch_solve.py;
 function values within 1e-10.  Also: the fused assembly's "auto" mode
@@ -46,20 +47,47 @@ def _smooth_cached(pkg_name):
     return _smooth({"jax": qct, "port": qt}[pkg_name])
 
 
-def _smooth(pkg, **solver_kw):
+def _smooth(pkg):
     extra = {} if pkg is qct else {"device": "cpu"}
     return pkg.UnitarySmoothPulseProblem(
         _had_system(pkg), pkg.GATES["H"], 11, 0.2, Q=Q, R=R,
         ipopt_options=pkg.SolverOptions(print_level=1, tol=1e-6, line_search="filter",
-                                        kkt_backend="xla", **solver_kw),
+                                        kkt_backend="xla"),
         piccolo_options=pkg.PiccoloOptions(verbose=False), rng=np.random.default_rng(0), **extra,
     )
 
 
+# the one JAX solver of the file: the minimum-time problem with the
+# multiplier reset on, whose iterates hold the lift, the warm retries and
+# recalc_y at once (each further JAX solver costs a compile of its step)
+RECALC_Y = dict(recalc_y="yes", recalc_y_feas_tol=1e1)
+
+
+def _opts(pkg, **kw):
+    extra = {"kkt_backend": "xla"} if pkg is qct else {}
+    return pkg.SolverOptions(print_level=1, tol=1e-6, line_search="filter", **extra, **kw)
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_min_time(final_fidelity=0.99):
-    return qct.UnitaryMinimumTimeProblem(_smooth_cached("jax"), final_fidelity=final_fidelity,
-                                         D=10.0)
+def _jax_min_time():
+    return qct.UnitaryMinimumTimeProblem(_smooth_cached("jax"), final_fidelity=0.99, D=10.0,
+                                         ipopt_options=_opts(qct, **RECALC_Y))
+
+
+def _port_min_time(**kw):
+    pj = _jax_min_time()
+    return interop.unitary_minimum_time_from_arrays(
+        interop.problem_arrays(pj, batch=2, Z0=_seeded_Z0(pj)), Q=Q, R=R,
+        ipopt_options=_opts(qt, **kw), piccolo_options=qt.PiccoloOptions(verbose=False),
+        device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _min_time_lockstep():
+    """The states of 8 lockstep iterations of the minimum-time problem
+    (JAX's, the port's) and the port problem with its start."""
+    pt, Z0_t = _port_min_time(**RECALC_Y)
+    return _lockstep(_jax_min_time(), pt, Z0_t, 8), pt, Z0_t
 
 
 def _seeded_Z0(prob, sigma=0.05):
@@ -133,11 +161,7 @@ def test_fidelity_constraints_match_jax(kind):
 
 def test_m1_nlp_matches_jax():
     pj = _jax_min_time()
-    pt, Z0_t = interop.unitary_minimum_time_from_arrays(
-        interop.problem_arrays(pj, batch=2, Z0=_seeded_Z0(pj)), Q=Q, R=R,
-        ipopt_options=qt.SolverOptions(print_level=1, tol=1e-6, line_search="filter"),
-        piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
-    )
+    pt, Z0_t = _port_min_time(**RECALC_Y)
     nj, nt = pj.solver.nlp, pt.solver.nlp
     assert (nt.d, nt.s, nt.m) == (nj.d, nj.s, nj.m) == (15, 13, 1)
     np.testing.assert_allclose(pt.solver.ineq_scale, interop.problem_arrays(pj)["ineq_scale"],
@@ -170,14 +194,9 @@ def test_m1_nlp_matches_jax():
 
 
 def test_eight_min_time_iterations_match_jax():
-    pj = _jax_min_time()
-    pt, Z0_t = interop.unitary_minimum_time_from_arrays(
-        interop.problem_arrays(pj, batch=2, Z0=_seeded_Z0(pj)), Q=Q, R=R,
-        ipopt_options=qt.SolverOptions(print_level=1, tol=1e-6, line_search="filter"),
-        piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
-    )
+    states, _, _ = _min_time_lockstep()
     lifted = 0
-    for k, (sj, st) in enumerate(_lockstep(pj, pt, Z0_t, 8)):
+    for k, (sj, st) in enumerate(states):
         _assert_state(sj, st, k)
         lifted += int((st.reg_dw > 0).sum())
     # the regularized (lifted, warm-started) attempts carried the solve
@@ -185,22 +204,12 @@ def test_eight_min_time_iterations_match_jax():
 
 
 def test_recalc_y_iterations_match_jax():
-    kw = dict(recalc_y="yes", recalc_y_feas_tol=1e1)
-    pj = _smooth(qct, **kw)
-    arrays = interop.problem_arrays(pj, batch=2, Z0=_seeded_Z0(pj, 0.1))
-    opts = qt.SolverOptions(print_level=1, tol=1e-6, line_search="filter", **kw)
-    pt, Z0_t = interop.unitary_smooth_pulse_from_arrays(
-        arrays, Q=Q, R=R, ipopt_options=opts,
-        piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
-    )
-    assert not pt.solver.fused_assembly_on and not pj.solver.fused_assembly_on
-    for k, (sj, st) in enumerate(_lockstep(pj, pt, Z0_t, 6)):
+    states, pt, Z0_t = _min_time_lockstep()
+    assert not pt.solver.fused_assembly_on and not _jax_min_time().solver.fused_assembly_on
+    for k, (sj, st) in enumerate(states):
         _assert_state(sj, st, k)
     # the reset ran: without it the multipliers of three steps differ
-    plain, _ = interop.unitary_smooth_pulse_from_arrays(
-        arrays, Q=Q, R=R, ipopt_options=opts.replace(recalc_y=False),
-        piccolo_options=qt.PiccoloOptions(verbose=False), device="cpu",
-    )
+    plain, _ = _port_min_time()
     st_p, st_r = plain.solver.init_state(Z0_t), pt.solver.init_state(Z0_t)
     for _ in range(3):
         st_p, st_r = plain.solver.step(st_p), pt.solver.step(st_r)

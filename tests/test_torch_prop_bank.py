@@ -2,10 +2,13 @@
 
 `prop_bank_reference` against the JAX Pallas bank `prop_bank_lanes` in
 interpret mode at small shapes (Padé: n=8 with two drives and fixed Δt, n=4
-with two drives and free Δt; exponential: n=4, free Δt, two squarings,
-first order), and
+with two drives and free Δt, whose second order holds the pairs (a_1, a_2)
+and (a_k, Δt); exponential: n=4, one drive, free Δt, two squarings, first
+order, one drive because interpret mode's time grows with the drive
+count), and
 against the vmapped pure-JAX `pade_poly_frechet` and `expm_frechet_bank` at
-the two-qubit shape (n=8, five drives, fixed Δt) and, for the exponential
+the two-qubit shape (n=8, five drives, fixed Δt) and the two-transmon CZ
+shape (n=18, four drives, free Δt) and, for the exponential
 kind, at n=4 with a free Δt, second order, float64 on the CPU, rtol
 1e-10.  The CUDA kernel is held against the plain version on the card in
 tests/test_torch_cuda.py."""
@@ -51,7 +54,8 @@ def _close(out, ref, what):
     pytest.param("exp", 4, True, id="exp-4-True"),
 ])
 def test_bank_matches_jax_pallas_kernel(kind, n, free_dt):
-    a, dt, Gd, Gs = _inputs(n, 2, 37, seed=n)
+    na = 1 if kind == "exp" else 2
+    a, dt, Gd, Gs = _inputs(n, na, 37, seed=n)
     # the exponential case is first order, as the ket path runs it (in
     # interpret mode its second order takes ~10 s; the n=8 test below and
     # the assembly tests cover that)
@@ -61,7 +65,7 @@ def test_bank_matches_jax_pallas_kernel(kind, n, free_dt):
     ref = prop_bank_lanes(*[jnp.asarray(x) for x in (a, dt, Gd, Gs)], interpret=True, **kw)
     out = pb.prop_bank(*[torch.as_tensor(x) for x in (a, dt)], torch.as_tensor(Gd),
                        torch.as_tensor(Gs), **kw)
-    K = 2 + int(free_dt)
+    K = na + int(free_dt)
     assert len(out) == (6 if pade else 3) and out[1].shape == (37, K, n, n)
     if pade:
         assert out[2].shape == (37, len(frechet_pairs(K)), n, n)
@@ -70,16 +74,29 @@ def test_bank_matches_jax_pallas_kernel(kind, n, free_dt):
     _close([x for x in out if x is not None], [x for x in ref if x is not None], "pallas")
 
 
-def test_bank_matches_pure_jax_at_two_qubit_width():
-    a, dt, Gd, Gs = _inputs(8, 5, 24, seed=1)
-    X = (Gd + np.tensordot(a, Gs, axes=1)) * dt[:, None, None]
+@pytest.mark.parametrize("n, na, free_dt, M", [
+    pytest.param(8, 5, False, 24, id="cnot"),
+    # two coupled three-level transmons (the embedded CZ): four drives, a
+    # free Δt with its (a_k, Δt) cross terms d2X = G_k
+    pytest.param(18, 4, True, 8, id="cz"),
+])
+def test_bank_matches_pure_jax_at_two_qubit_width(n, na, free_dt, M):
+    a, dt, Gd, Gs = _inputs(n, na, M, seed=1)
+    G = Gd + np.tensordot(a, Gs, axes=1)
+    X = G * dt[:, None, None]
     dX = Gs[None] * dt[:, None, None, None]
-    ref = jax.jit(jax.vmap(lambda x, dx: jax_pade_poly_frechet(x, dx, None, order=4)))(
+    d2X = None
+    if free_dt:
+        dX = np.concatenate([dX, G[:, None]], axis=1)
+        d2X = jnp.asarray(np.stack([Gs[k] if l == na and k < na else np.zeros((n, n))
+                                    for k, l in frechet_pairs(na + 1)]))
+    ref = jax.jit(jax.vmap(lambda x, dx: jax_pade_poly_frechet(x, dx, d2X, order=4)))(
         jnp.asarray(X), jnp.asarray(dX)
     )
     out = pb.prop_bank_reference(*[torch.as_tensor(x) for x in (a, dt, Gd, Gs)],
-                                 kind="pade", order=4, free_dt=False, second_order=True)
-    assert out[2].shape == (24, 15, 8, 8)
+                                 kind="pade", order=4, free_dt=free_dt, second_order=True)
+    K = na + int(free_dt)
+    assert out[2].shape == (M, K * (K + 1) // 2, n, n)
     _close(out, ref, "pure jax")
 
 

@@ -11,11 +11,15 @@ relative after every iteration, as tests/test_torch_solve.py; μ within
     defect curvature, exact cost Hessians; the bank runs first order, and
     on the AD route (jacobian_structure=False) the -λ·∇²F passes never
     run;
-  - adaptive μ (the LOQO oracle), μ itself included;
+  - adaptive μ (the LOQO oracle), μ itself included; one solve serves
+    this mode and the one above (Gauss-Newton with adaptive μ: a JAX
+    solver costs a compile of its step);
   - the watchdog, where the filter rejects every trial (theta_max_fact =
     1e-6 caps the violation a trial may have): the same activations, steps
     under the watchdog, rewinds and cool-downs (wd_count, wd_cool) as JAX.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -79,25 +83,47 @@ def _lockstep(pj, pt, Z0_t, n, check=None):
     return st
 
 
+GN = dict(quasi_newton="gauss-newton")
+GN_ADAPTIVE_MU = dict(GN, mu_strategy="adaptive")
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_adaptive_mu():
+    """The 10-iteration lockstep of Gauss-Newton with adaptive μ: the JAX
+    and port problems, the port's start, the JAX problem's arrays, the
+    port's last state, the bank's orders, μ of each iteration and the
+    filter resets."""
+    pj, pt, Z0_t, arrays = _pair(GN_ADAPTIVE_MU, dict(eval_hessian=False))
+    an = pt.solver.nlp.analytic
+    orders, mus = [], []
+    banks = an.banks_batched
+    an.banks_batched = lambda Z, second_order=True: orders.append(second_order) or banks(
+        Z, second_order=second_order)
+
+    def check(sj, st, k):
+        np.testing.assert_allclose(st.mu.numpy(), np.asarray(sj.mu), rtol=1e-6,
+                                   err_msg=f"mu, it {k}")
+        mus.append(st.mu.numpy())
+
+    st = _lockstep(pj, pt, Z0_t, 10, check)
+    an.banks_batched = banks
+    return (pj, pt, Z0_t, arrays, st, orders, np.array(mus),
+            pt.solver.mode_events("filter_reset"))
+
+
 def test_gauss_newton_iterates_match_jax():
-    gn = dict(quasi_newton="gauss-newton")
-    pj, pt, Z0_t, arrays = _pair(gn, dict(eval_hessian=False))
+    pj, pt, Z0_t, arrays, st, orders, _, _ = _gn_adaptive_mu()
     s = pt.solver
     modes = (s.exact_hessian, s.qn_lbfgs, s.fused_assembly_on, s.resto_on)
     assert modes == (False, False, False, True) == (
         pj.solver.exact_hessian, pj.solver.qn_lbfgs, pj.solver.fused_assembly_on,
         pj.solver.resto_on)
-    an = s.nlp.analytic
-    orders = []
-    banks = an.banks_batched
-    an.banks_batched = lambda Z, second_order=True: orders.append(second_order) or banks(
-        Z, second_order=second_order)
-    st = _lockstep(pj, pt, Z0_t, 10)
     # kernel 5 first order: the multiplier initialisation's Jacobian, then
     # once an iteration
     assert orders == [False] * 11
     # the AD route: the same steps without its curvature passes
-    ad, _ = _port(arrays, gn, dict(eval_hessian=False), dict(jacobian_structure=False))
+    ad, _ = _port(arrays, GN_ADAPTIVE_MU, dict(eval_hessian=False),
+                  dict(jacobian_structure=False))
     assert ad.solver.nlp.analytic is None
 
     def no_curvature(*args):
@@ -115,20 +141,10 @@ def test_gauss_newton_iterates_match_jax():
 
 
 def test_adaptive_mu_iterates_match_jax():
-    pj, pt, Z0_t, _ = _pair(dict(mu_strategy="adaptive"))
-    mus = []
-
-    def check(sj, st, k):
-        np.testing.assert_allclose(st.mu.numpy(), np.asarray(sj.mu), rtol=1e-6,
-                                   err_msg=f"mu, it {k}")
-        mus.append(st.mu.numpy())
-
-    _lockstep(pj, pt, Z0_t, 10, check)
-    mus = np.array(mus)
+    _, _, _, _, _, _, mus, resets = _gn_adaptive_mu()
     # the oracle moved μ off the monotone schedule's 0.1, and reset the
     # filter where it fell tenfold in one iteration
     assert mus.min() < 1e-2 and len(np.unique(mus[:, 1])) > 3
-    resets = pt.solver.mode_events("filter_reset")
     prev = np.vstack([np.full((1, 2), 0.1), mus[:-1]])
     np.testing.assert_array_equal(resets, mus < 0.1 * prev)
 
